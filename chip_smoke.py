@@ -8,13 +8,16 @@ Phases, one JSON line each on stdout:
 
 1. ``device``: the card, its power limit, torch and CUDA versions.
 2. ``build``: every kernel of ``tpujob_torch/csrc`` compiled with ``nvcc``
-   for sm_90a (all sources at once), with ptxas' register/spill report.
+   for sm_90a (all sources at once), with ptxas' register/spill report and
+   each warpgroup role's ``setmaxnreg`` budget; a spill fails the phase.
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
    length (s=1000) and with a sliding window (256): every element within
    RTOL x |plain| + ATOL x rms_row(plain) + FLOOR x rms(plain) of the
    plain version, and at the main shape the kernel's, the plain version's and the PyTorch library call's
-   times (CUDA events) beside the bound computed from the inputs.
+   times (CUDA events) beside the bound computed from the inputs, the
+   rate over the visible pairs' FLOPs (``tflops``) and ``bound_share``
+   (bound / time).
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error).
@@ -37,6 +40,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -143,6 +147,29 @@ def rel_err(got, ref) -> float:
     return ((got - ref).norm() / ref.norm()).item()
 
 
+def ptxas_report(build) -> list:
+    """ptxas' register and spill lines for each source (and its C75xx notes
+    of wgmma serialized or waits injected), beside the register budget
+    that ``setmaxnreg`` gives each warpgroup role where the source sets one
+    (ptxas reports the count at the kernel's entry only)."""
+    out = []
+    for log in sorted(build.build_dir().glob("*.log")):
+        text = log.read_text()
+        src = (build.CSRC / f"{log.stem}.cu").read_text()
+        roles = {role.lower(): {"setmaxnreg": int(n)} for role, n in
+                 re.findall(r"constexpr int k(Producer|Consumer)Regs = (\d+);",
+                            src)}
+        out.append({
+            "source": f"{log.stem}.cu",
+            "lines": [ln.strip() for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "setmaxnreg" in ln or "(C75" in ln],
+            "roles": roles or None,
+            "spill_bytes": sum(int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))})
+    return out
+
+
 def check_kernels(*, s: int, window: int, timed: bool) -> dict:
     """B1-B3 against their plain versions on one shape (causal)."""
     from tpujob_torch.workloads import flash
@@ -208,7 +235,9 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
             bms, by = bound(nbytes, flops)
             out[name].update(ms=ms[name], plain_ms=plain_ms[name],
                              bound_ms=bms, bound_by=by, bytes=nbytes,
-                             flops=flops, library_ms=lib.get(name),
+                             flops=flops, tflops=flops / ms[name] / 1e9,
+                             bound_share=bms / ms[name],
+                             library_ms=lib.get(name),
                              library_fn=lib.get("fn_" + name))
     emit({"phase": "kernel", "case": case, "shape": [b, s, h, d],
           "window": window, "rtol": RTOL, "atol_of_row_rms": ATOL,
@@ -398,7 +427,7 @@ KERNELS = {
                   "tpujob/workloads/flash.py:74"),
     "flash_dq": ("tpujob_torch/csrc/flash_bwd.cu",
                  "tpujob/workloads/flash.py:163"),
-    "flash_dkv": ("tpujob_torch/csrc/flash_bwd.cu",
+    "flash_dkv": ("tpujob_torch/csrc/flash_dkv.cu",
                   "tpujob/workloads/flash.py:197"),
 }
 
@@ -420,16 +449,14 @@ def main() -> int:
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda})
         t0 = time.perf_counter()
-        build.build_all()
-        for stem in build.SIGNATURES:
-            build.load(stem)
-        ptxas = []
-        for log in sorted(build.build_dir().glob("*.log")):
-            ptxas += [f"{log.stem}: {ln.strip()}" for ln in
-                      log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+        build.load_all()
+        ptxas = ptxas_report(build)
+        spilled = [r["source"] for r in ptxas if r["spill_bytes"]]
+        emit({"phase": "build", "ok": not spilled,
+              "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir()), "ptxas": ptxas})
+        if spilled:
+            raise AssertionError(f"ptxas spills registers in {spilled}")
 
         main_case = check_kernels(s=MAIN["s"], window=0, timed=True)
         check_kernels(s=1000, window=0, timed=False)
@@ -444,7 +471,8 @@ def main() -> int:
                          "replaces": replaces, "launches": launches[name],
                          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                         "bound_by": m["bound_by"],
+                         "bound_by": m["bound_by"], "tflops": m["tflops"],
+                         "bound_share": m["bound_share"],
                          "library_ms": m["library_ms"]})
         emit({"kernels": rows})
         print(smi, flush=True)

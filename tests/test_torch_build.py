@@ -1,0 +1,93 @@
+"""The ctypes bindings of ``tpujob_torch/kernels/build.py`` against the C
+sources in ``tpujob_torch/csrc`` (CPU only: the sources are parsed, not
+compiled).
+
+ctypes passes a Python int given for a ``c_int`` argument as 32 bits, so a
+pointer bound as an int is silently cut.  So every ``extern "C" int
+tpujob_*(...)`` must be in ``build.SIGNATURES`` under its source's stem,
+with as many arguments and ``c_void_p`` / ``c_int`` / ``c_float`` for each
+pointer / int / float; and every binding must name an entry point that
+exists.  The Hopper kernels (B1 and B3) must keep their wgmma + TMA +
+mbarrier design, with none of the mma.sync pieces of B2.
+"""
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+from tpujob_torch.kernels import build
+
+CSRC = Path(build.CSRC)
+ENTRY = re.compile(r'extern\s+"C"\s+int\s+(tpujob_\w+)\s*\(([^)]*)\)')
+CTYPES = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+          "float": ctypes.c_float}
+
+
+def c_kind(param: str) -> str:
+    """'pointer', 'int' or 'float' for one C parameter declaration."""
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return "pointer"
+    ctype = decl.rsplit(" ", 1)[0].replace("const ", "")
+    assert ctype in ("int", "float"), f"unbound C type in {param!r}"
+    return ctype
+
+
+def entry_points():
+    """(stem, symbol, [kind of each parameter]) of every C entry point."""
+    out = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        for sym, params in ENTRY.findall(cu.read_text()):
+            out.append((cu.stem, sym, [c_kind(p) for p in params.split(",")]))
+    return out
+
+
+ENTRIES = entry_points()
+BINDINGS = [(stem, sym) for stem, syms in build.SIGNATURES.items()
+            for sym in syms]
+
+
+def test_sources_have_entry_points():
+    assert {stem for stem, _, _ in ENTRIES} == {
+        cu.stem for cu in CSRC.glob("*.cu")}
+
+
+@pytest.mark.parametrize("stem,symbol,kinds", ENTRIES,
+                         ids=[f"{s}:{f}" for s, f, _ in ENTRIES])
+def test_entry_point_bound_with_matching_ctypes(stem, symbol, kinds):
+    assert symbol in build.SIGNATURES.get(stem, {}), \
+        f"{symbol} of csrc/{stem}.cu is not in build.SIGNATURES[{stem!r}]"
+    bound = build.SIGNATURES[stem][symbol]
+    assert len(bound) == len(kinds), (symbol, len(bound), len(kinds))
+    for i, (got, kind) in enumerate(zip(bound, kinds)):
+        assert got is CTYPES[kind], \
+            f"{symbol} argument {i}: C {kind}, bound as {got.__name__}"
+
+
+@pytest.mark.parametrize("stem,symbol", BINDINGS,
+                         ids=[f"{s}:{f}" for s, f in BINDINGS])
+def test_binding_names_an_entry_point_of_its_source(stem, symbol):
+    assert (stem, symbol) in {(s, f) for s, f, _ in ENTRIES}, \
+        f"build.SIGNATURES[{stem!r}] binds {symbol}, which csrc/{stem}.cu lacks"
+
+
+def test_c_kind_parses_declarations():
+    assert c_kind(" const void* q") == "pointer"
+    assert c_kind("void *stream") == "pointer"
+    assert c_kind("\n int B") == "int"
+    assert c_kind("float scale") == "float"
+    with pytest.raises(AssertionError):
+        c_kind("double x")
+
+
+@pytest.mark.parametrize("stem", ["flash_fwd", "flash_dkv"])
+def test_hopper_kernels_use_wgmma_tma_and_mbarriers(stem):
+    src = (CSRC / f"{stem}.cu").read_text()
+    for piece in ("hopper.cuh", "wgmma_m64", "tma_load_bshd", "mbar_wait",
+                  "mbar_arrive", "setmaxnreg_dec", "setmaxnreg_inc",
+                  "encode_bshd", "__grid_constant__"):
+        assert piece in src, f"{stem}.cu lacks {piece}"
+    for piece in ("mma16816", "mma.sync", "ld_col_pair", "load_tile",
+                  "mma_pt", "mma_abt"):
+        assert piece not in src, f"{stem}.cu uses {piece}"

@@ -39,8 +39,11 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seq,causal,window", [(256, False, 0), (256, True, 0),
-                                               (200, True, 0), (320, True, 96)])
+@pytest.mark.parametrize("seq,causal,window", [
+    (256, False, 0), (256, True, 0), (200, True, 0), (320, True, 96),
+    # the 128-row tiles' edges: under one tile, one row past a tile, a
+    # window under one tile, a ragged length without the causal mask
+    (40, True, 0), (130, True, 0), (320, True, 48), (200, False, 0)])
 def test_kernels_match_plain_versions(cuda, seq, causal, window):
     """B1-B3 on the card against flash_forward_ref / flash_dq_ref /
     flash_dkv_ref on the same bf16 inputs, element by element."""

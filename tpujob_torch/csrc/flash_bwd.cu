@@ -1,30 +1,25 @@
-// Flash-attention backward for Hopper (sm_90a): the FlashAttention-2 pair
-// of passes, bf16 in and out, fp32 accumulation.
+// Flash-attention dQ for Hopper (sm_90a), the first of the FlashAttention-2
+// pair of backward passes (the dK/dV pass is flash_dkv.cu), bf16 in and out,
+// fp32 accumulation.
 //
 // flash_dq_kernel replaces the Pallas kernel
 // tpujob/workloads/flash.py:_dq_kernel:
 //   dQ_i = scale * sum_j P_ij o (dO_i V_j^T - D_i) K_j
-// flash_dkv_kernel replaces tpujob/workloads/flash.py:_dkv_kernel:
-//   dV_j = sum_i P_ij^T dO_i,   dK_j = scale * sum_i dS_ij^T Q_i
 // P is recomputed from the forward's lse (P = exp(scale Q K^T - lse) on
 // visible positions, 0 elsewhere); D = rowsum(dO o O) comes in from the
 // wrapper, which computes it with one torch reduction as the JAX package
 // does outside Pallas.
 //
 // Bounds on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the GPT-2-medium
-// shape (b=8, s=1024, h=16, d=64, causal):
-//   dQ:    reads q, k, v, dO, lse, D and writes dQ, about 85 MB (25 us);
-//          25.8 GFLOP (26 us): about 26 us, bound by operations.
-//   dK/dV: reads the same and writes dK, dV, about 102 MB (30 us);
-//          34.4 GFLOP (35 us): about 35 us, bound by operations.
+// shape (b=8, s=1024, h=16, d=64, causal): it reads q, k, v, dO, lse, D and
+// writes dQ, about 85 MB (25 us); 25.8 GFLOP (26 us): about 26 us, bound by
+// operations.
 //
-// Design: the TPU grid's sequential axis becomes a loop inside the block.
-// dQ: one block per (q-tile, batch*head) loops over k-tiles; dK/dV: one
-// block per (k-tile, batch*head) loops over q-tiles, as the reference's
-// K-outer grid does, so neither pass needs atomics.  Loop bounds skip dead
-// tiles (the reference's _causal_live).  Each warp owns 16 rows of the
-// block's tile; every product is mma.sync with fp32 accumulators in
-// registers, and P / dS go from accumulator to operand in registers.
+// Design: one block per (q-tile, batch*head) loops over k-tiles (the TPU
+// grid's sequential axis), so no atomics.  Loop bounds skip dead tiles (the
+// reference's _causal_live).  Each warp owns 16 rows of the block's tile;
+// every product is mma.sync with fp32 accumulators in registers, and dS
+// goes from accumulator to operand in registers.
 #include "flash_common.cuh"
 
 using namespace tpujob_flash;
@@ -75,7 +70,7 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
 
   int kt_begin, kt_end;
-  k_range(q0, Sk, causal, window, &kt_begin, &kt_end);
+  k_range<kTile, kTile>(q0, Sk, causal, window, &kt_begin, &kt_end);
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
@@ -105,89 +100,6 @@ flash_dq_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   store_acc(dQ + qoff, stride, dq, row0, Sq, g, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                 const bf16* __restrict__ V, const bf16* __restrict__ dO,
-                 const float* __restrict__ LSE, const float* __restrict__ DELTA,
-                 bf16* __restrict__ dK, bf16* __restrict__ dV, int H, int Sq,
-                 int Sk, float scale, int causal, int window) {
-  __shared__ __align__(16) Tile sQ;
-  __shared__ __align__(16) Tile sDO;  // k, then v, before the loop
-  __shared__ float sLse[kTile];
-  __shared__ float sDelta[kTile];
-
-  // under causal the first k-tiles see the most q-tiles: launch them first
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long stride = (long)H * kD;
-  const long qoff = ((long)b * Sq * H + h) * kD;
-  const long koff = ((long)b * Sk * H + h) * kD;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile;
-  const int row0 = k0 + warp * 16;
-  const int krow[2] = {row0 + g, row0 + g + 8};
-
-  uint32_t kf[4][4], vf[4][4];
-  load_tile(sDO, K + koff, k0, Sk, stride);
-  __syncthreads();
-  load_a_frags(sDO, warp * 16, g, t, kf);
-  __syncthreads();
-  load_tile(sDO, V + koff, k0, Sk, stride);
-  __syncthreads();
-  load_a_frags(sDO, warp * 16, g, t, vf);
-
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  int qt_begin, qt_end;
-  q_range(k0, Sq, causal, window, &qt_begin, &qt_end);
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile(sQ, Q + qoff, q0, Sq, stride);
-    load_tile(sDO, dO + qoff, q0, Sq, stride);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool ok = q0 + r < Sq;
-      sLse[r] = ok ? LSE[(long)bh * Sq + q0 + r] : 0.f;
-      sDelta[r] = ok ? DELTA[(long)bh * Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T (rows: this warp's keys, columns: the tile's queries)
-    float pt[8][4], dpt[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) pt[i][e] = dpt[i][e] = 0.f;
-    mma_abt(pt, kf, sQ, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        pt[nt][e] = visible(q0 + qc, krow[e >> 1], Sq, Sk, causal, window)
-                        ? __expf(pt[nt][e] * scale - sLse[qc]) : 0.f;
-      }
-    mma_pt(dv, pt, sDO, g, t);     // dV += P^T dO
-    mma_abt(dpt, vf, sDO, g, t);   // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        dpt[nt][e] = pt[nt][e] * (dpt[nt][e] - sDelta[qc]) * scale;  // dS^T
-      }
-    mma_pt(dk, dpt, sQ, g, t);     // dK += dS^T Q
-  }
-  store_acc(dK + koff, stride, dk, row0, Sk, g, t);
-  store_acc(dV + koff, stride, dv, row0, Sk, g, t);
-}
-
 extern "C" int tpujob_flash_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int H,
@@ -199,19 +111,5 @@ extern "C" int tpujob_flash_dq(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq, H, Sq, Sk, scale,
       causal, window);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int tpujob_flash_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv, int B,
-                                int H, int Sq, int Sk, float scale, int causal,
-                                int window, void* stream) {
-  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((Sk + kTile - 1) / kTile, B * H);
-  flash_dkv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Sq, Sk,
-      scale, causal, window);
   return (int)cudaGetLastError();
 }

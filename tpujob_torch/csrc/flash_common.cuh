@@ -1,12 +1,14 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels: the mma.sync pieces of the
+// dQ kernel (flash_bwd.cu), and the layout, masks and loop bounds that the
+// wgmma kernels (flash_fwd.cu, flash_dkv.cu, with hopper.cuh) use too.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are contiguous [B, S, H, D] bf16 (the
 // JAX package's [batch, seq, heads, head_dim]); the kernels index it
 // directly, so no [B*H, S, D] transpose is ever materialised.  lse and
 // delta are flat fp32 [B, H, S].
 //
-// Tiles are 64 rows by D = 64 columns.  A block has four warps; in every
-// product a warp owns 16 rows of the block's tile and runs
+// The dQ kernel's tiles are 64 rows by D = 64 columns.  A block has four
+// warps; in every product a warp owns 16 rows of the block's tile and runs
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on fragments it reads from
 // shared memory.  Fragment layout (PTX ISA, mma.m16n8k16, .bf16), with
 // g = lane / 4 and t = lane % 4:
@@ -23,7 +25,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace tpujob_flash {
+
+using tpujob_hopper::pack_bf16x2;
 
 constexpr int kD = 64;           // head dim this build supports
 constexpr int kTile = 64;        // rows of a q-tile and of a k-tile
@@ -42,12 +48,6 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values as one bf16x2 register, lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // two adjacent bf16 of one smem row (column c even) as one register
@@ -80,10 +80,10 @@ __device__ __forceinline__ void load_a_frags(const Tile& s, int row0, int g,
 // k16 step kk (bf16).
 __device__ __forceinline__ void c_to_a(const float c[8][4], int kk,
                                        uint32_t a[4]) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  a[0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 // acc[16 x 64] += A[16 x 64] . T[64 rows x 64]^T, i.e. the n index runs
@@ -143,8 +143,8 @@ __device__ __forceinline__ void store_acc(bf16* base, long stride,
     if (r >= rows) continue;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t v = pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
-      *reinterpret_cast<uint32_t*>(base + (long)r * stride + nt * 8 + 2 * t) = v;
+      *reinterpret_cast<uint32_t*>(base + (long)r * stride + nt * 8 + 2 * t) =
+          pack_bf16x2(acc[nt][2 * half], acc[nt][2 * half + 1]);
     }
   }
 }
@@ -171,27 +171,31 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The k-tiles a q-tile starting at q0 must visit (the reference's
-// _causal_live as loop bounds): under causal stop at the tile holding key
-// q0+63, under a window start at the tile holding key q0-window+1.
+// The k-tiles (of KT rows) that the QT query rows from q0 must visit (the
+// reference's _causal_live as loop bounds): under causal stop at the tile
+// holding key q0+QT-1, under a window start at the tile holding key
+// q0-window+1.
+template <int QT, int KT>
 __device__ __forceinline__ void k_range(int q0, int sk, int causal, int window,
                                         int* begin, int* end) {
-  int b = 0, e = (sk + kTile - 1) / kTile;
+  int b = 0, e = (sk + KT - 1) / KT;
   if (causal) {
-    e = min(e, (q0 + kTile - 1) / kTile + 1);
-    if (window > 0 && q0 - window + 1 > 0) b = (q0 - window + 1) / kTile;
+    e = min(e, (q0 + QT - 1) / KT + 1);
+    if (window > 0 && q0 - window + 1 > 0) b = (q0 - window + 1) / KT;
   }
   *begin = b;
   *end = e;
 }
 
-// The q-tiles a k-tile starting at k0 must visit (the transpose of k_range).
+// The q-tiles (of QT rows) that the KT keys from k0 must visit (the
+// transpose of k_range).
+template <int KT, int QT>
 __device__ __forceinline__ void q_range(int k0, int sq, int causal, int window,
                                         int* begin, int* end) {
-  int b = 0, e = (sq + kTile - 1) / kTile;
+  int b = 0, e = (sq + QT - 1) / QT;
   if (causal) {
-    b = k0 / kTile;
-    if (window > 0) e = min(e, (k0 + kTile - 1 + window - 1) / kTile + 1);
+    b = k0 / QT;
+    if (window > 0) e = min(e, (k0 + KT - 1 + window - 1) / QT + 1);
   }
   *begin = b;
   *end = e;

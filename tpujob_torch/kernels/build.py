@@ -9,6 +9,7 @@ process each.
 
     from tpujob_torch.kernels import build
     lib = build.load("flash_fwd")      # ctypes.CDLL, argtypes set
+    build.load_all()                   # every library, built in parallel
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, scale, causal, window, stream
         "tpujob_flash_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                             _i, _i, _p],
+    },
+    "flash_dkv": {
         # q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal,
         # window, stream
         "tpujob_flash_dkv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
@@ -126,6 +129,12 @@ def load(stem: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[stem] = lib
         return lib
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Every library of ``SIGNATURES``, all missing ones built at once."""
+    build_all()
+    return {stem: load(stem) for stem in SIGNATURES}
 
 
 def check(rc: int, what: str) -> None:

@@ -456,8 +456,7 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
         # the counted loop, so a resumed run stays step-exact
         from tpujob_torch.kernels import build
 
-        build.load("flash_fwd")
-        build.load("flash_bwd")
+        build.load_all()
     _sync(device)
     t0 = time.perf_counter()
     losses = []

@@ -7,7 +7,7 @@ kernel (wrapper)      source                          replaces
 ====================  ==============================  =========================
 ``flash_fwd_cuda``    ``csrc/flash_fwd.cu``           ``_flash_kernel``
 ``flash_dq_cuda``     ``csrc/flash_bwd.cu`` (dQ)      ``_dq_kernel``
-``flash_dkv_cuda``    ``csrc/flash_bwd.cu`` (dK/dV)   ``_dkv_kernel``
+``flash_dkv_cuda``    ``csrc/flash_dkv.cu``           ``_dkv_kernel``
 ====================  ==============================  =========================
 
 Beside each kernel sits its plain PyTorch version with the same math
@@ -221,7 +221,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     sk = k.shape[1]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = build.load("flash_bwd")
+    lib = build.load("flash_dkv")
     with torch.cuda.device(q.device):
         rc = lib.tpujob_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
