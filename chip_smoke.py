@@ -9,7 +9,10 @@ Phases, one JSON line each on stdout:
 1. ``device``: the card, its power limit, torch and CUDA versions.
 2. ``build``: every kernel of ``tpujob_torch/csrc`` compiled with ``nvcc``
    for sm_90a (all sources at once), with ptxas' register/spill report and
-   each warpgroup role's ``setmaxnreg`` budget; a spill fails the phase.
+   each warpgroup role's ``setmaxnreg`` budget; a spill fails the phase, and
+   so does ptxas' C7518 ("wgmma serialized") or C7517 ("warpgroup.wait
+   injected"): all three kernels are wgmma kernels, and either note means
+   the products of one no longer overlap.
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
    length (s=1000) and with a sliding window (256): every element within
@@ -17,7 +20,8 @@ Phases, one JSON line each on stdout:
    plain version, and at the main shape the kernel's, the plain version's and the PyTorch library call's
    times (CUDA events) beside the bound computed from the inputs, the
    rate over the visible pairs' FLOPs (``tflops``) and ``bound_share``
-   (bound / time).
+   (bound / time); ``backward``: B2 and B3 launched back to back, timed
+   together, beside SDPA's backward (one call for dQ, dK and dV).
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error).
@@ -166,7 +170,8 @@ def ptxas_report(build) -> list:
                       or "setmaxnreg" in ln or "(C75" in ln],
             "roles": roles or None,
             "spill_bytes": sum(int(a) + int(b) for a, b in re.findall(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))})
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)),
+            "wgmma_notes": sorted(set(re.findall(r"\(C751[78]\)", text)))})
     return out
 
 
@@ -230,7 +235,13 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
             "flash_dkv": time_ms(lambda: flash.flash_dkv_ref(
                 q, k, v, do, lse_r, delta, **kw), iters=5),
         }
+        bwd_ms = time_ms(lambda: (
+            flash.flash_dq_cuda(q, k, v, do, lse_r, delta, **kw),
+            flash.flash_dkv_cuda(q, k, v, do, lse_r, delta, **kw)))
         lib = library_ms(q, k, v, do) if not window else {}
+        backward = {"kernels": ["flash_dq", "flash_dkv"], "ms": bwd_ms,
+                    "library_ms": lib.get("flash_dq"),
+                    "library_fn": lib.get("fn_flash_dq")}
         for name, (nbytes, flops) in shapes.items():
             bms, by = bound(nbytes, flops)
             out[name].update(ms=ms[name], plain_ms=plain_ms[name],
@@ -242,7 +253,7 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
     emit({"phase": "kernel", "case": case, "shape": [b, s, h, d],
           "window": window, "rtol": RTOL, "atol_of_row_rms": ATOL,
           "floor_of_rms": FLOOR, "ok": ok,
-          "kernels": out})
+          "kernels": out, **({"backward": backward} if timed else {})})
     if not ok:
         raise AssertionError(f"kernel mismatch in case {case}: {out}")
     return out
@@ -425,7 +436,7 @@ def run_train() -> dict:
 KERNELS = {
     "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
                   "tpujob/workloads/flash.py:74"),
-    "flash_dq": ("tpujob_torch/csrc/flash_bwd.cu",
+    "flash_dq": ("tpujob_torch/csrc/flash_dq.cu",
                  "tpujob/workloads/flash.py:163"),
     "flash_dkv": ("tpujob_torch/csrc/flash_dkv.cu",
                   "tpujob/workloads/flash.py:197"),
@@ -452,11 +463,15 @@ def main() -> int:
         build.load_all()
         ptxas = ptxas_report(build)
         spilled = [r["source"] for r in ptxas if r["spill_bytes"]]
-        emit({"phase": "build", "ok": not spilled,
+        serialized = [r["source"] for r in ptxas if r["wgmma_notes"]]
+        emit({"phase": "build", "ok": not spilled and not serialized,
               "seconds": time.perf_counter() - t0,
               "dir": str(build.build_dir()), "ptxas": ptxas})
         if spilled:
             raise AssertionError(f"ptxas spills registers in {spilled}")
+        if serialized:
+            raise AssertionError("ptxas serializes wgmma (C7518) or injects "
+                                 f"warpgroup waits (C7517) in {serialized}")
 
         main_case = check_kernels(s=MAIN["s"], window=0, timed=True)
         check_kernels(s=1000, window=0, timed=False)

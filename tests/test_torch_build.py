@@ -7,8 +7,9 @@ pointer bound as an int is silently cut.  So every ``extern "C" int
 tpujob_*(...)`` must be in ``build.SIGNATURES`` under its source's stem,
 with as many arguments and ``c_void_p`` / ``c_int`` / ``c_float`` for each
 pointer / int / float; and every binding must name an entry point that
-exists.  The Hopper kernels (B1 and B3) must keep their wgmma + TMA +
-mbarrier design, with none of the mma.sync pieces of B2.
+exists.  All three kernels (B1 ``flash_fwd.cu``, B2 ``flash_dq.cu``, B3
+``flash_dkv.cu``) must keep their wgmma + TMA + mbarrier design, and no
+source or header may hold the mma.sync pieces of the first port.
 """
 import ctypes
 import re
@@ -81,13 +82,40 @@ def test_c_kind_parses_declarations():
         c_kind("double x")
 
 
-@pytest.mark.parametrize("stem", ["flash_fwd", "flash_dkv"])
+# the identifiers of the mma.sync pieces of the first port (flash_common.cuh
+# before the Hopper redesign)
+MMA_SYNC_PIECES = {"mma16816", "ld_pair", "ld_col_pair", "load_a_frags",
+                   "c_to_a", "mma_abt", "mma_pt", "load_tile", "store_acc",
+                   "Tile", "kPitch", "kThreads", "kTile", "visible"}
+
+
+def mma_sync_pieces(src: str) -> set:
+    """The mma.sync pieces that a C source names outside its comments."""
+    code = re.sub(r"//[^\n]*", "", src)
+    found = MMA_SYNC_PIECES & set(re.findall(r"\w+", code))
+    return found | ({"mma.sync"} if "mma.sync" in code else set())
+
+
+@pytest.mark.parametrize("stem", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_hopper_kernels_use_wgmma_tma_and_mbarriers(stem):
     src = (CSRC / f"{stem}.cu").read_text()
     for piece in ("hopper.cuh", "wgmma_m64", "tma_load_bshd", "mbar_wait",
                   "mbar_arrive", "setmaxnreg_dec", "setmaxnreg_inc",
                   "encode_bshd", "__grid_constant__"):
         assert piece in src, f"{stem}.cu lacks {piece}"
-    for piece in ("mma16816", "mma.sync", "ld_col_pair", "load_tile",
-                  "mma_pt", "mma_abt"):
-        assert piece not in src, f"{stem}.cu uses {piece}"
+    assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
+
+
+@pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh"])
+def test_headers_hold_no_mma_sync_pieces(name):
+    src = (CSRC / name).read_text()
+    assert not mma_sync_pieces(src), f"{name} holds {mma_sync_pieces(src)}"
+
+
+def test_mma_sync_pieces_are_found():
+    old = ("__device__ void mma16816(float c[4]);  // mma.sync m16n8k16\n"
+           "typedef bf16 Tile[kTile][kPitch];\n")
+    assert mma_sync_pieces(old) == {"mma16816", "Tile", "kTile", "kPitch"}
+    assert mma_sync_pieces('asm("mma.sync.aligned.m16n8k16 ...");') == {
+        "mma.sync"}
+    assert not mma_sync_pieces("// visible pairs; EncodeTiledFn fn;")

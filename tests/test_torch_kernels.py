@@ -43,7 +43,11 @@ def cuda():
     (256, False, 0), (256, True, 0), (200, True, 0), (320, True, 96),
     # the 128-row tiles' edges: under one tile, one row past a tile, a
     # window under one tile, a ragged length without the causal mask
-    (40, True, 0), (130, True, 0), (320, True, 48), (200, False, 0)])
+    (40, True, 0), (130, True, 0), (320, True, 48), (200, False, 0),
+    # B2's 64-row warpgroups and 64-key tiles: the second warpgroup of the
+    # only q-tile with 32 rows in S and 32 past it; a window wider than one
+    # k-tile and not a multiple of it
+    (96, True, 0), (512, True, 200)])
 def test_kernels_match_plain_versions(cuda, seq, causal, window):
     """B1-B3 on the card against flash_forward_ref / flash_dq_ref /
     flash_dkv_ref on the same bf16 inputs, element by element."""

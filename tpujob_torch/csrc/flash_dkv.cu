@@ -1,5 +1,5 @@
 // Flash-attention dK/dV for Hopper (sm_90a), the second of the
-// FlashAttention-2 pair of backward passes (dQ is flash_bwd.cu), bf16 in
+// FlashAttention-2 pair of backward passes (dQ is flash_dq.cu), bf16 in
 // and out, fp32 accumulation.
 //
 // flash_dkv_kernel replaces the Pallas kernel

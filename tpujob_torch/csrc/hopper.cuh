@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash kernels flash_fwd.cu and
-// flash_dkv.cu: TMA tensor maps and loads, mbarriers, wgmma descriptors and
-// instructions, setmaxnreg.
+// Hopper (sm_90a) building blocks of the flash kernels flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu: TMA tensor maps and loads, mbarriers, wgmma
+// descriptors and instructions, setmaxnreg.
 //
 // Tiles in shared memory are [rows][64] bf16, one 128-byte row per tile
 // row, written by TMA with the 128-byte swizzle (16-byte chunk c of row r

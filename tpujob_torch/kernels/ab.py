@@ -45,8 +45,7 @@ def _launcher(lib, stem: str, args: dict):
     """A no-argument launch of the version's kernel on `args`, and the
     outputs it writes."""
     fn = getattr(lib, f"tpujob_{stem}")
-    fn.argtypes = build.SIGNATURES["flash_bwd" if stem == "flash_dq"
-                                   else stem][f"tpujob_{stem}"]
+    fn.argtypes = build.SIGNATURES[stem][f"tpujob_{stem}"]
     q, k, v, do, lse, delta = (args[n] for n in
                                ("q", "k", "v", "do", "lse", "delta"))
     stream = torch.cuda.current_stream().cuda_stream

@@ -39,7 +39,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, o, lse, B, H, Sq, Sk, scale, causal, window, stream
         "tpujob_flash_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
     },
-    "flash_bwd": {
+    "flash_dq": {
         # q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, scale, causal, window, stream
         "tpujob_flash_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
                             _i, _i, _p],

@@ -6,7 +6,7 @@ Three hand-written CUDA kernels for Hopper replace the three Pallas ones:
 kernel (wrapper)      source                          replaces
 ====================  ==============================  =========================
 ``flash_fwd_cuda``    ``csrc/flash_fwd.cu``           ``_flash_kernel``
-``flash_dq_cuda``     ``csrc/flash_bwd.cu`` (dQ)      ``_dq_kernel``
+``flash_dq_cuda``     ``csrc/flash_dq.cu``            ``_dq_kernel``
 ``flash_dkv_cuda``    ``csrc/flash_dkv.cu``           ``_dkv_kernel``
 ====================  ==============================  =========================
 
@@ -162,9 +162,6 @@ def _check_kernel_args(name: str, *tensors) -> None:
                         f"{[x.dtype for x in tensors[:4]]}")
     if any(x.dtype != torch.float32 for x in tensors[4:]):
         raise TypeError(f"{name}: lse and delta must be fp32")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError(f"{name}: batch*heads {q.shape[0] * q.shape[2]} "
-                         "exceeds the grid's 65535")
 
 
 def _stream(x) -> int:
@@ -200,7 +197,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     dq = torch.empty_like(q)
-    lib = build.load("flash_bwd")
+    lib = build.load("flash_dq")
     with torch.cuda.device(q.device):
         rc = lib.tpujob_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
