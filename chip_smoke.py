@@ -3,6 +3,8 @@
 every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repo root, one CUDA card
+    python3 chip_smoke.py --decode-prompt 896 --decode-new 128
+                                     # the decode phase at a longer buffer
 
 Phases, one JSON line each on stdout:
 
@@ -15,16 +17,23 @@ Phases, one JSON line each on stdout:
    the products of one no longer overlap.
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
-   length (s=1000) and with a sliding window (256): every element within
-   RTOL x |plain| + ATOL x rms_row(plain) + FLOOR x rms(plain) of the
-   plain version, and at the main shape the kernel's, the plain version's and the PyTorch library call's
-   times (CUDA events) beside the bound computed from the inputs, the
-   rate over the visible pairs' FLOPs (``tflops``) and ``bound_share``
-   (bound / time); ``backward``: B2 and B3 launched back to back, timed
-   together, beside SDPA's backward (one call for dQ, dK and dV).
+   length (s=1000), with a sliding window (256), at the BERT-large
+   shapes without the mask (case ``bert_s512``: b=8, s=512, h=16), and at
+   the decode buffer's shape (case ``decode_s64``: the full route's B1,
+   causal, s = prompt + new tokens): every element within RTOL x |plain|
+   + ATOL x rms_row(plain) + FLOOR x rms(plain) of the plain version,
+   and at the GPT, BERT and decode shapes the
+   kernel's, the plain version's and the PyTorch library call's times
+   (CUDA events, the launches queued behind a busy-wait kernel so that
+   the device, not the host, is timed) beside the bound computed from the
+   inputs, the rate over the visible pairs' FLOPs (``tflops``) and
+   ``bound_share`` (bound / time); ``backward``: B2 and B3 launched back
+   to back, timed together, beside SDPA's backward (one call for dQ, dK
+   and dV).
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
-   parameter's gradient, by normwise relative error).
+   parameter's gradient, by normwise relative error); ``model_bert``: the
+   same for a 2-layer full-width BERT (seq 512, non-causal) on the MLM loss.
 5. ``train``: the main path — ``gpt.run`` trains GPT-2-medium (24 layers,
    hidden 1024, 16 heads, vocab 50257, seq 1024, batch 8, bf16, remat,
    flash attention) for 16 steps from a seed; losses must be finite and
@@ -33,14 +42,32 @@ Phases, one JSON line each on stdout:
    steps 13-16 under torch.profiler, device time by kernel class and the
    device's busy share of those steps (the profiler's own host cost
    included: compare ``host_step_ms`` with the unprofiled steps).
+6. ``mlm``: the second path — ``bert.run`` trains BERT-large (24 layers,
+   hidden 1024, 16 heads, intermediate 4096, vocab 30522, seq 512, batch 8,
+   bf16, remat, flash attention) for 10 steps from a seed: losses finite
+   and falling, every kernel launched, each launch without the causal
+   mask; tokens/s and the per-step ms.
+7. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
+   GPT-2-medium, then on that model, from a batch-8 prompt of 16 synthetic
+   tokens, 48 greedy new tokens by each route: ``generate_cached`` (dense
+   attention on the KV cache) launches no kernel, ``generate`` (full
+   re-forward, flash) exactly 48 x 24 forward kernels and no backward one.
+   A forward of the same weights with dense attention (no kernel) is the
+   reference: every chosen token's logit, teacher-forced over its
+   sequence, lies within MODEL_TOL x rms(logits) of its row's maximum
+   there, and each route's own logits (the cached route teacher-forced
+   through its cache, the full route's flash forward) match it by normwise
+   error; decode tokens/s and ms per new token for each route.
 
-Then the ``kernels`` summary line, the card's ``name, power.limit`` as
-nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.  Any
-failure (no card, no package, a build error, a mismatch, a kernel the main
-path never launched) exits non-zero before the last line.
+Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
+launched it), the card's ``name, power.limit`` as nvidia-smi prints them,
+and last ``{"ok": true, "device": {...}}``.  Any failure (no card, no
+package, a build error, a mismatch, a kernel a path never launched) exits
+non-zero before the last line.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -51,6 +78,7 @@ import subprocess
 import sys
 import time
 import traceback
+from contextlib import contextmanager
 
 import torch
 
@@ -74,11 +102,17 @@ MAIN = dict(b=8, s=1024, h=16, d=64)
 RTOL = ATOL = 2e-2
 FLOOR = 1e-3
 LSE_TOL = 1e-3  # lse is fp32 in both; only exp/log approximations differ
-# Flash GPT vs dense GPT (two attention algorithms in bf16): the
-# normwise relative error ||flash - dense|| / ||dense|| of the logits and
-# of each parameter's gradient.
+# Flash vs dense attention in one model (two attention algorithms in
+# bf16): the normwise relative error ||flash - dense|| / ||dense|| of the
+# logits and of each parameter's gradient; in decode, the gap between a
+# chosen token's logit and its row's maximum, over the row's rms.
 MODEL_TOL = 5e-2
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 4
+MLM_STEPS = 10
+# decode: a batch of 8; by default a prompt of 16 tokens and 48 new ones (a
+# 64-position buffer, a smoke check of both routes and of B1 at one
+# q-tile), longer with --decode-prompt / --decode-new
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 16, 48
 
 
 def emit(obj) -> None:
@@ -94,11 +128,26 @@ def smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a busy-wait kernel that outlasts their launches, so the
+    events time the device, not the host (a 0.04 ms kernel is shorter
+    than one launch from Python on a slow host)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 2e3 * (time.perf_counter() - t0) + 1.0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    # the busy-wait's rate in cycles per ms, on this card now
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    stop.record()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_ms * 10_000_000 / start.elapsed_time(stop)))
     start.record()
     for _ in range(iters):
         fn()
@@ -175,8 +224,9 @@ def ptxas_report(build) -> list:
     return out
 
 
-def check_kernels(*, s: int, window: int, timed: bool) -> dict:
-    """B1-B3 against their plain versions on one shape (causal)."""
+def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
+                  case: str = "") -> dict:
+    """B1-B3 against their plain versions on one shape."""
     from tpujob_torch.workloads import flash
 
     b, h, d = MAIN["b"], MAIN["h"], MAIN["d"]
@@ -187,8 +237,8 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
                            generator=gen)
 
     q, k, v, do = rnd(), rnd(), rnd(), rnd()
-    kw = dict(causal=True, scale=d ** -0.5, window=window)
-    case = f"s{s}" + (f"_w{window}" if window else "")
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    case = case or f"s{s}" + (f"_w{window}" if window else "")
 
     o_k, lse_k = flash.flash_fwd_cuda(q, k, v, **kw)
     o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
@@ -212,7 +262,7 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
     }
     ok = all(r["ok"] for r in out.values())
     if timed:
-        pairs = b * h * visible_pairs(s, s, True, window)
+        pairs = b * h * visible_pairs(s, s, causal, window)
         qkv = q.numel() * 2
         rows = b * h * s * 4  # one fp32 per row (lse or delta)
         shapes = {
@@ -238,7 +288,7 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
         bwd_ms = time_ms(lambda: (
             flash.flash_dq_cuda(q, k, v, do, lse_r, delta, **kw),
             flash.flash_dkv_cuda(q, k, v, do, lse_r, delta, **kw)))
-        lib = library_ms(q, k, v, do) if not window else {}
+        lib = library_ms(q, k, v, do, causal) if not window else {}
         backward = {"kernels": ["flash_dq", "flash_dkv"], "ms": bwd_ms,
                     "library_ms": lib.get("flash_dq"),
                     "library_fn": lib.get("fn_flash_dq")}
@@ -251,7 +301,7 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
                              library_ms=lib.get(name),
                              library_fn=lib.get("fn_" + name))
     emit({"phase": "kernel", "case": case, "shape": [b, s, h, d],
-          "window": window, "rtol": RTOL, "atol_of_row_rms": ATOL,
+          "causal": causal, "window": window, "rtol": RTOL, "atol_of_row_rms": ATOL,
           "floor_of_rms": FLOOR, "ok": ok,
           "kernels": out, **({"backward": backward} if timed else {})})
     if not ok:
@@ -259,41 +309,36 @@ def check_kernels(*, s: int, window: int, timed: bool) -> dict:
     return out
 
 
-def library_ms(q, k, v, do) -> dict:
+def library_ms(q, k, v, do, causal: bool) -> dict:
     """One PyTorch call computing the same function, as a yardstick only:
-    scaled_dot_product_attention (causal) and its autograd backward, which
-    computes dQ, dK and dV in one call."""
+    scaled_dot_product_attention and its autograd backward, which computes
+    dQ, dK and dV in one call."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=causal))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     bwd = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     return {"flash_fwd": fwd, "flash_dq": bwd, "flash_dkv": bwd,
-            "fn_flash_fwd": "F.scaled_dot_product_attention(is_causal=True)",
+            "fn_flash_fwd": "F.scaled_dot_product_attention("
+                            f"is_causal={causal})",
             "fn_flash_dq": "its backward (dq, dk, dv in one call)",
             "fn_flash_dkv": "its backward (dq, dk, dv in one call)"}
 
 
-def check_model() -> None:
-    """A 2-layer full-width GPT on the card: flash attention (kernels)
-    against dense attention (torch) on the same weights."""
-    from tpujob_torch.workloads import bert as bertlib
-    from tpujob_torch.workloads import distributed, gpt
-
-    argv = ["--layers", "2", "--seq-len", "256", "--batch-size", "2",
-            "--device", DEVICE]
+def compare_models(phase: str, build, loss_of, argv: list,
+                   logits_shape: tuple) -> None:
+    """A 2-layer full-width model on the card: flash attention (kernels)
+    against dense attention (torch) on the same weights (the same seed):
+    logits, loss, and each parameter's gradient by normwise error."""
     out = {}
     for attn in ("dense", "flash"):
-        args = gpt.build_parser().parse_args(argv + ["--attention", attn])
-        model = gpt.build_model(args, torch.device(DEVICE))
-        ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
-        batch = (bertlib.batch_to_device(ids, DEVICE),)
-        loss = gpt.lm_loss(model)(batch)
+        model, batch = build(argv + ["--attention", attn])
+        loss = loss_of(model)(batch)
         loss.backward()
         with torch.no_grad():
             logits = model(batch[0])
@@ -313,8 +358,8 @@ def check_model() -> None:
     finite = bool(torch.isfinite(lf).all()) and math.isfinite(lossf)
     ok = (finite and e_logits <= MODEL_TOL and abs(lossf - lossd) <= 2e-2
           and grad_errs[worst] <= MODEL_TOL and key_bias <= MODEL_TOL
-          and tuple(lf.shape) == (2, 256, 50257))
-    emit({"phase": "model", "ok": ok, "logits_shape": list(lf.shape),
+          and tuple(lf.shape) == logits_shape)
+    emit({"phase": phase, "ok": ok, "logits_shape": list(lf.shape),
           "logits_rel_err": e_logits, "rel_tol": MODEL_TOL,
           "loss_flash": lossf, "loss_dense": lossd, "loss_tol": 2e-2,
           "grad_rel_err_worst": grad_errs[worst], "grad_worst_param": worst,
@@ -322,7 +367,44 @@ def check_model() -> None:
               len(grad_errs) // 2],
           "key_bias_grad_norm_over_query_bias": key_bias})
     if not ok:
-        raise AssertionError("flash GPT disagrees with dense GPT on the card")
+        raise AssertionError(f"{phase}: flash disagrees with dense on the card")
+
+
+def check_model() -> None:
+    """A 2-layer full-width GPT (causal flash)."""
+    from tpujob_torch.workloads import bert as bertlib
+    from tpujob_torch.workloads import distributed, gpt
+
+    def build(argv):
+        args = gpt.build_parser().parse_args(argv)
+        ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
+        return (gpt.build_model(args, torch.device(DEVICE)),
+                (bertlib.batch_to_device(ids, DEVICE),))
+
+    compare_models("model", build, gpt.lm_loss,
+                   ["--layers", "2", "--seq-len", "256", "--batch-size", "2",
+                    "--device", DEVICE], (2, 256, 50257))
+
+
+def check_model_bert() -> None:
+    """A 2-layer full-width BERT (non-causal flash) on the MLM loss, with
+    the mask ``bert.run`` draws."""
+    import numpy as np
+
+    from tpujob_torch.workloads import bert as bertlib
+    from tpujob_torch.workloads import distributed
+
+    def build(argv):
+        args = bertlib.build_parser().parse_args(argv)
+        ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
+        _, mask = bertlib.mask_batch(np.zeros_like(ids), args.seed)
+        return (bertlib.build_model(args, torch.device(DEVICE)),
+                (bertlib.batch_to_device(ids, DEVICE),
+                 torch.from_numpy(mask).to(DEVICE)))
+
+    compare_models("model_bert", build, bertlib.mlm_loss,
+                   ["--layers", "2", "--seq-len", "512", "--batch-size", "2",
+                    "--device", DEVICE], (2, 512, 30522))
 
 
 def kernel_class(name: str) -> str:
@@ -433,6 +515,181 @@ def run_train() -> dict:
     return launches
 
 
+def step_stats(stamps: list, first: int) -> dict:
+    """Per-step host ms from the stamps after step ``first - 1`` on."""
+    ms = [(y - x) * 1e3 for x, y in zip(stamps[first - 1:], stamps[first:])]
+    quart = statistics.quantiles(ms, n=4)
+    return {"step_ms_median": statistics.median(ms),
+            "step_ms_q1_q3": [quart[0], quart[2]], "step_ms_all": ms}
+
+
+@contextmanager
+def causal_flags():
+    """Record the ``causal`` argument of every kernel launch, by kernel
+    (the wrappers still launch and count as before)."""
+    from tpujob_torch.workloads import flash
+
+    seen = {name: set() for name in flash.LAUNCHES}
+    originals = {name: getattr(flash, name + "_cuda") for name in seen}
+
+    def recording(name):
+        def wrapper(*args, **kw):
+            seen[name].add(kw["causal"])
+            return originals[name](*args, **kw)
+        return wrapper
+
+    for name in seen:
+        setattr(flash, name + "_cuda", recording(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(flash, name + "_cuda", fn)
+
+
+def run_mlm() -> dict:
+    """The second path: BERT-large masked LM through bert.run, launches
+    counted and each launch's mask recorded."""
+    from tpujob_torch.workloads import bert, flash
+
+    logdir = os.path.join("build", "chip_smoke", "mlm")
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = ["--attention", "flash", "--batch-size", "8", "--steps",
+            str(MLM_STEPS), "--log-interval", "1", "--seed", "0", "--dir",
+            logdir, "--device", DEVICE]
+    args = bert.build_parser().parse_args(argv)
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    with causal_flags() as seen:
+        res = bert.run(args, on_step=on_step)
+    launches = dict(flash.LAUNCHES)
+    losses = res["losses"]
+    ok = (len(losses) == MLM_STEPS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
+          and all(v == {False} for v in seen.values()))
+    n_params = sum(p.numel() for p in res["state"]["model"].parameters())
+    emit({"phase": "mlm", "ok": ok, "argv": argv, "params": n_params,
+          "losses": losses, "trainer_tokens_per_sec": res["tokens_per_sec"],
+          "wall_s": res["wall_s"], **step_stats(stamps, WARMUP_STEPS),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": launches,
+          "launches_per_step": {k: n / MLM_STEPS for k, n in launches.items()},
+          "causal_flags": {k: sorted(v) for k, v in seen.items()}})
+    if not ok:
+        raise AssertionError(f"mlm path failed: losses {losses}, launches "
+                             f"{launches}, causal flags {seen}")
+    return launches
+
+
+def chosen_within_tol(logits, out, first: int) -> float:
+    """The worst (row max - chosen token's logit) / rms(row) over the
+    generated positions of ``out``, token j chosen from row j - 1."""
+    rows = logits[:, first - 1 : -1].float()
+    chosen = torch.gather(rows, -1, out[:, first:, None])[..., 0]
+    gap = rows.amax(-1) - chosen
+    return (gap / rows.square().mean(-1).sqrt()).max().item()
+
+
+def run_decode(p: int, new: int) -> dict:
+    """The serving path: gpt.run --generate through the entry point, then
+    both decode routes on the trained model from a prompt of ``p`` tokens,
+    ``new`` tokens each, launches counted per route."""
+    from tpujob_torch.workloads import bert as bertlib
+    from tpujob_torch.workloads import distributed, flash, gpt
+
+    logdir = os.path.join("build", "chip_smoke", "decode")
+    shutil.rmtree(logdir, ignore_errors=True)
+    b = DECODE_BATCH
+    argv = ["--attention", "flash", "--batch-size", str(b),
+            "--steps", "1", "--generate", "32", "--seed", "0", "--dir",
+            logdir, "--device", DEVICE]
+    args = gpt.build_parser().parse_args(argv)
+    flash.reset_launches()
+    res = gpt.run(args)
+    entry = dict(flash.LAUNCHES)  # one training step; the decode adds none
+    gen = res["generated"]
+    layers = args.layers
+    entry_ok = (tuple(gen.shape) == (1, 8 + 32)
+                and bool(((gen >= 0) & (gen < args.vocab)).all())
+                and entry == {"flash_fwd": 2 * layers, "flash_dq": layers,
+                              "flash_dkv": layers})
+
+    model = res["state"]["model"]
+    ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
+    prompt = bertlib.batch_to_device(ids[:, :p], DEVICE)
+    routes, launches = {}, {}
+    for name, fn in (("cached", gpt.generate_cached), ("full", gpt.generate)):
+        # warm-up (allocator, library heuristics) from a short prompt: the
+        # cached route's prefill is one forward a prompt token
+        fn(model, prompt[:, :16], 2)
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(model, prompt, new)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches[name] = dict(flash.LAUNCHES)
+        routes[name] = {"out": out, "tokens_per_sec": b * new / sec,
+                        "ms_per_new_token": sec * 1e3 / new}
+
+    # the check: one teacher-forced forward over each route's output by the
+    # same weights with dense attention (plain torch, no kernel), so that
+    # neither route is held to the attention that chose its tokens
+    ref = gpt.build_model(argparse.Namespace(**{**vars(args),
+                                                "attention": "dense"}),
+                          torch.device(DEVICE))
+    ref.load_state_dict(model.state_dict())
+    checks = {}
+    with torch.no_grad():
+        for name, r in routes.items():
+            logits = ref(r["out"])
+            checks[name] = {"chosen_gap_over_rms": chosen_within_tol(
+                logits, r["out"], p)}
+            if name == "cached":
+                # the cached route's own logits over the same sequence
+                cache = model.new_cache(b, p + new)
+                steps = []
+                for i in range(p + new - 1):
+                    lg, cache = model(r["out"][:, i : i + 1], cache=cache)
+                    steps.append(lg[:, 0])
+                checks[name]["vs_dense_rel_err"] = rel_err(
+                    torch.stack(steps, 1), logits[:, :-1])
+            else:
+                # the full route's flash forward (B1 at the buffer's shape)
+                checks[name]["vs_dense_rel_err"] = rel_err(
+                    model(r["out"]), logits)
+    del ref
+    agree = (routes["cached"]["out"][:, p:]
+             == routes["full"]["out"][:, p:]).float().mean().item()
+    ok = (entry_ok
+          and launches["cached"] == {"flash_fwd": 0, "flash_dq": 0,
+                                     "flash_dkv": 0}
+          and launches["full"] == {"flash_fwd": new * layers, "flash_dq": 0,
+                                   "flash_dkv": 0}
+          and all(torch.equal(r["out"][:, :p], prompt)
+                  for r in routes.values())
+          and all(c["chosen_gap_over_rms"] <= MODEL_TOL
+                  and c["vs_dense_rel_err"] <= MODEL_TOL
+                  for c in checks.values()))
+    emit({"phase": "decode", "ok": ok, "argv": argv,
+          "entry_generated": gen[0].tolist(), "entry_launches": entry,
+          "batch": b, "prompt": p, "new_tokens": new,
+          "routes": {name: {k: v for k, v in r.items() if k != "out"}
+                     for name, r in routes.items()},
+          "launches": launches, "checks": checks, "tol": MODEL_TOL,
+          "token_agreement_share": agree})
+    if not ok:
+        raise AssertionError(f"decode path failed: entry {entry}, launches "
+                             f"{launches}, checks {checks}")
+    return launches["full"]
+
+
 KERNELS = {
     "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
                   "tpujob/workloads/flash.py:74"),
@@ -443,7 +700,20 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--decode-prompt", type=int, default=DECODE_PROMPT,
+                   help="prompt tokens of the decode phase (at least 16)")
+    p.add_argument("--decode-new", type=int, default=DECODE_NEW,
+                   help="new tokens of each decode route")
+    args = p.parse_args(argv)
+    if args.decode_prompt < 16 or args.decode_new < 1:
+        p.error("--decode-prompt must be >= 16 and --decode-new >= 1")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 1
@@ -476,8 +746,16 @@ def main() -> int:
         main_case = check_kernels(s=MAIN["s"], window=0, timed=True)
         check_kernels(s=1000, window=0, timed=False)
         check_kernels(s=MAIN["s"], window=256, timed=False)
+        check_kernels(s=512, window=0, timed=True, causal=False,
+                      case="bert_s512")
+        # B1 at the decode buffer's shape, as the full route launches it
+        s_dec = args.decode_prompt + args.decode_new
+        check_kernels(s=s_dec, window=0, timed=True, case=f"decode_s{s_dec}")
         check_model()
-        launches = run_train()
+        check_model_bert()
+        by_path = {"train": run_train(), "mlm": run_mlm(),
+                   "decode": run_decode(args.decode_prompt, args.decode_new)}
+        launches = by_path["train"]
 
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -488,7 +766,11 @@ def main() -> int:
                          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                          "bound_by": m["bound_by"], "tflops": m["tflops"],
                          "bound_share": m["bound_share"],
-                         "library_ms": m["library_ms"]})
+                         "library_ms": m["library_ms"],
+                         "paths": [path for path, n in by_path.items()
+                                   if n[name] > 0],
+                         "launches_by_path": {path: n[name] for path, n
+                                              in by_path.items()}})
         emit({"kernels": rows})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

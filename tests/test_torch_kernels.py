@@ -47,7 +47,11 @@ def cuda():
     # B2's 64-row warpgroups and 64-key tiles: the second warpgroup of the
     # only q-tile with 32 rows in S and 32 past it; a window wider than one
     # k-tile and not a multiple of it
-    (96, True, 0), (512, True, 200)])
+    (96, True, 0), (512, True, 200),
+    # BERT-large's length without the mask (every q-tile sees all 8 key
+    # tiles of 64); decode's fixed buffer, one 128-row q-tile whose second
+    # warpgroup lies wholly past S
+    (512, False, 0), (64, True, 0)])
 def test_kernels_match_plain_versions(cuda, seq, causal, window):
     """B1-B3 on the card against flash_forward_ref / flash_dq_ref /
     flash_dkv_ref on the same bf16 inputs, element by element."""
@@ -111,3 +115,27 @@ def test_train_step_launches_each_kernel(cuda, tmp_path):
     res = gpt.run(args)
     assert flash.LAUNCHES == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
     assert all(torch.isfinite(torch.tensor(res["losses"])))
+
+
+@pytest.mark.gpu
+def test_generate_launches_the_forward_kernel_only(cuda):
+    """``gpt.generate`` with flash attention on the card runs B1 once a
+    layer a new token, under no_grad (no B2, no B3); the cached route
+    launches none."""
+    from tpujob_torch.workloads import gpt
+
+    args = gpt.build_parser().parse_args([
+        "--hidden", "128", "--heads", "2", "--layers", "2",
+        "--intermediate", "256", "--vocab", "211", "--seq-len", "64",
+        "--batch-size", "2", "--attention", "flash"])
+    model = gpt.build_model(args, cuda)
+    prompt = torch.randint(0, 211, (2, 8), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    flash.reset_launches()
+    out = gpt.generate(model, prompt, 6)
+    assert flash.LAUNCHES == {"flash_fwd": 12, "flash_dq": 0, "flash_dkv": 0}
+    flash.reset_launches()
+    cached = gpt.generate_cached(model, prompt, 6)
+    assert flash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert out.shape == cached.shape == (2, 14)
+    assert torch.equal(out[:, :8], prompt)

@@ -6,8 +6,11 @@ mirrors its module names one for one and runs on an NVIDIA Hopper card
 entry point runs on ``cuda`` unless the caller asks for ``cpu``; asking
 for ``cuda`` where there is no card raises instead of falling back.
 
-- ``tpujob_torch.workloads`` — the trainers (GPT, the BERT trunk they share)
-  and their training core, distributed bootstrap and data.
+- ``tpujob_torch.workloads`` — the trainers and their training core,
+  distributed bootstrap and data.  Entry points:
+  ``python -m tpujob_torch.workloads.bert`` (BERT-large masked LM) and
+  ``python -m tpujob_torch.workloads.gpt`` (GPT-2-medium causal LM, with
+  ``--generate N`` to decode after training).
 - ``tpujob_torch.csrc``      — the hand-written CUDA C++ kernels.
 - ``tpujob_torch.kernels``   — builds them with ``nvcc`` at first use and
   binds them with ``ctypes``.

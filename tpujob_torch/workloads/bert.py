@@ -3,10 +3,13 @@
 The BERT encoder and the GPT decoder are one machine here as in the JAX
 package: post-LN blocks, learned (or rotary) positions, a tied LM head,
 rematerialised blocks.  What is ported: ``rope``, ``Attention`` (training
-branch), ``Block`` with the dense FFN, ``Bert`` (embed / head / forward),
-the flag surface, the synthetic ``token_batches``, the flag checks that
-apply to one process, ``build_model`` (dense and flash attention) and the
-``train`` loop.
+branch and the KV-cache branch of decode), ``Block`` with the dense FFN,
+``Bert`` (embed / head / forward, and decode one token at a time against
+an explicit ``KVCache``), the masked-LM objective (``mask_batch``,
+``mlm_loss``), the flag surface, the synthetic ``token_batches``, the flag
+checks that apply to one process, ``build_model`` (dense and flash
+attention), the ``train`` loop (gradient accumulation, ``--profile-dir``)
+and ``run``/``main``.
 
 Parity with flax, made explicit rather than left to autocast:
 
@@ -21,14 +24,17 @@ Parity with flax, made explicit rather than left to autocast:
   ln_attn, ln_mlp, mlp_wi, mlp_wo}``) so ``convert.params_from_flax`` is a
   mechanical rename.
 
-Entry point: ``python -m tpujob_torch.workloads.gpt`` (the causal family).
+Entry points (on the card; ``--device cpu`` for the CPU):
+    python -m tpujob_torch.workloads.bert --attention flash --batch-size 8 --steps 5
+    python -m tpujob_torch.workloads.gpt   (the causal family, and decode)
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpujob_torch import resolve_device
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import parallel, train_lib
@@ -102,32 +109,73 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
 
 
 class Attention(nn.Module):
-    """Multi-head (or grouped-query) self-attention, training branch."""
+    """Multi-head (or grouped-query) self-attention.  Training runs the
+    ``attention_fn`` (dense or flash) over the whole sequence; decode
+    (``cache`` given) attends one new token against the KV cache."""
 
     def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
                  attention_fn: Optional[Callable], gen: torch.Generator,
-                 kv_heads: Optional[int] = None, use_rope: bool = False):
+                 kv_heads: Optional[int] = None, use_rope: bool = False,
+                 window: int = 0):
         super().__init__()
         self.hidden, self.heads = hidden, heads
         self.hkv = kv_heads or heads
         self.d = hidden // heads
         self.attention_fn = attention_fn or parallel.full_attention
         self.use_rope = use_rope
+        # causal sliding window (0 = full context); the cached decode masks
+        # slots behind it so it matches windowed training exactly
+        self.window = window
         self.query = Dense(hidden, hidden, dtype, gen)
         self.key = Dense(hidden, self.hkv * self.d, dtype, gen)
         self.value = Dense(hidden, self.hkv * self.d, dtype, gen)
         self.out = Dense(hidden, hidden, dtype, gen)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
+        """``cache``: ``(k, v, index)`` of this layer in decode, else None."""
         b, s, _ = x.shape
         q = self.query(x).reshape(b, s, self.heads, self.d)
         k = self.key(x).reshape(b, s, self.hkv, self.d)
         v = self.value(x).reshape(b, s, self.hkv, self.d)
-        if self.use_rope:
-            pos = torch.arange(s, device=x.device)
-            q, k = rope(q, pos), rope(k, pos)
-        o = self.attention_fn(q, k, v)  # [b, s, h, d]
+        if cache is not None:
+            o = self._attend_cache(q, k, v, *cache)
+        else:
+            if self.use_rope:
+                pos = torch.arange(s, device=x.device)
+                q, k = rope(q, pos), rope(k, pos)
+            o = self.attention_fn(q, k, v)  # [b, s, h, d]
         return self.out(o.reshape(b, s, self.hidden))
+
+    def _attend_cache(self, q, k, v, ck, cv, i: int):
+        """One decode position against the cache (``bert.py`` cache branch):
+        write this token's K/V at slot ``i`` (in place), then a grouped
+        einsum over the KV heads in the compute dtype, as the JAX package
+        computes it (bf16 scores, mask and softmax under --bf16)."""
+        b, s = q.shape[:2]
+        if s != 1:
+            raise ValueError(
+                f"cached decode feeds one position at a time, got {s}")
+        if self.use_rope:
+            # rotate at the decode cursor; the cache holds rotated keys
+            pos = torch.tensor([i], device=q.device)
+            q, k = rope(q, pos), rope(k, pos)
+        ck[:, i] = k[:, 0]
+        cv[:, i] = v[:, 0]
+        rep = self.heads // self.hkv
+        # the rep query heads sharing a KV head attend the cache directly,
+        # with no rep-times K/V repeat
+        qg = q.reshape(b, s, self.hkv, rep, self.d)
+        sc = torch.einsum("bqhrd,bkhd->bhrqk", qg, ck) * self.d ** -0.5
+        # causal: only filled slots (<= i) are visible, and with a window
+        # only the trailing ``window`` of them
+        slots = torch.arange(ck.shape[1], device=q.device)
+        vis = slots <= i
+        if self.window:
+            vis = vis & (i - slots < self.window)
+        sc = sc.masked_fill(~vis, -1e30)
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhrqk,bkhd->bqhrd", p, cv)
+        return o.reshape(b, s, self.heads, self.d)
 
 
 class Block(nn.Module):
@@ -136,19 +184,37 @@ class Block(nn.Module):
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dtype: torch.dtype, attention_fn: Optional[Callable],
                  gen: torch.Generator, kv_heads: Optional[int] = None,
-                 use_rope: bool = False):
+                 use_rope: bool = False, window: int = 0):
         super().__init__()
         self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
-                              kv_heads, use_rope)
+                              kv_heads, use_rope, window)
         self.ln_attn = LayerNorm(hidden, dtype)
         self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
         self.mlp_wo = Dense(intermediate, hidden, dtype, gen)
         self.ln_mlp = LayerNorm(hidden, dtype)
 
-    def forward(self, x):
-        x = self.ln_attn(x + self.attn(x))
+    def forward(self, x, cache=None):
+        x = self.ln_attn(x + self.attn(x, cache))
         h = F.gelu(self.mlp_wi(x), approximate="tanh")
         return self.ln_mlp(x + self.mlp_wo(h))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode state of a whole trunk, passed into ``Bert.forward`` and
+    returned by it (flax kept it in a mutable ``cache`` collection).
+
+    ``k[l]``/``v[l]``: layer ``l``'s keys (rotated under RoPE) and values,
+    ``[batch, length, kv_heads, head_dim]`` in the compute dtype: KV heads
+    only, the grouped-query memory saving.  ``index``: the slot the next
+    token writes, shared by every layer.  ``position``: the trunk's cursor
+    into the learned ``pos_embed``.  A forward writes the new token's K/V
+    into the buffers in place and returns a cache one slot further on."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    index: int = 0
+    position: int = 0
 
 
 class Bert(nn.Module):
@@ -160,9 +226,9 @@ class Bert(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attention_fn: Optional[Callable] = None, remat: bool = True,
                  final_ln: bool = False, kv_heads: Optional[int] = None,
-                 use_rope: bool = False, seed: int = 0):
+                 use_rope: bool = False, window: int = 0, seed: int = 0):
         super().__init__()
-        self.vocab, self.layers = vocab, layers
+        self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
         self.use_rope = use_rope
         gen = torch.Generator().manual_seed(seed)
@@ -182,12 +248,15 @@ class Bert(nn.Module):
         for i in range(layers):
             setattr(self, f"layer_{i}", Block(
                 hidden, heads, intermediate, dtype, attention_fn, gen,
-                kv_heads, use_rope))
+                kv_heads, use_rope, window))
 
-    def embed(self, ids):
+    def embed(self, ids, position: int = 0):
+        """Token embedding plus the learned positions from ``position`` on
+        (the decode cursor; 0 for a whole sequence)."""
         x = F.embedding(ids, self.token_embed.weight.to(self.dtype))
         if not self.use_rope:
-            x = x + self.pos_embed[None, : ids.shape[1]].to(self.dtype)
+            pos = self.pos_embed[position : position + ids.shape[1]]
+            x = x + pos[None].to(self.dtype)
         return self.ln_embed(x)
 
     def head(self, x):
@@ -200,7 +269,11 @@ class Bert(nn.Module):
                               self.token_embed.weight.to(self.dtype).t())
         return logits[..., : self.vocab]
 
-    def forward(self, ids):
+    def forward(self, ids, cache: Optional[KVCache] = None):
+        """Logits of ``ids`` [b, s]; with ``cache``, decode: ``ids`` is one
+        position [b, 1], and the result is ``(logits, next cache)``."""
+        if cache is not None:
+            return self._decode(ids, cache)
         x = self.embed(ids)
         for i in range(self.layers):
             blk = getattr(self, f"layer_{i}")
@@ -210,6 +283,56 @@ class Bert(nn.Module):
             else:
                 x = blk(x)
         return self.head(x)
+
+    def _decode(self, ids, cache: KVCache):
+        """One position through the trunk with every layer's attention on
+        the cache (dense, whatever the training attention_fn), no remat."""
+        x = self.embed(ids, cache.position)
+        for i in range(self.layers):
+            x = getattr(self, f"layer_{i}")(
+                x, (cache.k[i], cache.v[i], cache.index))
+        return self.head(x), dataclasses.replace(
+            cache, index=cache.index + 1, position=cache.position + 1)
+
+    def new_cache(self, batch: int, length: int) -> KVCache:
+        """An empty cache of ``length`` slots on the model's device."""
+        attn = self.layer_0.attn
+        shape = (batch, length, attn.hkv, attn.d)
+        dev = self.token_embed.weight.device
+        return KVCache(
+            k=[torch.zeros(shape, dtype=self.dtype, device=dev)
+               for _ in range(self.layers)],
+            v=[torch.zeros(shape, dtype=self.dtype, device=dev)
+               for _ in range(self.layers)])
+
+
+# ---------------------------------------------------------------------------
+# masked-LM objective
+# ---------------------------------------------------------------------------
+
+
+def mlm_loss(model: Bert, mask_id: int = 103):
+    """Masked LM: predict the original ids at the masked positions.
+    ``mask_id`` is the [MASK] token (103, the WordPiece id, for synthetic
+    vocabularies).  The log-softmax runs in the logits' dtype (bf16 under
+    --bf16) and the masked mean in fp32, as in the JAX package."""
+
+    def loss_fn(batch):
+        ids, mask = batch  # mask: 1.0 where the position is predicted
+        masked_ids = torch.where(mask > 0, mask_id, ids)
+        logp = torch.log_softmax(model(masked_ids), dim=-1)
+        tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
+        return -(tok_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    return loss_fn
+
+
+def mask_batch(ids: np.ndarray, seed: int, rate: float = 0.15):
+    """(ids, mask): a fixed 15% mask drawn from ``seed`` (the JAX
+    package's draw, so the masks are the same arrays)."""
+    rng = np.random.RandomState(seed)
+    mask = (rng.rand(*ids.shape) < rate).astype(np.float32)
+    return ids, mask
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +369,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-steps", type=int, default=0,
                    help="linear LR warmup from 0 over this many steps")
     p.add_argument("--grad-accum", type=int, default=1,
-                   help="(not yet ported; must be 1)")
+                   help="average grads over this many mini-steps per "
+                        "optimizer update (effective batch multiplier)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
@@ -279,10 +403,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(not yet ported; must be 1)")
     p.add_argument("--no-remat", dest="remat", action="store_false", default=True)
     p.add_argument("--log-interval", type=int, default=20)
-    p.add_argument("--profile-dir", default=None,
-                   help="(not yet ported)")
-    p.add_argument("--profile-start-step", type=int, default=2)
-    p.add_argument("--profile-steps", type=int, default=3)
+    train_lib.add_profile_flags(p)
     p.add_argument("--checkpoint-interval", type=int, default=0,
                    help="steps between checkpoints; 0 disables")
     p.add_argument("--data-file", default=None, help="(not yet ported)")
@@ -308,13 +429,10 @@ def reject_unported(args) -> None:
     if getattr(args, "moe_experts", 0) > 0:
         raise NotImplementedError("--moe-experts is not yet ported to "
                                   "tpujob_torch")
-    if getattr(args, "grad_accum", 1) > 1:
-        raise NotImplementedError("--grad-accum > 1 is not yet ported to "
-                                  "tpujob_torch")
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
-    for flag in ("data_file", "tokenizer", "profile_dir"):
+    for flag in ("data_file", "tokenizer"):
         if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not yet ported to "
@@ -398,7 +516,7 @@ def build_model(args, device, *, causal: bool = False,
         attention_fn=attention_fn, remat=args.remat, final_ln=final_ln,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
-        seed=args.seed,
+        window=window, seed=args.seed,
     )
     return model.to(device)
 
@@ -412,21 +530,40 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
           tag: str = "bert",
           on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
     """Single-process training loop: AdamW with the flag surface's
-    schedule, step-exact checkpoint/resume, and honest throughput (the
-    clock starts after set-up, ends after the device has finished).
+    schedule, gradient accumulation (``--grad-accum``, optax.MultiSteps),
+    step-exact checkpoint/resume, ``--profile-dir``, and honest throughput
+    (the clock starts after set-up, ends after the device has finished,
+    and leaves out the time spent writing a trace).
 
     ``loss_fn(batch) -> scalar`` runs ``model``; ``batch`` is a tuple of
     tensors already on the model's device.  ``on_step(i)``, if given, runs
     after step ``i`` inside the clock (a caller's timer or profiler)."""
     validate_parallel_flags(args)
+    accum = getattr(args, "grad_accum", 1)
+    if accum > 1 and args.steps % accum != 0:
+        raise ValueError(
+            f"--steps {args.steps} must be a multiple of --grad-accum "
+            f"{accum} (trailing mini-steps would accumulate gradients "
+            "that never apply)")
+    if accum > 1 and getattr(args, "warmup_steps", 0) % accum != 0:
+        raise ValueError(
+            f"--warmup-steps {args.warmup_steps} must be a multiple of "
+            f"--grad-accum {accum} (the schedule advances once per "
+            "accumulated update)")
     device = next(model.parameters()).device
     writer = train_lib.SummaryWriter(args.dir, enabled=pe.process_id == 0)
+    # the schedule advances once per optimizer update: the flag surface's
+    # mini-step units become update units
     lr_fn = train_lib.make_lr_schedule(
         args.lr, getattr(args, "lr_schedule", "constant"),
-        getattr(args, "warmup_steps", 0), args.steps)
+        getattr(args, "warmup_steps", 0) // accum, args.steps // accum)
     optimizer = train_lib.adamw(model.parameters(), args.lr)
-    train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn)
+    accumulator = train_lib.with_grad_accum(model.parameters(), accum)
+    train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
+                                           accumulator)
     state = {"model": model, "opt": optimizer, "step": 0}
+    if accumulator is not None:
+        state["accum"] = accumulator  # checkpointed: resume mid-group
 
     ckpt = None
     start_step = 0
@@ -457,20 +594,27 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
         from tpujob_torch.kernels import build
 
         build.load_all()
+    profiler = train_lib.profiler_from_args(args, pe, device)
     _sync(device)
     t0 = time.perf_counter()
     losses = []
-    for i in range(start_step, args.steps):
-        state, loss = train_step(state, batch)
-        losses.append(loss)
-        if i % args.log_interval == 0:
-            writer.add_scalar("loss", float(loss), i)
-        if ckpt and (i + 1) % args.checkpoint_interval == 0:
-            ckpt.save(i + 1, state)
-        if on_step is not None:
-            on_step(i)
-    _sync(device)
-    wall = time.perf_counter() - t0
+    loss = None
+    try:
+        for i in range(start_step, args.steps):
+            profiler.step(i - start_step, block_on=loss)
+            state, loss = train_step(state, batch)
+            losses.append(loss)
+            if i % args.log_interval == 0:
+                writer.add_scalar("loss", float(loss), i)
+            if ckpt and (i + 1) % args.checkpoint_interval == 0:
+                ckpt.save(i + 1, state)
+            if on_step is not None:
+                on_step(i)
+        _sync(device)
+        # a trace written mid-loop is not training time
+        wall = time.perf_counter() - t0 - profiler.overhead_s
+    finally:
+        profiler.close(block_on=loss)
     steps_run = args.steps - start_step
     sps = steps_run * args.batch_size / wall
     tps = sps * args.seq_len
@@ -481,9 +625,39 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
         print(f"{tag}(h{args.hidden}xl{args.layers}): {sps:.1f} samples/sec, "
               f"{tps:.0f} tokens/sec, loss={final_loss:.3f}")
     return {"samples_per_sec": sps, "tokens_per_sec": tps, "wall_s": wall,
-            "final_loss": final_loss, "losses": losses, "state": state}
+            "final_loss": final_loss, "losses": losses, "state": state,
+            "profile_overhead_s": profiler.overhead_s}
 
 
 def batch_to_device(ids: np.ndarray, device) -> torch.Tensor:
     """int32 host ids as the int64 device tensor embedding/gather take."""
     return torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(device)
+
+
+def run(args, *, on_step: Optional[Callable[[int], None]] = None
+        ) -> Dict[str, Any]:
+    """BERT masked-LM pretraining from the flags on the synthetic batch,
+    with one fixed mask drawn from ``--seed`` (the JAX package's synthetic
+    path; ``--data-file``/``--tokenizer`` are not ported).  ``on_step(i)``
+    runs after each step (see ``train``)."""
+    pe = dist.initialize()
+    device = resolve_device(getattr(args, "device", "cuda"))
+    model = build_model(args, device)
+    ids0, _, _ = token_batches(args, pe)
+    lo, sz = dist.local_batch_slice(args.batch_size, pe)
+    # the GLOBAL mask, sliced to this process's rows
+    _, mask = mask_batch(np.zeros((args.batch_size, args.seq_len), np.int32),
+                         args.seed)
+    batch = (batch_to_device(ids0, device),
+             torch.from_numpy(mask[lo : lo + sz]).to(device))
+    return train(args, pe, model, mlm_loss(model), batch, on_step=on_step)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,11 +5,17 @@ The trunk of ``tpujob_torch.workloads.bert`` with a causal mask through the
 attention path the flags pick (dense torch, or the hand-written flash
 kernels), a GPT-2-style ``ln_f`` before the tied head, and next-token
 cross-entropy.  Sized GPT-2-medium by default (hidden 1024, 24 layers, 16
-heads, vocab 50257 padded to 50304, seq 1024).  Decode (``--generate``) is
-not ported yet.
+heads, vocab 50257 padded to 50304, seq 1024).
+
+Decode, the serving path: ``sample_next`` (greedy, temperature, top-k,
+top-p), ``generate`` (the full forward over a fixed buffer at every step;
+with ``--attention flash`` on the card it runs the forward kernel) and
+``generate_cached`` (one token a step against a KV cache, dense attention
+as in the JAX package).  ``--generate N`` decodes N tokens after training.
 
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
+    python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
 """
 from __future__ import annotations
 
@@ -37,12 +43,116 @@ def lm_loss(model):
     return loss_fn
 
 
+def sample_next(logit: torch.Tensor, rng: Optional[torch.Generator], *,
+                temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 0.0) -> torch.Tensor:
+    """One sampling decision over [batch, vocab] logits, the policy both
+    decode routes share.  ``temperature`` 0 is greedy argmax (top-k/top-p
+    ignored); otherwise a draw from ``rng`` over the softmax of the logits
+    that ``truncate`` keeps."""
+    if temperature <= 0.0:
+        return torch.argmax(logit, dim=-1)
+    logit = truncate(logit, temperature=temperature, top_k=top_k, top_p=top_p)
+    probs = torch.softmax(logit.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=rng)[:, 0]
+
+
+def truncate(logit: torch.Tensor, *, temperature: float, top_k: int = 0,
+             top_p: float = 0.0) -> torch.Tensor:
+    """``logit / temperature`` with the dropped tokens set to -inf:
+    ``top_k`` keeps every logit >= the k-th highest (ties kept);
+    ``top_p`` keeps each token whose PRECEDING mass in the sorted
+    distribution is < p (the token that crosses p stays in) and cuts at
+    the least kept logit, ties kept (``gpt.py`` ``sample_next``)."""
+    logit = logit / temperature
+    if top_k > 0:
+        kth = torch.topk(logit, top_k, dim=-1).values[..., -1:]
+        logit = logit.masked_fill(logit < kth, float("-inf"))
+    if top_p > 0.0:
+        sorted_logit = torch.sort(logit, dim=-1, descending=True).values
+        csum = torch.cumsum(torch.softmax(sorted_logit, dim=-1), dim=-1)
+        keep = torch.cat([torch.ones_like(csum[..., :1], dtype=torch.bool),
+                          csum[..., :-1] < top_p], dim=-1)
+        cutoff = torch.where(keep, sorted_logit,
+                             float("inf")).amin(dim=-1, keepdim=True)
+        logit = logit.masked_fill(logit < cutoff, float("-inf"))
+    return logit
+
+
+def _decode_buffer(model, prompt: torch.Tensor, max_new_tokens: int,
+                   temperature: float, rng) -> torch.Tensor:
+    """The checks both routes share, and the [b, prompt + new] id buffer
+    with the prompt written in."""
+    b, p = prompt.shape
+    total = p + max_new_tokens
+    if total > model.max_seq:
+        raise ValueError(
+            f"prompt {p} + max_new_tokens {max_new_tokens} exceeds the "
+            f"model's max_seq {model.max_seq}")
+    if temperature > 0 and rng is None:
+        raise ValueError("temperature > 0 sampling needs an rng generator")
+    buf = torch.zeros((b, total), dtype=torch.long, device=prompt.device)
+    buf[:, :p] = prompt
+    return buf
+
+
+def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Autoregressive decode by the full forward over a fixed buffer at
+    every step: the causal mask makes the positions past the cursor inert.
+    Under ``no_grad``, so with flash attention on the card each step is one
+    forward-kernel launch a layer and no backward.  Returns [b, prompt +
+    max_new_tokens] ids."""
+    buf = _decode_buffer(model, prompt, max_new_tokens, temperature, rng)
+    p = prompt.shape[1]
+    with torch.no_grad():
+        for i in range(max_new_tokens):
+            # token i is written at position p+i, predicted from p+i-1
+            logit = model(buf)[:, p + i - 1]
+            buf[:, p + i] = sample_next(logit, rng, temperature=temperature,
+                                        top_k=top_k, top_p=top_p)
+    return buf
+
+
+def generate_cached(model, prompt: torch.Tensor, max_new_tokens: int, *,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0,
+                    rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """KV-cached decode: one position a step against a cache sized to the
+    decode (``Bert.new_cache``), attention dense whatever the training
+    attention path.  One loop covers prefill and generation: prompt
+    positions feed the known token, later ones the sampled one.  The cache
+    is made here and dropped at the end: nothing survives the call."""
+    buf = _decode_buffer(model, prompt, max_new_tokens, temperature, rng)
+    b, p = prompt.shape
+    cache = model.new_cache(b, buf.shape[1])
+    with torch.no_grad():
+        for i in range(buf.shape[1] - 1):
+            logits, cache = model(buf[:, i : i + 1], cache=cache)
+            if i + 1 >= p:  # within the prompt the next token is known
+                buf[:, i + 1] = sample_next(
+                    logits[:, 0], rng, temperature=temperature, top_k=top_k,
+                    top_p=top_p)
+    return buf
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The BERT flag surface with decoder defaults (GPT-2-medium shapes,
-    GPT-2 vocab)."""
+    GPT-2 vocab) and the decode flags."""
     p = bertlib.build_parser()
     p.description = "GPT (decoder-only) causal-LM pretrain (PyTorch port)"
     p.set_defaults(vocab=50257, seq_len=1024)
+    p.add_argument("--generate", type=int, default=0, metavar="N",
+                   help="after training, decode N tokens from a "
+                        "training-batch prefix and print the ids")
+    p.add_argument("--generate-temperature", type=float, default=0.0,
+                   help="0 = greedy; > 0 samples from the softmax")
+    p.add_argument("--generate-top-k", type=int, default=0,
+                   help="sample only from the k highest logits (0 = off)")
+    p.add_argument("--generate-top-p", type=float, default=0.0,
+                   help="nucleus sampling: smallest prefix of the sorted "
+                        "distribution reaching this mass (0 = off)")
     return p
 
 
@@ -52,15 +162,44 @@ def build_model(args, device):
 
 def run(args, *, on_step: Optional[Callable[[int], None]] = None
         ) -> Dict[str, Any]:
-    """Train from the flags; ``on_step(i)`` runs after each step (see
-    ``bert.train``)."""
+    """Train from the flags, then with ``--generate N`` decode N tokens
+    (KV-cached) from the first ids of the batch's row 0 and print them;
+    the ids are also returned as ``generated``.  ``on_step(i)`` runs after
+    each step (see ``bert.train``)."""
     pe = dist.initialize()
+    n_gen = getattr(args, "generate", 0)
+    temp = getattr(args, "generate_temperature", 0.0)
+    # both checks fail BEFORE training, not after the whole run
+    if n_gen >= args.seq_len:
+        raise ValueError(
+            f"--generate {n_gen} must leave room for a prompt within "
+            f"--seq-len {args.seq_len} (need generate <= seq-len - 1)")
+    if temp <= 0.0 and (getattr(args, "generate_top_k", 0)
+                        or getattr(args, "generate_top_p", 0.0)):
+        # greedy decode ignores the truncation flags: never drop one
+        raise ValueError(
+            "--generate-top-k/--generate-top-p need "
+            "--generate-temperature > 0 (greedy decode samples nothing)")
     device = resolve_device(getattr(args, "device", "cuda"))
     model = build_model(args, device)
-    ids0, _, _ = bertlib.token_batches(args, pe)
+    ids0, _, sample = bertlib.token_batches(args, pe)
     batch = (bertlib.batch_to_device(ids0, device),)
-    return bertlib.train(args, pe, model, lm_loss(model), batch, tag="gpt",
-                         on_step=on_step)
+    result = bertlib.train(args, pe, model, lm_loss(model), batch, tag="gpt",
+                           on_step=on_step)
+    if n_gen > 0:
+        prompt = bertlib.batch_to_device(
+            sample[:, : min(8, args.seq_len - n_gen)], device)
+        rng = None
+        if temp > 0:
+            rng = torch.Generator(device=device).manual_seed(args.seed)
+        out = generate_cached(
+            model, prompt, n_gen, temperature=temp,
+            top_k=getattr(args, "generate_top_k", 0),
+            top_p=getattr(args, "generate_top_p", 0.0), rng=rng)
+        if pe.process_id == 0:
+            print(f"generated ids: {out[0].tolist()}")
+        result["generated"] = out
+    return result
 
 
 def main(argv=None) -> int:

@@ -7,13 +7,19 @@
 - ``make_lr_schedule``: optax's warmup / cosine / constant values, evaluated
   at the optimizer's update count BEFORE the update (optax's convention).
 - ``make_train_step``: forward, backward, one optimizer update (the
-  counterpart of ``_step_body``).
+  counterpart of ``_step_body``), or with the ``GradAccum`` that
+  ``with_grad_accum`` gives one update every ``every`` mini-steps
+  (optax.MultiSteps).
 - ``Checkpointer``: step-numbered ``torch.save`` checkpoints with the same
   ``latest_step``/``restore``/``restore_latest``/``max_to_keep`` contract.
+- ``Profiler``, ``add_profile_flags``, ``profiler_from_args``: the
+  ``--profile-*`` surface on ``torch.profiler`` (a Chrome trace where the
+  JAX package writes an xplane one).
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import shutil
@@ -51,6 +57,99 @@ class SummaryWriter:
         if self._f:
             self._f.close()
             self._f = None
+
+
+class Profiler:
+    """``--profile-dir`` hook: traces ``num_steps`` steady-state steps with
+    ``torch.profiler`` and writes one Chrome trace
+    (``<profile_dir>/trace_steps<a>-<b>.pt.trace.json``, for Perfetto or
+    ``chrome://tracing``).  CUDA activity when the model is on the card,
+    CPU activity on the CPU.
+
+    Skips the first ``start_step`` steps (allocator and kernel-build
+    warm-up); only process 0 traces.  Call ``step(i)`` at the top of each
+    loop iteration and ``close()`` from ``finally``: one window a run.
+    ``overhead_s`` is the time spent stopping the trace and writing it, for
+    callers to leave out of their clock."""
+
+    def __init__(self, profile_dir: Optional[str], start_step: int = 2,
+                 num_steps: int = 3, enabled: Optional[bool] = None,
+                 device=None):
+        if enabled is None:
+            enabled = dist.process_env().process_id == 0
+        self.profile_dir = profile_dir
+        self.start_step = start_step
+        self.stop_step = start_step + max(1, num_steps)
+        self.enabled = bool(profile_dir) and enabled
+        on_card = device is not None and torch.device(device).type == "cuda"
+        self._activity = (torch.profiler.ProfilerActivity.CUDA if on_card
+                          else torch.profiler.ProfilerActivity.CPU)
+        self._prof = None
+        self.path: Optional[str] = None
+        self.overhead_s = 0.0
+
+    def step(self, step: int, block_on=None) -> None:
+        """Call at each loop iteration's top; ``block_on`` is the previous
+        step's output: the card runs behind the host, so the window waits
+        for the traced steps to finish before it stops."""
+        if not self.enabled:
+            return
+        if self._prof is None and self.start_step <= step < self.stop_step:
+            self._prof = torch.profiler.profile(activities=[self._activity])
+            self._prof.start()
+        elif self._prof is not None and step >= self.stop_step:
+            self._finish(block_on)
+
+    def close(self, block_on=None) -> None:
+        """Stop a window still open (a short run, or an exception inside
+        the window): the profiler is process-wide."""
+        if self._prof is not None:
+            self._finish(block_on)
+
+    def _finish(self, block_on=None) -> None:
+        prof, self._prof = self._prof, None
+        self.enabled = False  # one trace window per run
+        try:
+            # waiting for the traced steps is training time, not overhead
+            if isinstance(block_on, torch.Tensor) and block_on.is_cuda:
+                torch.cuda.synchronize(block_on.device)
+        finally:
+            t0 = time.perf_counter()
+            try:
+                self._write(prof)
+            except (RuntimeError, OSError) as e:
+                # never let trace teardown kill training
+                logging.getLogger("tpujob_torch.workloads").warning(
+                    "profiler trace not written: %s", e)
+            self.overhead_s += time.perf_counter() - t0
+
+    def _write(self, prof) -> None:
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.profile_dir, f"trace_steps{self.start_step}-"
+                              f"{self.stop_step - 1}.pt.trace.json")
+        prof.export_chrome_trace(self.path)
+
+
+def add_profile_flags(parser) -> None:
+    """The shared --profile-* surface for every workload CLI."""
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler Chrome trace of "
+                             "steady-state steps here")
+    parser.add_argument("--profile-start-step", type=int, default=2,
+                        help="first step of the trace window (skips warm-up)")
+    parser.add_argument("--profile-steps", type=int, default=3,
+                        help="number of steps to trace")
+
+
+def profiler_from_args(args, pe, device=None) -> Profiler:
+    return Profiler(
+        getattr(args, "profile_dir", None),
+        start_step=getattr(args, "profile_start_step", 2),
+        num_steps=getattr(args, "profile_steps", 3),
+        enabled=pe.process_id == 0, device=device,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -149,20 +248,87 @@ def set_lr(optimizer: torch.optim.Optimizer, value: float) -> None:
 # ---------------------------------------------------------------------------
 
 
+class GradAccum:
+    """Gradient accumulation as ``optax.MultiSteps`` does it (the JAX
+    package's ``with_grad_accum``): each mini-step folds its grads into a
+    running mean, ``acc + (g - acc) / (n + 1)``; on the ``every``-th the
+    optimizer takes one update from the mean and the mean restarts.
+    Params do not change on the other mini-steps.  ``gradient_step`` counts
+    updates (the schedule's and AdamW's count), ``mini_step`` the position
+    inside the current group.  Its ``state_dict`` holds both and the
+    running mean, so a checkpoint taken mid-accumulation resumes exactly.
+    The means live in fp32 beside the params (one more copy of them)."""
+
+    def __init__(self, params, every: int):
+        self.params = list(params)
+        self.every = every
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def add(self) -> Optional[int]:
+        """Fold the params' ``.grad`` into the mean.  When this mini-step
+        ends a group, the mean is handed over as ``.grad`` (no copy: it is
+        overwritten when the next group starts) and the index of the update
+        it feeds is returned, for the schedule; else None."""
+        n = self.mini_step
+        with torch.no_grad():
+            for a, p in zip(self.acc, self.params):
+                if p.grad is None:
+                    a.sub_(a / (n + 1))  # 0 when a group starts
+                elif n == 0:  # a group starts: 0 + (g - 0) / 1 is g exactly
+                    a.copy_(p.grad)
+                else:
+                    a.add_((p.grad - a) / (n + 1))
+        self.mini_step = (n + 1) % self.every
+        if self.mini_step:
+            return None
+        for a, p in zip(self.acc, self.params):
+            p.grad = a
+        self.gradient_step += 1
+        return self.gradient_step - 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.mini_step = int(sd["mini_step"])
+        self.gradient_step = int(sd["gradient_step"])
+        with torch.no_grad():
+            for a, saved in zip(self.acc, sd["acc"]):
+                a.copy_(saved)
+
+
+def with_grad_accum(params, every: int) -> Optional[GradAccum]:
+    """Average grads over ``every`` mini-steps per update: a ``GradAccum``
+    for ``make_train_step``, or None for ``every`` 1 (plain updates)."""
+    if every <= 0:
+        raise ValueError(f"grad accumulation must be >= 1, got {every}")
+    return GradAccum(params, every) if every > 1 else None
+
+
 def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
                     optimizer: torch.optim.Optimizer,
-                    lr_fn: Callable[[int], float]):
+                    lr_fn: Callable[[int], float],
+                    accum: Optional[GradAccum] = None):
     """``step(state, batch) -> (state, loss)``: value and grad of
     ``loss_fn(batch)`` (which runs the model), one AdamW update at
-    ``lr_fn(state['step'])``, and ``state['step'] + 1``.  The update is
-    in place (the parameters and moments are the state)."""
+    ``lr_fn(update count)``, and ``state['step'] + 1``.  The update is in
+    place (the parameters and moments are the state).  With ``accum`` the
+    update comes on every ``accum.every``-th mini-step only, from the mean
+    of the group's grads; ``state['step']`` counts mini-steps and the loss
+    is each mini-step's own."""
 
     def step(state: Dict[str, Any], batch) -> Tuple[Dict[str, Any], torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
         loss.backward()
-        set_lr(optimizer, lr_fn(state["step"]))
-        optimizer.step()
+        update = state["step"] if accum is None else accum.add()
+        if update is not None:
+            set_lr(optimizer, lr_fn(update))
+            optimizer.step()
         return dict(state, step=state["step"] + 1), loss.detach()
 
     return step
