@@ -59,6 +59,26 @@ Phases, one JSON line each on stdout:
    through its cache, the full route's flash forward) match it by normwise
    error; decode tokens/s and ms per new token for each route.
 
+8. ``corpus``: the trainers on a real corpus, the ``.py`` and ``.md``
+   files under ``tpujob/`` and ``docs/`` concatenated in sorted path order
+   into a temporary directory outside the repo (about 1.38 MB).  A 512-id
+   BPE tokenizer is trained on its first 256 KB and the corpus encoded
+   into the token cache (both timed), then ``gpt.run`` trains
+   GPT-2-medium (flash) on the BPE tokens and ``bert.run`` BERT-large
+   (flash) on the raw bytes ([MASK] 256), 8 steps each, a new batch a
+   step.  The batch each step copied to the card must equal the
+   provider's for that step, losses must be finite, and each run must
+   launch B1, B2 and B3 (GPT with the causal mask, BERT without).
+9. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
+   10,000 images, batch 64, 1 epoch; cuDNN/cuBLAS, no hand-written
+   kernel): accuracy above 0.9, samples/s over the run.
+10. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
+    256, bf16, channels-last), 2 warm-up and 10 timed steps: losses finite
+    and falling, samples/s over the timed steps, peak device memory;
+    ``resnet_profile``: a second run traces 4 steps after its warm-up
+    through ``--profile-dir``, and the trace gives the kernels' ms a step
+    by class and the device's busy share of the kernels' span.
+
 Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
 launched it), the card's ``name, power.limit`` as nvidia-smi prints them,
 and last ``{"ok": true, "device": {...}}``.  Any failure (no card, no
@@ -76,9 +96,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
@@ -113,6 +135,15 @@ MLM_STEPS = 10
 # 64-position buffer, a smoke check of both routes and of B1 at one
 # q-tile), longer with --decode-prompt / --decode-new
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 16, 48
+ROOT = Path(__file__).resolve().parent
+# corpus: the first 256 KB train a 512-id BPE; 8 steps of each trainer
+CORPUS_TOKENIZER_BYTES, CORPUS_VOCAB, CORPUS_STEPS = 256 * 1024, 512, 8
+CORPUS_GPT_ARGV = ["--attention", "flash", "--batch-size", "8"]
+CORPUS_BERT_ARGV = ["--attention", "flash", "--batch-size", "8"]
+MNIST_ARGV: list = []  # the entry point's defaults
+RESNET_ARGV = ["--batch-size", "256", "--image-size", "224", "--width", "64",
+               "--warmup-steps", "2", "--steps", "10"]
+RESNET_PROFILED_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -408,11 +439,14 @@ def check_model_bert() -> None:
 
 
 def kernel_class(name: str) -> str:
-    """The hand-written flash kernels by name, matrix products, the rest."""
+    """The hand-written flash kernels by name, convolutions, matrix
+    products, the rest."""
     low = name.lower()
     for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
         if kernel + "_kernel" in low:
             return kernel
+    if any(m in low for m in ("conv", "fprop", "dgrad", "wgrad")):
+        return "conv"
     if any(m in low for m in ("gemm", "cutlass", "nvjet", "xmma", "matmul")):
         return "matmul"
     return "other"
@@ -434,6 +468,33 @@ def device_ms_by_class(prof, steps: int) -> tuple:
         by_name[evt.key[:90]] = (us / 1e3 / steps, evt.count / steps)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return by_class, top
+
+
+def trace_kernels(path: str, steps: int) -> dict:
+    """Device time a step from a Chrome trace of ``steps`` steps (the
+    ``--profile-dir`` output): kernel ms by class, the busiest kernels, and
+    the share of the kernels' span (first start to last end) in which the
+    device ran one."""
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"{path}: no kernel in the trace")
+    by_class, by_name = {}, {}
+    for e in kernels:
+        ms = e["dur"] / 1e3 / steps
+        cls = kernel_class(e["name"])
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        t, n = by_name.get(e["name"][:90], (0.0, 0.0))
+        by_name[e["name"][:90]] = (t + ms, n + 1 / steps)
+    busy = sum(by_class.values())
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels)) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"device_ms_per_step": by_class, "device_busy_ms_per_step": busy,
+            "kernel_span_ms_per_step": span,
+            "device_busy_share_of_span": busy / span,
+            "top_kernels_ms_launches_per_step": top}
 
 
 def run_train() -> dict:
@@ -690,6 +751,221 @@ def run_decode(p: int, new: int) -> dict:
     return launches["full"]
 
 
+def write_corpus(directory: str) -> str:
+    """The ``.py`` and ``.md`` files under ``tpujob/`` and ``docs/``, in
+    sorted path order, as one file in ``directory``."""
+    files = sorted((p for top in ("tpujob", "docs")
+                    for p in (ROOT / top).rglob("*")
+                    if p.suffix in (".py", ".md") and p.is_file()),
+                   key=lambda p: p.relative_to(ROOT).as_posix())
+    path = os.path.join(directory, "corpus.txt")
+    with open(path, "wb") as out:
+        for p in files:
+            out.write(p.read_bytes())
+    return path
+
+
+@contextmanager
+def copied_batches():
+    """Record the host arrays of every batch ``train_lib.put_batch`` copies
+    to the card (the copy still happens as before)."""
+    from tpujob_torch.workloads import train_lib
+
+    seen, put = [], train_lib.put_batch
+
+    def recording(arrays, device):
+        seen.append([a.copy() for a in arrays])
+        return put(arrays, device)
+
+    train_lib.put_batch = recording
+    try:
+        yield seen
+    finally:
+        train_lib.put_batch = put
+
+
+def corpus_run(name: str, module, argv: list, expected_batch) -> dict:
+    """One trainer on the corpus through its entry point: launches counted
+    from zero, each launch's mask recorded, every step's copied batch
+    held against ``expected_batch(args, step)``."""
+    from tpujob_torch.workloads import flash
+
+    logdir = os.path.join("build", "chip_smoke", "corpus_" + name)
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = argv + ["--steps", str(CORPUS_STEPS), "--log-interval", "1",
+                   "--seed", "0", "--dir", logdir, "--device", DEVICE]
+    args = module.build_parser().parse_args(argv)
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    with causal_flags() as seen, copied_batches() as copied:
+        res = module.run(args, on_step=on_step)
+    launches = dict(flash.LAUNCHES)
+    steps = copied[-CORPUS_STEPS:]
+    stream_ok = len(steps) == CORPUS_STEPS and all(
+        len(got) == len(want) and all(
+            g.shape == w.shape and (g == w).all() for g, w in zip(got, want))
+        for i, got in enumerate(steps)
+        for want in [expected_batch(args, i)])
+    losses = res["losses"]
+    return {"argv": argv, "losses": losses,
+            "trainer_tokens_per_sec": res["tokens_per_sec"],
+            "wall_s": res["wall_s"], **step_stats(stamps, 2),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "stream_ok": stream_ok,
+            "distinct_step_batches": len({bytes(b[0]) for b in steps}),
+            "finite": len(losses) == CORPUS_STEPS
+            and all(math.isfinite(x) for x in losses),
+            "launches": launches,
+            "causal_flags": {k: sorted(v) for k, v in seen.items()}}
+
+
+def run_corpus() -> dict:
+    """GPT-2-medium on BPE tokens and BERT-large on raw bytes, from one
+    corpus, a new batch every step."""
+    import numpy as np
+
+    from tpujob_torch.workloads import bert, data, gpt
+    from tpujob_torch.workloads import tokenizer as toklib
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        corpus = write_corpus(tmp)
+        with open(corpus, "rb") as f:
+            head = f.read(CORPUS_TOKENIZER_BYTES)
+        t0 = time.perf_counter()
+        tok = toklib.BPETokenizer.train(head, CORPUS_VOCAB,
+                                        max_bytes=CORPUS_TOKENIZER_BYTES)
+        train_s = time.perf_counter() - t0
+        tok_path = os.path.join(tmp, "tok.json")
+        tok.save(tok_path)
+        # encode once into the token cache; gpt.run then maps the cache
+        t0 = time.perf_counter()
+        chunks = data.bpe_token_dataset(corpus, 1024, tok)
+        encode_s = time.perf_counter() - t0
+
+        # what each step must copy, written out here rather than taken from
+        # the trainers' own provider: global rows (arange(0, B) + i*B) % n of
+        # the chunks and, for the MLM, a 15% mask drawn from seed + i
+        def rows(table, args, step):
+            b = args.batch_size
+            idx = (np.arange(0, b) + step * b) % len(table)
+            return np.asarray(table[idx], dtype=np.int32)
+
+        def gpt_batch(args, step):
+            table = data.bpe_token_dataset(corpus, args.seq_len, tok)
+            return [rows(table, args, step)]
+
+        def bert_batch(args, step):
+            raw = np.fromfile(corpus, dtype=np.uint8)
+            n = len(raw) // args.seq_len
+            table = raw[: n * args.seq_len].reshape(n, args.seq_len)
+            rng = np.random.RandomState(args.seed + step)
+            mask = (rng.rand(args.batch_size, args.seq_len) < 0.15).astype(
+                np.float32)
+            return [rows(table, args, step), mask]
+
+        runs = {
+            "gpt_bpe": corpus_run("gpt", gpt, CORPUS_GPT_ARGV + [
+                "--data-file", corpus, "--tokenizer", f"bpe:{tok_path}"],
+                gpt_batch),
+            "bert_bytes": corpus_run("bert", bert, CORPUS_BERT_ARGV + [
+                "--data-file", corpus], bert_batch),
+        }
+        corpus_bytes = os.path.getsize(corpus)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_causal = {"gpt_bpe": [True], "bert_bytes": [False]}
+    ok = all(r["stream_ok"] and r["finite"]
+             and r["distinct_step_batches"] == CORPUS_STEPS
+             and all(n > 0 for n in r["launches"].values())
+             and all(v == want_causal[name]
+                     for v in r["causal_flags"].values())
+             for name, r in runs.items())
+    emit({"phase": "corpus", "ok": ok, "corpus_bytes": corpus_bytes,
+          "tokenizer_vocab": tok.vocab_size,
+          "tokenizer_train_bytes": len(head), "tokenizer_train_s": train_s,
+          "encode_s": encode_s, "bpe_chunks_1024": len(chunks),
+          "bpe_bytes_per_token": corpus_bytes / (len(chunks) * 1024),
+          "runs": runs})
+    if not ok:
+        raise AssertionError(f"corpus path failed: {runs}")
+    total = {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def run_mnist() -> None:
+    """The MNIST example through its entry point, default flags."""
+    from tpujob_torch.workloads import mnist
+
+    logdir = os.path.join("build", "chip_smoke", "mnist")
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = MNIST_ARGV + ["--dir", logdir, "--device", DEVICE]
+    args = mnist.build_parser().parse_args(argv)
+    res = mnist.run(args)
+    ok = res["accuracy"] > 0.9 and math.isfinite(res["final_loss"])
+    emit({"phase": "mnist", "ok": ok, "argv": argv,
+          "dataset": res["dataset"], "accuracy": res["accuracy"],
+          "final_loss": res["final_loss"], "samples": res["samples"],
+          "wall_s": res["wall_s"],
+          "samples_per_sec": res["samples"] / res["wall_s"],
+          "steps": res["state"]["step"]})
+    if not ok:
+        raise AssertionError(f"mnist path failed: accuracy "
+                             f"{res['accuracy']}")
+
+
+def run_resnet() -> None:
+    """ResNet-50 through its entry point: warm-up, then timed steps."""
+    from tpujob_torch.workloads import resnet
+
+    logdir = os.path.join("build", "chip_smoke", "resnet")
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = RESNET_ARGV + ["--dir", logdir, "--device", DEVICE]
+    args = resnet.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    res = resnet.run(args)
+    losses = res["losses"]
+    model = res["state"]["model"]
+    ok = (len(losses) == args.warmup_steps + args.steps
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0])
+    emit({"phase": "resnet", "ok": ok, "argv": argv,
+          "params": sum(p.numel() for p in model.parameters()),
+          "losses": losses, "samples_per_sec": res["samples_per_sec"],
+          "timed_steps": args.steps, "wall_s": res["wall_s"],
+          "step_ms_mean": res["wall_s"] * 1e3 / args.steps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "channels_last": model.conv_init.weight.is_contiguous(
+              memory_format=torch.channels_last)})
+    if not ok:
+        raise AssertionError(f"resnet path failed: losses {losses}")
+
+    # a second run through the entry point's --profile-dir, traced from the
+    # first step after the warm-up: the device's time a step against the
+    # unprofiled step above says whether the card or the host sets the rate
+    prof_dir = os.path.join(logdir, "profile")
+    pargv = argv + ["--steps", str(RESNET_PROFILED_STEPS + 1),
+                    "--profile-dir", prof_dir, "--profile-start-step", "0",
+                    "--profile-steps", str(RESNET_PROFILED_STEPS)]
+    pres = resnet.run(resnet.build_parser().parse_args(pargv))
+    trace = trace_kernels(
+        os.path.join(prof_dir, f"trace_steps0-{RESNET_PROFILED_STEPS - 1}"
+                               ".pt.trace.json"), RESNET_PROFILED_STEPS)
+    emit({"phase": "resnet_profile", "argv": pargv,
+          "steps": RESNET_PROFILED_STEPS,
+          "unprofiled_step_ms": res["wall_s"] * 1e3 / args.steps,
+          "profiled_run_losses": pres["losses"], **trace})
+
+
 KERNELS = {
     "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
                   "tpujob/workloads/flash.py:74"),
@@ -754,7 +1030,10 @@ def main(argv=None) -> int:
         check_model()
         check_model_bert()
         by_path = {"train": run_train(), "mlm": run_mlm(),
-                   "decode": run_decode(args.decode_prompt, args.decode_new)}
+                   "decode": run_decode(args.decode_prompt, args.decode_new),
+                   "corpus": run_corpus()}
+        run_mnist()
+        run_resnet()
         launches = by_path["train"]
 
         rows = []

@@ -178,7 +178,7 @@ def test_param_count_gpt2_medium():
 @pytest.mark.parametrize("flag,value", [
     ("--tensor-parallel", "2"), ("--fsdp", "2"), ("--sequence-parallel", "2"),
     ("--pipeline-parallel", "2"), ("--expert-parallel", "2"),
-    ("--moe-experts", "4"), ("--data-file", "x.txt"), ("--tokenizer", "bpe:x"),
+    ("--moe-experts", "4"),
 ])
 def test_unported_flags_raise(flag, value):
     args = tgpt.build_parser().parse_args(ARGV + ["--device", "cpu", flag, value])

@@ -7,6 +7,8 @@
   only its own directories; ``Project(root, files=...)`` points it here).
 - ``cuda`` without a card raises; ``chip_smoke.py`` fails with no card,
   and fails alone in a directory without the package.
+- The MNIST and ResNet entry points run on the CPU with ``--device cpu``
+  and raise without a card by default.
 """
 import ast
 import os
@@ -95,3 +97,32 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _smoke(tmp_path, alone)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+ENTRY_ARGS = {
+    "mnist": ["--train-size", "128", "--test-size", "64", "--batch-size",
+              "32", "--test-batch-size", "32", "--log-interval", "1"],
+    "resnet": ["--width", "8", "--image-size", "32", "--batch-size", "2",
+               "--steps", "2", "--warmup-steps", "1", "--depth", "50"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(ENTRY_ARGS))
+def test_entry_point_runs_on_cpu(module, tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", f"tpujob_torch.workloads.{module}",
+         "--device", "cpu", "--dir", str(tmp_path)] + ENTRY_ARGS[module],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert ("accuracy=" if module == "mnist" else "resnet50:") in out.stdout
+
+
+@pytest.mark.parametrize("module", sorted(ENTRY_ARGS))
+def test_entry_point_without_a_card_raises(module, tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", f"tpujob_torch.workloads.{module}",
+         "--dir", str(tmp_path)] + ENTRY_ARGS[module],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA card" in out.stderr

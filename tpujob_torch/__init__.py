@@ -10,7 +10,11 @@ for ``cuda`` where there is no card raises instead of falling back.
   distributed bootstrap and data.  Entry points:
   ``python -m tpujob_torch.workloads.bert`` (BERT-large masked LM) and
   ``python -m tpujob_torch.workloads.gpt`` (GPT-2-medium causal LM, with
-  ``--generate N`` to decode after training).
+  ``--generate N`` to decode after training), both with ``--data-file`` /
+  ``--tokenizer`` for a real corpus; ``python -m
+  tpujob_torch.workloads.mnist`` and ``python -m
+  tpujob_torch.workloads.resnet``; ``python -m
+  tpujob_torch.workloads.tokenizer`` (train / inspect a BPE).
 - ``tpujob_torch.csrc``      — the hand-written CUDA C++ kernels.
 - ``tpujob_torch.kernels``   — builds them with ``nvcc`` at first use and
   binds them with ``ctypes``.

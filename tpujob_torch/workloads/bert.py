@@ -6,10 +6,12 @@ rematerialised blocks.  What is ported: ``rope``, ``Attention`` (training
 branch and the KV-cache branch of decode), ``Block`` with the dense FFN,
 ``Bert`` (embed / head / forward, and decode one token at a time against
 an explicit ``KVCache``), the masked-LM objective (``mask_batch``,
-``mlm_loss``), the flag surface, the synthetic ``token_batches``, the flag
+``mlm_loss``), the flag surface, ``tokenizer_from_args`` and
+``token_batches`` (synthetic, or a real corpus with ``--data-file``, raw
+bytes or ``--tokenizer bpe:...`` tokens, a new batch every step), the flag
 checks that apply to one process, ``build_model`` (dense and flash
-attention), the ``train`` loop (gradient accumulation, ``--profile-dir``)
-and ``run``/``main``.
+attention), the ``train`` loop (a per-step batch provider, gradient
+accumulation, ``--profile-dir``) and ``run``/``main``.
 
 Parity with flax, made explicit rather than left to autocast:
 
@@ -26,13 +28,15 @@ Parity with flax, made explicit rather than left to autocast:
 
 Entry points (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.bert --attention flash --batch-size 8 --steps 5
+    python -m tpujob_torch.workloads.bert --attention flash --vocab 257 \
+        --data-file corpus.txt            (byte-level MLM, [MASK] = 256)
     python -m tpujob_torch.workloads.gpt   (the causal family, and decode)
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -46,15 +50,7 @@ from tpujob_torch import resolve_device
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import parallel, train_lib
-
-_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's lecun_normal: truncated normal with variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
-
+from tpujob_torch.workloads import tokenizer as toklib
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: input and params promoted to ``dtype`` before the
@@ -68,7 +64,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out))
         self.dtype = dtype
         with torch.no_grad():
-            _lecun_normal_(self.weight, d_in, gen)
+            train_lib.lecun_normal_(self.weight, d_in, gen)
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
@@ -406,8 +402,19 @@ def build_parser() -> argparse.ArgumentParser:
     train_lib.add_profile_flags(p)
     p.add_argument("--checkpoint-interval", type=int, default=0,
                    help="steps between checkpoints; 0 disables")
-    p.add_argument("--data-file", default=None, help="(not yet ported)")
-    p.add_argument("--tokenizer", default=None, help="(not yet ported)")
+    p.add_argument("--data-file", default=None,
+                   help="train on this file's raw bytes as a byte-level "
+                        "corpus instead of synthetic tokens (vocab >= 256; "
+                        "the MLM objective needs >= 257 — id 256 is "
+                        "[MASK]); batches cycle the chunks "
+                        "deterministically per step")
+    p.add_argument("--tokenizer", default=None, metavar="bpe:PATH[:V]",
+                   help="tokenize --data-file with a trained byte-level "
+                        "BPE instead of raw bytes: 'bpe:PATH' loads PATH; "
+                        "'bpe:PATH:V' additionally trains a V-id tokenizer "
+                        "on the corpus and saves it to PATH when missing. "
+                        "Tokens cache to a memory-mapped sidecar next to "
+                        "the corpus")
     p.add_argument("--dir", default="logs")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -432,11 +439,6 @@ def reject_unported(args) -> None:
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
-    for flag in ("data_file", "tokenizer"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not yet ported to "
-                "tpujob_torch")
 
 
 def validate_pipeline_flags(args) -> None:
@@ -468,13 +470,82 @@ def validate_parallel_flags(args) -> None:
     validate_pipeline_flags(args)
 
 
-def token_batches(args, pe):
-    """(this process's rows of the synthetic batch, None, global row 0) —
-    the JAX package's synthetic path; the corpus path is not ported."""
+def tokenizer_from_args(args, reserve: int = 0):
+    """``--tokenizer`` as a ``BPETokenizer``, or None for raw bytes.
+
+    ``bpe:PATH`` loads PATH; ``bpe:PATH:V`` trains a V-id tokenizer on the
+    corpus and saves it to PATH when missing (deterministic, so every
+    process trains the same one).  ``reserve``: ids the objective needs
+    past the tokenizer's (the MLM [MASK]), checked against --vocab before
+    any tokenizer is trained."""
+    spec = getattr(args, "tokenizer", None)
+    if not spec:
+        return None
+    if not getattr(args, "data_file", None):
+        raise ValueError("--tokenizer needs --data-file (it tokenizes the "
+                         "real corpus, not synthetic ids)")
+    parts = spec.split(":")
+    if parts[0] != "bpe" or len(parts) not in (2, 3) or not parts[1]:
+        raise ValueError(
+            f"--tokenizer must be 'bpe:PATH' or 'bpe:PATH:VOCAB', "
+            f"got {spec!r}")
+    path = parts[1]
+    if len(parts) == 3:
+        target = int(parts[2])
+        if args.vocab < target + reserve:
+            # fail before training a tokenizer the model cannot hold
+            raise ValueError(
+                f"--vocab {args.vocab} is too small for a {target}-id "
+                f"tokenizer{' plus the [MASK] id' if reserve else ''}: "
+                f"need >= {target + reserve}")
+        tok = toklib.load_or_train(path, args.data_file, target)
+    elif os.path.exists(path):
+        tok = toklib.BPETokenizer.load(path)
+    else:
+        raise ValueError(
+            f"--tokenizer {spec!r}: {path} does not exist; use "
+            f"'bpe:{path}:VOCAB' to train it on the corpus, or run "
+            "python -m tpujob_torch.workloads.tokenizer train")
+    if args.vocab < tok.vocab_size + reserve:
+        need = tok.vocab_size + reserve
+        raise ValueError(
+            f"--vocab {args.vocab} is too small for the "
+            f"{tok.vocab_size}-id tokenizer"
+            f"{' plus the [MASK] id' if reserve else ''}: need >= {need}")
+    return tok
+
+
+def token_batches(args, pe, tokenizer=None):
+    """(this process's rows of the first batch, ``provider(step) -> rows``
+    or None, global row 0).
+
+    The synthetic batch by default (one fixed batch, no provider).  With
+    ``--data-file`` the corpus in [n, seq_len] chunks, raw bytes or BPE
+    tokens when ``tokenizer`` is set (both memory-mapped), and a provider
+    that cycles them deterministically by step, so a resume replays the
+    same stream.  Row 0 is the global one, the same in every process."""
     lo, sz = dist.local_batch_slice(args.batch_size, pe)
-    ids = datalib.synthetic_token_batch(args.batch_size, args.seq_len,
-                                        args.vocab)
-    return ids[lo : lo + sz], None, ids[0:1]
+    if not getattr(args, "data_file", None):
+        ids = datalib.synthetic_token_batch(args.batch_size, args.seq_len,
+                                            args.vocab)
+        return ids[lo : lo + sz], None, ids[0:1]
+    if tokenizer is not None:
+        chunks = datalib.bpe_token_dataset(args.data_file, args.seq_len,
+                                           tokenizer)
+    else:
+        if args.vocab < 256:
+            raise ValueError(
+                f"--data-file is a byte-level corpus: --vocab {args.vocab} "
+                "must be >= 256")
+        chunks = datalib.byte_token_dataset(args.data_file, args.seq_len)
+
+    def provider(step: int):
+        # only this process's rows of the global step batch; the
+        # fancy-indexed read materialises just those rows off the memmap
+        idx = (np.arange(lo, lo + sz) + step * args.batch_size) % len(chunks)
+        return np.asarray(chunks[idx], dtype=np.int32)
+
+    return provider(0), provider, np.asarray(chunks[0:1], dtype=np.int32)
 
 
 def build_model(args, device, *, causal: bool = False,
@@ -521,13 +592,8 @@ def build_model(args, device, *, causal: bool = False,
     return model.to(device)
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
-          tag: str = "bert",
+          tag: str = "bert", batch_provider: Optional[Callable] = None,
           on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
     """Single-process training loop: AdamW with the flag surface's
     schedule, gradient accumulation (``--grad-accum``, optax.MultiSteps),
@@ -536,8 +602,13 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
     and leaves out the time spent writing a trace).
 
     ``loss_fn(batch) -> scalar`` runs ``model``; ``batch`` is a tuple of
-    tensors already on the model's device.  ``on_step(i)``, if given, runs
-    after step ``i`` inside the clock (a caller's timer or profiler)."""
+    tensors already on the model's device, the batch of every step unless
+    ``batch_provider(step) -> tuple of host arrays`` gives each step its
+    own (the ``--data-file`` path; deterministic in the step, so a resume
+    replays the same stream).  Its copy to the device
+    (``train_lib.put_batch``) is inside the clock, as in the JAX package.
+    ``on_step(i)``, if given, runs after step ``i`` inside the clock (a
+    caller's timer or profiler)."""
     validate_parallel_flags(args)
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -595,13 +666,15 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
 
         build.load_all()
     profiler = train_lib.profiler_from_args(args, pe, device)
-    _sync(device)
+    train_lib.sync(device)
     t0 = time.perf_counter()
     losses = []
     loss = None
     try:
         for i in range(start_step, args.steps):
             profiler.step(i - start_step, block_on=loss)
+            if batch_provider is not None:
+                batch = train_lib.put_batch(batch_provider(i), device)
             state, loss = train_step(state, batch)
             losses.append(loss)
             if i % args.log_interval == 0:
@@ -610,7 +683,7 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
                 ckpt.save(i + 1, state)
             if on_step is not None:
                 on_step(i)
-        _sync(device)
+        train_lib.sync(device)
         # a trace written mid-loop is not training time
         wall = time.perf_counter() - t0 - profiler.overhead_s
     finally:
@@ -631,26 +704,53 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
 
 def batch_to_device(ids: np.ndarray, device) -> torch.Tensor:
     """int32 host ids as the int64 device tensor embedding/gather take."""
-    return torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(device)
+    return train_lib.put_batch((ids,), device)[0]
+
+
+def mask_id_from_args(args, tokenizer) -> int:
+    """The MLM's [MASK] id, one past the real token alphabet so that no
+    real token is confused with a masked position: the WordPiece 103 on
+    synthetic ids, 256 on raw bytes (which needs --vocab >= 257), the
+    tokenizer's size on BPE tokens."""
+    if tokenizer is not None:
+        return tokenizer.vocab_size
+    if getattr(args, "data_file", None):
+        if args.vocab < 257:
+            raise ValueError(
+                f"--data-file with the MLM objective needs --vocab >= 257 "
+                f"(256 byte values + the [MASK] token), got {args.vocab}")
+        return 256
+    return 103
 
 
 def run(args, *, on_step: Optional[Callable[[int], None]] = None
         ) -> Dict[str, Any]:
-    """BERT masked-LM pretraining from the flags on the synthetic batch,
-    with one fixed mask drawn from ``--seed`` (the JAX package's synthetic
-    path; ``--data-file``/``--tokenizer`` are not ported).  ``on_step(i)``
-    runs after each step (see ``train``)."""
+    """BERT masked-LM pretraining from the flags: the synthetic batch with
+    one fixed mask drawn from ``--seed``, or with ``--data-file`` a new
+    corpus batch every step and its mask drawn from ``seed + step``.
+    ``on_step(i)`` runs after each step (see ``train``)."""
     pe = dist.initialize()
+    tok = tokenizer_from_args(args, reserve=1)
+    mask_id = mask_id_from_args(args, tok)
     device = resolve_device(getattr(args, "device", "cuda"))
     model = build_model(args, device)
-    ids0, _, _ = token_batches(args, pe)
+    ids0, provider, _ = token_batches(args, pe, tokenizer=tok)
     lo, sz = dist.local_batch_slice(args.batch_size, pe)
-    # the GLOBAL mask, sliced to this process's rows
-    _, mask = mask_batch(np.zeros((args.batch_size, args.seq_len), np.int32),
-                         args.seed)
-    batch = (batch_to_device(ids0, device),
-             torch.from_numpy(mask[lo : lo + sz]).to(device))
-    return train(args, pe, model, mlm_loss(model), batch, on_step=on_step)
+
+    def masked(ids_local, seed):
+        # the GLOBAL mask (one seed in every process), sliced to this
+        # process's rows: masking the local rows directly would repeat one
+        # pattern in every process
+        _, mask = mask_batch(
+            np.zeros((args.batch_size, args.seq_len), np.int32), seed)
+        return ids_local, mask[lo : lo + sz]
+
+    bp = None
+    if provider is not None:
+        bp = lambda step: masked(provider(step), args.seed + step)
+    return train(args, pe, model, mlm_loss(model, mask_id=mask_id),
+                 train_lib.put_batch(masked(ids0, args.seed), device),
+                 batch_provider=bp, on_step=on_step)
 
 
 def main(argv=None) -> int:

@@ -1,13 +1,18 @@
 """Carry weights across from the JAX package's flax models.
 
-``params_from_flax`` takes a flax param tree as nested dicts of numpy
-arrays (``{"params": {...}}`` or the inner dict) and returns a state dict
-for the port's module of the same architecture.  The port names its
-submodules after the flax ones, so the map is mechanical:
+``params_from_flax`` takes a flax variable tree as nested dicts of numpy
+arrays (``{"params": {...}}``, that and ``{"batch_stats": {...}}``, or the
+inner params dict) and returns a state dict for the port's module of the
+same architecture.  The port names its submodules after the flax ones, so
+the map is mechanical:
 
 - a path ``a/b/c`` becomes the key ``a.b.c``;
 - ``Dense`` ``kernel`` ``[in, out]`` becomes ``weight`` ``[out, in]``;
-- ``LayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
+- ``Conv`` ``kernel`` HWIO ``[kh, kw, in, out]`` becomes ``weight`` OIHW
+  ``[out, in, kh, kw]``;
+- ``LayerNorm``/``BatchNorm`` ``scale``/``bias`` become ``weight``/``bias``;
+- ``BatchNorm`` ``batch_stats`` ``mean``/``var`` become the buffers
+  ``running_mean``/``running_var``;
 - ``Embed`` ``embedding`` becomes ``weight``; ``pos_embed`` stays.
 """
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -27,22 +34,36 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield path, value
 
 
+def _collections(tree: Dict[str, Any]):
+    """(collection name, its tree) pairs: a bare params dict is 'params'."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        return list(tree.items())
+    return [("params", tree)]
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves) -> torch state dict."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Flax variable tree (numpy leaves) -> torch state dict."""
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(tree):
-        parts = path.split("/")
-        leaf = parts[-1]
-        arr = np.array(value, dtype=np.float32)
-        if leaf == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{path}: expected a 2-D Dense kernel, got "
-                                 f"shape {arr.shape}")
-            arr = arr.T
-            parts[-1] = "weight"
-        elif leaf in ("scale", "embedding"):
-            parts[-1] = "weight"
-        out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+    for collection, sub in _collections(tree):
+        for path, value in _flatten(sub):
+            parts = path.split("/")
+            leaf = parts[-1]
+            arr = np.array(value, dtype=np.float32)
+            if collection == "batch_stats":
+                if leaf not in _STATS:
+                    raise ValueError(f"batch_stats/{path}: expected a "
+                                     "BatchNorm mean or var")
+                parts[-1] = _STATS[leaf]
+            elif leaf == "kernel":
+                if arr.ndim == 2:
+                    arr = arr.T
+                elif arr.ndim == 4:
+                    arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                else:
+                    raise ValueError(f"{path}: expected a 2-D Dense or 4-D "
+                                     f"Conv kernel, got shape {arr.shape}")
+                parts[-1] = "weight"
+            elif leaf in ("scale", "embedding"):
+                parts[-1] = "weight"
+            out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -16,6 +16,8 @@ as in the JAX package).  ``--generate N`` decodes N tokens after training.
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
     python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
+    python -m tpujob_torch.workloads.gpt --attention flash \
+        --data-file corpus.txt --tokenizer bpe:tok.json:512
 """
 from __future__ import annotations
 
@@ -162,10 +164,12 @@ def build_model(args, device):
 
 def run(args, *, on_step: Optional[Callable[[int], None]] = None
         ) -> Dict[str, Any]:
-    """Train from the flags, then with ``--generate N`` decode N tokens
-    (KV-cached) from the first ids of the batch's row 0 and print them;
-    the ids are also returned as ``generated``.  ``on_step(i)`` runs after
-    each step (see ``bert.train``)."""
+    """Train from the flags (synthetic ids, or with ``--data-file`` /
+    ``--tokenizer`` a corpus batch a step), then with ``--generate N``
+    decode N tokens (KV-cached) from the first ids of global row 0 (the
+    corpus' first chunk on a corpus) and print them; the ids are also
+    returned as ``generated``.  ``on_step(i)`` runs after each step (see
+    ``bert.train``)."""
     pe = dist.initialize()
     n_gen = getattr(args, "generate", 0)
     temp = getattr(args, "generate_temperature", 0.0)
@@ -180,12 +184,14 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
         raise ValueError(
             "--generate-top-k/--generate-top-p need "
             "--generate-temperature > 0 (greedy decode samples nothing)")
+    tok = bertlib.tokenizer_from_args(args)
     device = resolve_device(getattr(args, "device", "cuda"))
     model = build_model(args, device)
-    ids0, _, sample = bertlib.token_batches(args, pe)
+    ids0, provider, sample = bertlib.token_batches(args, pe, tokenizer=tok)
+    bp = None if provider is None else (lambda step: (provider(step),))
     batch = (bertlib.batch_to_device(ids0, device),)
     result = bertlib.train(args, pe, model, lm_loss(model), batch, tag="gpt",
-                           on_step=on_step)
+                           batch_provider=bp, on_step=on_step)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(
             sample[:, : min(8, args.seq_len - n_gen)], device)

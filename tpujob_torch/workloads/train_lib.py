@@ -1,11 +1,17 @@
 """Training core: the port of ``tpujob/workloads/train_lib.py``.
 
 - ``SummaryWriter``: the same ``scalars.jsonl`` as the JAX package.
+- ``TrainTelemetry``: the step loop's smoothed samples/s and the progress
+  heartbeat the operator's watchdog reads.
+- ``lecun_normal_``: flax's default kernel init, for every model.
+- ``sgd``: ``torch.optim.SGD`` with momentum and no dampening, which is
+  optax.sgd's trace.
 - ``adamw``: ``torch.optim.AdamW`` with optax's defaults (b1 .9, b2 .999,
   eps 1e-8, weight decay .01) and its mask: decay on tensors with ndim >= 2
   only.
 - ``make_lr_schedule``: optax's warmup / cosine / constant values, evaluated
   at the optimizer's update count BEFORE the update (optax's convention).
+- ``put_batch``: a step's host arrays on the device.
 - ``make_train_step``: forward, backward, one optimizer update (the
   counterpart of ``_step_body``), or with the ``GradAccum`` that
   ``with_grad_accum`` gives one update every ``every`` mini-steps
@@ -26,6 +32,7 @@ import shutil
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpujob_torch.workloads import distributed as dist
@@ -132,6 +139,77 @@ class Profiler:
         prof.export_chrome_trace(self.path)
 
 
+class TrainTelemetry:
+    """Step-loop telemetry: smoothed samples/s and the progress heartbeat
+    (``tpujob.dev/progress``) that the operator's telemetry plane and its
+    Stalled-job watchdog read.
+
+    Call ``step`` once a loop iteration and ``checkpointed`` after each
+    durable save.  Only process 0 publishes: the controller reads one
+    heartbeat a job.  With no reporter (local runs, tests) this is
+    throughput bookkeeping only."""
+
+    def __init__(self, reporter: Optional["dist.ProgressReporter"] = None,
+                 enabled: Optional[bool] = None, ema: float = 0.3,
+                 clock: Callable[[], float] = time.monotonic):
+        if enabled is None:
+            enabled = dist.process_env().process_id == 0
+        self.reporter = reporter if enabled else None
+        self._ema = ema
+        self._clock = clock
+        self.samples_per_sec: Optional[float] = None
+        self.step_count = 0
+        self.checkpoint_step: Optional[int] = None
+        self.resize_generation = 0
+        self._last_t: Optional[float] = None
+
+    @classmethod
+    def from_env(cls, interval_s: float = 10.0) -> "TrainTelemetry":
+        """The in-cluster construction: process 0 publishes through the
+        pod-identity env (no publisher anywhere else)."""
+        pe = dist.process_env()
+        publish = (dist.progress_publisher_from_env()
+                   if pe.process_id == 0 else None)
+        return cls(reporter=dist.ProgressReporter(publish,
+                                                  interval_s=interval_s),
+                   enabled=pe.process_id == 0)
+
+    def step(self, step: int, samples: int = 0,
+             resize_generation: Optional[int] = None) -> None:
+        """One loop iteration: fold ``samples`` into the throughput EMA and
+        heartbeat (rate-limited inside the reporter)."""
+        now = self._clock()
+        if self._last_t is not None and samples > 0:
+            dt = now - self._last_t
+            if dt > 0:
+                inst = samples / dt
+                self.samples_per_sec = (
+                    inst if self.samples_per_sec is None
+                    else self._ema * inst + (1 - self._ema) * self.samples_per_sec)
+        self._last_t = now
+        self.step_count = step
+        if resize_generation is not None:
+            self.resize_generation = resize_generation
+        if self.reporter is not None:
+            self.reporter.report(step, self.samples_per_sec,
+                                 self.checkpoint_step, self.resize_generation)
+
+    def checkpointed(self, step: int) -> None:
+        """A durable checkpoint landed: publish now (the watchdog's
+        checkpoint-age metric reads it)."""
+        self.checkpoint_step = step
+        if self.reporter is not None:
+            self.reporter.report(self.step_count, self.samples_per_sec,
+                                 step, self.resize_generation, force=True)
+
+    def close(self) -> None:
+        """A last forced heartbeat, so the controller sees the last step."""
+        if self.reporter is not None and self.step_count:
+            self.reporter.report(self.step_count, self.samples_per_sec,
+                                 self.checkpoint_step,
+                                 self.resize_generation, force=True)
+
+
 def add_profile_flags(parser) -> None:
     """The shared --profile-* surface for every workload CLI."""
     parser.add_argument("--profile-dir", default=None,
@@ -153,6 +231,21 @@ def profiler_from_args(args, pe, device=None) -> Profiler:
 
 
 # ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's lecun_normal: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                generator=gen)
+
+
+# ---------------------------------------------------------------------------
 # optimizer + schedule
 # ---------------------------------------------------------------------------
 
@@ -164,6 +257,13 @@ def _decay_mask(params):
     for p in params:
         (decay if p.ndim >= 2 else no_decay).append(p)
     return decay, no_decay
+
+
+def sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
+    """optax.sgd(lr, momentum): the trace ``m = g + momentum * m`` and
+    ``p -= lr * m``, which is torch's SGD with ``dampening=0`` (the first
+    step's buffer is g in both)."""
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, dampening=0.0)
 
 
 def adamw(params, lr: float, weight_decay: float = 0.01) -> torch.optim.AdamW:
@@ -332,6 +432,23 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
         return dict(state, step=state["step"] + 1), loss.detach()
 
     return step
+
+
+def sync(device) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def put_batch(arrays, device) -> tuple:
+    """This process's rows of a step's batch (host arrays) on ``device``:
+    integer arrays (token ids, labels) as the int64 that embeddings and
+    losses take, the rest (images, the MLM mask) in their own dtype."""
+    return tuple(
+        torch.from_numpy(np.asarray(a, dtype=np.int64)
+                         if np.issubdtype(a.dtype, np.integer)
+                         else np.ascontiguousarray(a)).to(device)
+        for a in arrays)
 
 
 # ---------------------------------------------------------------------------
