@@ -78,6 +78,21 @@ Phases, one JSON line each on stdout:
     ``resnet_profile``: a second run traces 4 steps after its warm-up
     through ``--profile-dir``, and the trace gives the kernels' ms a step
     by class and the device's busy share of the kernels' span.
+11. ``ddp``: the multi-process path, after the others and with the
+    parent's models freed.  ``smoke_dist`` at world 1 over NCCL on
+    ``cuda:0`` (the only NCCL group one card allows), then two ranks on
+    the one card over gloo (NCCL refuses two ranks on one card; gloo
+    runs its collectives on the CUDA tensors, and a collective it refuses
+    fails the phase), spawned with the env the operator writes for a job
+    with no ``tpu`` field: ``smoke_dist``; GPT-2-medium through
+    ``gpt.run`` (full width and depth, flash, bf16, remat, global batch 8,
+    4 steps; each rank launches B1/B2/B3 exactly 48/24/24 times a step);
+    ResNet-50 through ``resnet.run`` (global batch 256, 2 + 4 steps; both
+    ranks' running statistics equal); MNIST through ``mnist.run``
+    (``DDP_MNIST_ARGV``: global accuracy above 0.9, every test row counted
+    once).  Each is held to the parent's own one-process run of the same
+    seed; per-rank ms a step are a record of this layout (gloo's host
+    copies included), not a DDP speed.
 
 Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
 launched it), the card's ``name, power.limit`` as nvidia-smi prints them,
@@ -89,10 +104,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -144,6 +161,32 @@ MNIST_ARGV: list = []  # the entry point's defaults
 RESNET_ARGV = ["--batch-size", "256", "--image-size", "224", "--width", "64",
                "--warmup-steps", "2", "--steps", "10"]
 RESNET_PROFILED_STEPS = 4
+# ddp: two ranks on the one card (gloo), each against a one-process run
+DDP_WORLD = 2
+DDP_GPT_ARGV = ["--attention", "flash", "--batch-size", "8", "--steps", "4",
+                "--log-interval", "1", "--seed", "0"]
+DDP_RESNET_ARGV = ["--batch-size", "256", "--image-size", "224", "--width",
+                   "64", "--warmup-steps", "2", "--steps", "4"]
+# a test set of two whole batches of 1,000: every row is tested
+DDP_MNIST_ARGV = ["--train-size", "8192", "--test-size", "2000"]
+# Two ranks' losses against one process's.  GPT's are bf16 scalars near
+# 11, where one bf16 ulp is 0.0625 (5.7e-3 relative): the averaged
+# gradient rounds otherwise, and a loss may land one ulp away.  ResNet's
+# are fp32 from bf16 activations (observed 2.8e-5 relative after 6 steps,
+# its running statistics 8.8e-5 normwise, on an H100 80GB HBM3 at 700 W).
+DDP_GPT_LOSS_RTOL = 1e-2
+# GPT's parameters after 4 steps: both ranks bit-equal, and rank 0's
+# distance from one process's over one process's distance from the
+# initial parameters (``update_err``) at most this.  AdamW's first steps
+# move each weight by about lr * sign(g), so the rounding that tells a
+# 4-row product from an 8-row one flips the few updates whose gradient is
+# near 0: observed 0.1230 on an H100 80GB HBM3 at 700 W.  A rank that
+# trains alone on its half (no gradient all-reduce) reads 0.84-0.88 (two
+# gloo ranks on the CPU, a GPT of width 64 and 2 layers).
+DDP_GPT_UPDATE_RTOL = 0.25
+DDP_RESNET_RTOL = 1e-3  # ResNet's losses and running statistics
+DDP_MNIST_ATOL = 0.01  # accuracy: 20 of the 2,000 test images
+DDP_TIMEOUT_S = 600  # the whole spawn; the ranks' collectives get half
 
 
 def emit(obj) -> None:
@@ -256,11 +299,11 @@ def ptxas_report(build) -> list:
 
 
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
-                  case: str = "") -> dict:
+                  case: str = "", b: int = MAIN["b"]) -> dict:
     """B1-B3 against their plain versions on one shape."""
     from tpujob_torch.workloads import flash
 
-    b, h, d = MAIN["b"], MAIN["h"], MAIN["d"]
+    h, d = MAIN["h"], MAIN["d"]
     gen = torch.Generator(device=DEVICE).manual_seed(1234 + s + window)
 
     def rnd():
@@ -966,6 +1009,317 @@ def run_resnet() -> None:
           "profiled_run_losses": pres["losses"], **trace})
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextmanager
+def logged(name: str):
+    """The messages logged to ``name`` inside the block."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger = logging.getLogger(name)
+    logger.addHandler(handler)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+
+
+def smoke_results(messages) -> list:
+    return [m for m in messages if m.startswith("Result from participant")]
+
+
+def flag(argv: list, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def entry(module, argv: list, device: str, logdir: str) -> dict:
+    """``module.run`` through its flag surface."""
+    return module.run(module.build_parser().parse_args(
+        argv + ["--device", device, "--dir", logdir]))
+
+
+def gpt_step_ms(argv: list, device: str, logdir: str) -> tuple:
+    """``gpt.run`` with a hook that syncs the card and stamps the host
+    clock after each step: the losses, the ms of each step after the
+    first, and the trained model's ``param_digest`` (its first and last
+    layer and its final LayerNorm whole)."""
+    from tpujob_torch.workloads import gpt, train_lib
+
+    stamps = []
+
+    def on_step(i: int) -> None:
+        train_lib.sync(device)
+        stamps.append(time.perf_counter())
+
+    res = gpt.run(gpt.build_parser().parse_args(
+        argv + ["--device", device, "--dir", logdir]), on_step=on_step)
+    model = res["state"]["model"]
+    # from the end of step 1 on: step 1 holds gpt.run's set-up (the model
+    # built on the host from the seed)
+    return (res["losses"], [(y - x) * 1e3 for x, y in zip(stamps, stamps[1:])],
+            param_digest(model, gpt_leaves(model)))
+
+
+def gpt_leaves(model) -> tuple:
+    """The name prefixes of the transformer's first and last layer and of
+    its final LayerNorm."""
+    last = max(int(n.split(".")[0][len("layer_"):])
+               for n, _ in model.named_parameters() if n.startswith("layer_"))
+    return ("layer_0.", f"layer_{last}.", "ln_f.")
+
+
+def param_digest(model, whole: tuple = ()) -> dict:
+    """Every parameter's fp32 sum of |p|, and the parameters whose names
+    start with one of ``whole`` whole (fp32, on the host): what the ranks
+    of one data-parallel run must agree on bit for bit."""
+    sums, leaves = {}, {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            sums[name] = p.float().abs().sum().item()
+            if name.startswith(whole):
+                leaves[name] = p.detach().float().cpu()
+    return {"abs_sums": sums, "leaves": leaves}
+
+
+def update_err(got: dict, ref: dict, init: dict) -> float:
+    """How far ``got``'s leaves lie from ``ref``'s, over how far training
+    moved ``ref``'s from ``init``: ||got - ref|| / ||ref - init||."""
+    num = sum(float(((got[k] - ref[k]) ** 2).sum()) for k in ref)
+    den = sum(float(((ref[k] - init[k]) ** 2).sum()) for k in ref)
+    return math.sqrt(num / den)
+
+
+def running_stats(model) -> dict:
+    return {k: v.float().cpu() for k, v in model.state_dict().items()
+            if "running" in k}
+
+
+def ddp_plan() -> dict:
+    """What each rank runs, passed to it whole: a spawned rank imports
+    this file anew."""
+    return {"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+            "gpt": DDP_GPT_ARGV, "resnet": DDP_RESNET_ARGV,
+            "mnist": DDP_MNIST_ARGV}
+
+
+def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
+    """One rank of the ``ddp`` phase: the group over gloo on the card,
+    then the smoke, GPT-2-medium, ResNet-50 and MNIST through their entry
+    points; what the parent checks goes to ``out_dir``."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import distributed as dist
+    from tpujob_torch.workloads import flash, mnist, resnet, smoke_dist
+
+    os.environ.update(envs[rank])
+    device = plan["device"]
+    pe = dist.initialize(device=torch.device(device), backend="gloo",
+                         timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S // 2))
+    out = {"rank": rank, "pe": [pe.process_id, pe.num_processes],
+           "backend": tdist.get_backend()}
+    with logged("tpujob_torch.smoke_dist") as messages:
+        out["smoke_rc"] = smoke_dist.main(["--device", device])
+    out["smoke_results"] = smoke_results(messages)
+    logdir = os.path.join(out_dir, f"rank{rank}")
+
+    flash.reset_launches()
+    losses, ms, digest = gpt_step_ms(plan["gpt"], device, logdir + "/gpt")
+    out["gpt"] = {"losses": losses, "step_ms": ms,
+                  "launches": dict(flash.LAUNCHES), "digest": digest}
+
+    res = entry(resnet, plan["resnet"], device, logdir + "/resnet")
+    out["resnet"] = {"losses": res["losses"],
+                     "step_ms": res["wall_s"] * 1e3
+                     / flag(plan["resnet"], "--steps"),
+                     "stats": running_stats(res["state"]["model"]),
+                     "digest": param_digest(res["state"]["model"])}
+    del res
+
+    rows, em = [], mnist.eval_metrics
+
+    def counting(model, batch):
+        rows.append(len(batch[1]))
+        return em(model, batch)
+
+    mnist.eval_metrics = counting
+    res = entry(mnist, plan["mnist"], device, logdir + "/mnist")
+    counted = torch.tensor([float(sum(rows))], device=device)
+    tdist.all_reduce(counted)
+    out["mnist"] = {"accuracy": res["accuracy"],
+                    "final_loss": res["final_loss"],
+                    "rows_tested": int(counted.item()),
+                    "steps": res["state"]["step"], "wall_s": res["wall_s"]}
+    dist.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn_ranks(world: int, out_dir: str) -> list:
+    """``ddp_rank`` in ``world`` spawned processes with the operator's env
+    (``TPUJOB_*`` and the torch.distributed spelling, as it writes them
+    for a job with no ``tpu`` field); a rank that fails or a spawn that
+    outlives ``DDP_TIMEOUT_S`` raises, and no process outlives this."""
+    import torch.multiprocessing as tmp
+
+    port = free_port()
+    envs = [{"TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+             "TPUJOB_NUM_PROCESSES": str(world),
+             "TPUJOB_PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+             "RANK": str(rank)} for rank in range(world)]
+    ctx = tmp.start_processes(ddp_rank, args=(envs, out_dir, ddp_plan()),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):  # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"ddp: {world} ranks outlived {DDP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(os.path.join(out_dir, f"rank{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def run_ddp() -> dict:
+    """NCCL at world 1, then two gloo ranks on the card against the
+    parent's one-process runs of the same seeds."""
+    import gc
+
+    from tpujob_torch.workloads import gpt, mnist, resnet, smoke_dist
+
+    out_dir = os.path.join("build", "chip_smoke", "ddp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    device = ddp_plan()["device"]
+    with logged("tpujob_torch.smoke_dist") as messages:
+        nccl_rc = smoke_dist.main(["--device", device])
+    nccl_backend = [m for m in messages if "backend" in m]
+    one_smoke = smoke_results(messages)
+
+    # the one-process runs of the same seeds, then nothing of them kept
+    # but what the checks read; the GPT's initial leaves from its seed
+    model = gpt.build_model(gpt.build_parser().parse_args(
+        DDP_GPT_ARGV + ["--device", "cpu"]), "cpu")
+    init = param_digest(model, gpt_leaves(model))["leaves"]
+    del model
+    one_gpt, one_gpt_ms, one_digest = gpt_step_ms(
+        DDP_GPT_ARGV, device, os.path.join(out_dir, "one_gpt"))
+    res = entry(resnet, DDP_RESNET_ARGV, device,
+                os.path.join(out_dir, "one_resnet"))
+    one_resnet = {"losses": res["losses"],
+                  "stats": running_stats(res["state"]["model"])}
+    res = entry(mnist, DDP_MNIST_ARGV, device,
+                os.path.join(out_dir, "one_mnist"))
+    one_mnist = res["accuracy"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(DDP_WORLD, out_dir)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    steps = flag(DDP_GPT_ARGV, "--steps")
+    want_launches = {"flash_fwd": 48 * steps, "flash_dq": 24 * steps,
+                     "flash_dkv": 24 * steps}
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    names = sorted(one_resnet["stats"])
+    stats_err = max(
+        rel_err(torch.cat([r["resnet"]["stats"][k] for k in names]),
+                torch.cat([one_resnet["stats"][k] for k in names]))
+        for r in ranks)
+
+    def equal(digests):
+        return all(d["abs_sums"] == digests[0]["abs_sums"]
+                   and all(torch.equal(v, digests[0]["leaves"][k])
+                           for k, v in d["leaves"].items())
+                   for d in digests)
+
+    digests = [r["gpt"]["digest"] for r in ranks]
+    gpt_update_err = [update_err(d["leaves"], one_digest["leaves"], init)
+                      for d in digests]
+    stats_equal = all(torch.equal(r["resnet"]["stats"][k],
+                                  r0["resnet"]["stats"][k])
+                      for r in ranks for k in r0["resnet"]["stats"])
+    test_size = flag(DDP_MNIST_ARGV, "--test-size")
+    checks = {
+        "nccl_smoke": nccl_rc == 0 and any("backend nccl" in m
+                                           for m in nccl_backend),
+        "gloo_groups": all(r["backend"] == "gloo"
+                           and r["pe"] == [i, DDP_WORLD]
+                           for i, r in enumerate(ranks)),
+        "smoke": all(r["smoke_rc"] == 0 for r in ranks)
+        and r0["smoke_results"][0].split(":", 1)[1]
+        == one_smoke[0].split(":", 1)[1],
+        "gpt_losses": len(r0["gpt"]["losses"]) == steps
+        and all(math.isfinite(x) for x in r0["gpt"]["losses"])
+        and rel(r0["gpt"]["losses"], one_gpt) <= DDP_GPT_LOSS_RTOL,
+        "gpt_launches": all(r["gpt"]["launches"] == want_launches
+                            for r in ranks),
+        "gpt_params_equal_across_ranks": equal(digests),
+        "gpt_params_vs_one_process": max(gpt_update_err)
+        <= DDP_GPT_UPDATE_RTOL,
+        "resnet_losses": all(math.isfinite(x)
+                             for x in r0["resnet"]["losses"])
+        and rel(r0["resnet"]["losses"], one_resnet["losses"])
+        <= DDP_RESNET_RTOL,
+        "resnet_params_equal_across_ranks": equal(
+            [r["resnet"]["digest"] for r in ranks]),
+        "resnet_stats_equal_across_ranks": stats_equal,
+        "resnet_stats_vs_one_process": stats_err <= DDP_RESNET_RTOL,
+        "mnist": all(r["mnist"]["accuracy"] > 0.9
+                     and r["mnist"]["rows_tested"] == test_size
+                     for r in ranks)
+        and abs(r0["mnist"]["accuracy"] - one_mnist) <= DDP_MNIST_ATOL,
+    }
+    ok = all(checks.values())
+    emit({"phase": "ddp", "ok": ok, "checks": checks, "world": DDP_WORLD,
+          "backend_two_ranks": "gloo (two ranks on one card; NCCL refuses)",
+          "nccl_world1": nccl_backend, "spawn_s": spawn_s,
+          "gpt": {"argv": DDP_GPT_ARGV, "losses_rank0": r0["gpt"]["losses"],
+                  "losses_one_process": one_gpt,
+                  "loss_rtol": DDP_GPT_LOSS_RTOL,
+                  "max_rel_diff": rel(r0["gpt"]["losses"], one_gpt),
+                  "launches_by_rank": [r["gpt"]["launches"] for r in ranks],
+                  "leaves_compared": sorted(init),
+                  "update_err_by_rank": gpt_update_err,
+                  "update_rtol": DDP_GPT_UPDATE_RTOL,
+                  "step_ms_by_rank": [r["gpt"]["step_ms"] for r in ranks],
+                  "step_ms_one_process": one_gpt_ms},
+          "resnet": {"argv": DDP_RESNET_ARGV,
+                     "losses_rank0": r0["resnet"]["losses"],
+                     "losses_one_process": one_resnet["losses"],
+                     "max_rel_diff": rel(r0["resnet"]["losses"],
+                                         one_resnet["losses"]),
+                     "stats_rel_err_vs_one_process": stats_err,
+                     "rtol": DDP_RESNET_RTOL,
+                     "step_ms_by_rank": [r["resnet"]["step_ms"]
+                                         for r in ranks]},
+          "mnist": {"argv": DDP_MNIST_ARGV,
+                    "by_rank": [r["mnist"] for r in ranks],
+                    "accuracy_one_process": one_mnist},
+          "times_note": "per-rank ms a step (GPT: steps 2-4; ResNet: the "
+                        "timed steps) of two ranks sharing one card over "
+                        "gloo, host copies included: a record, not a DDP "
+                        "speed"})
+    if not ok:
+        raise AssertionError(f"ddp path failed: {checks}")
+    return r0["gpt"]["launches"]
+
+
 KERNELS = {
     "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
                   "tpujob/workloads/flash.py:74"),
@@ -1022,6 +1376,10 @@ def main(argv=None) -> int:
         main_case = check_kernels(s=MAIN["s"], window=0, timed=True)
         check_kernels(s=1000, window=0, timed=False)
         check_kernels(s=MAIN["s"], window=256, timed=False)
+        # the shape each ddp rank gives them: its half of the global batch
+        b_rank = flag(DDP_GPT_ARGV, "--batch-size") // DDP_WORLD
+        check_kernels(s=MAIN["s"], window=0, timed=False, b=b_rank,
+                      case=f"ddp_b{b_rank}")
         check_kernels(s=512, window=0, timed=True, causal=False,
                       case="bert_s512")
         # B1 at the decode buffer's shape, as the full route launches it
@@ -1034,6 +1392,7 @@ def main(argv=None) -> int:
                    "corpus": run_corpus()}
         run_mnist()
         run_resnet()
+        by_path["ddp"] = run_ddp()
         launches = by_path["train"]
 
         rows = []

@@ -119,7 +119,7 @@ def test_three_step_loss_trajectory_matches_jax(pair, tmp_path):
         steps=3, log_interval=1, dir=str(tmp_path))
     batch = (tbert.batch_to_device(pair["ids"], "cpu"),)
     res = tbert.train(args, tdist.process_env({}), model,
-                      tgpt.lm_loss(model), batch, tag="gpt")
+                      tgpt.lm_loss, batch, tag="gpt")
     np.testing.assert_allclose(res["losses"], jlosses, rtol=1e-5)
     want = convert.params_from_flax(jax.tree.map(np.asarray, params))
     for name, p in model.named_parameters():

@@ -48,6 +48,17 @@ def test_port_imports_nothing_of_jax_or_tpujob(path):
             f"{path.name} imports triton at module level"
 
 
+def test_scan_covers_every_port_module():
+    """The scan above reads every module of the port, the multi-process
+    ones included, and the chip smoke."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("smoke_dist", "distributed", "train_lib", "bert", "gpt",
+                   "mnist", "resnet"):
+        assert f"tpujob_torch/workloads/{module}.py" in names
+    assert "chip_smoke.py" in names
+    assert set(FORBIDDEN) == {"jax", "flax", "optax", "orbax", "tpujob"}
+
+
 def test_port_is_tpulint_clean():
     """Every per-file tpulint rule over the port (the project-wide rules
     read the control plane's wire registry and do not apply here)."""

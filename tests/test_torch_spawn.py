@@ -1,0 +1,349 @@
+"""Spawned process groups for the port's multi-process tests (CPU, gloo),
+and the bodies their ranks run.
+
+``spawn(body, world, tmp_path, *args)`` starts ``world`` processes with
+``torch.multiprocessing`` (start method ``spawn``), each with the env the
+operator would inject (``TPUJOB_COORDINATOR_ADDRESS``,
+``TPUJOB_NUM_PROCESSES``, ``TPUJOB_PROCESS_ID``): by default a ``file://``
+rendezvous under the test's own ``tmp_path``, so concurrent test workers
+never race for a port.  Each rank runs ``body(rank, *args)`` and its
+return value comes back through a file.  A rank that raises fails the
+test with its traceback; a spawn that outlives its timeout is killed and
+fails the test.  Inside a rank, ``join()`` brings the group up with a
+collective timeout of its own, so a lost peer ends in an error, not a hang.
+
+This file imports no JAX: a rank pays for importing torch and the port
+only.  The tests at the end hold the harness to its contract.
+"""
+import datetime
+import itertools
+import os
+import time
+import traceback
+import weakref
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as tmp
+
+from tpujob_torch.workloads import distributed as dist
+
+RANK_TIMEOUT = datetime.timedelta(seconds=60)  # rendezvous and collectives
+SPAWN_TIMEOUT_S = 240.0  # the whole spawn, the ranks' imports included
+_spawns = itertools.count()
+
+
+def file_envs(tmp_path, world: int):
+    """The operator's per-rank env with a fresh ``file://`` rendezvous."""
+    rdzv = tmp_path / f"rdzv-{os.getpid()}-{next(_spawns)}"
+    return [{"TPUJOB_COORDINATOR_ADDRESS": f"file://{rdzv}",
+             "TPUJOB_NUM_PROCESSES": str(world),
+             "TPUJOB_PROCESS_ID": str(rank)} for rank in range(world)]
+
+
+def _entry(rank, body, envs, args, out_dir):
+    os.environ.update(envs[rank])
+    torch.set_num_threads(2)  # several ranks of several test workers share the host
+    try:
+        result = ("ok", body(rank, *args))
+    except BaseException:  # reported to the parent, which fails the test
+        result = ("error", traceback.format_exc())
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn(body, world, tmp_path, *args, envs=None, timeout=SPAWN_TIMEOUT_S):
+    """Each rank's ``body(rank, *args)``, in rank order."""
+    envs = envs or file_envs(tmp_path, world)
+    out_dir = tmp_path / f"ranks-{next(_spawns)}"
+    out_dir.mkdir()
+    ctx = tmp.start_processes(_entry, args=(body, envs, args, str(out_dir)),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                pytest.fail(f"spawn of {world} ranks outlived its {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    results = []
+    for rank in range(world):
+        status, value = torch.load(out_dir / f"rank{rank}.pt",
+                                   weights_only=False)
+        if status != "ok":
+            pytest.fail(f"rank {rank} of {world} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+def join(device="cpu"):
+    """Bring this rank's group up from the env, with ``RANK_TIMEOUT``."""
+    return dist.initialize(device=torch.device(device), timeout=RANK_TIMEOUT)
+
+
+def numpy_state(module):
+    return {k: v.detach().float().numpy().copy()
+            for k, v in module.state_dict().items()}
+
+
+def loading(build, state):
+    """``build`` whose model starts from ``state`` (a state_dict)."""
+    def built(*a, **kw):
+        model = build(*a, **kw)
+        model.load_state_dict(state, strict=True)
+        return model
+    return built
+
+
+# ---------------------------------------------------------------------------
+# rank bodies
+# ---------------------------------------------------------------------------
+
+
+def smoke_ranks(rank, corrupt_rank=None):
+    """``smoke_dist.main`` twice on the env's group, which it brings up and
+    tears down itself each time (the second run re-rendezvouses on the
+    same coordinator), the second time with ``corrupt_rank``'s result
+    off by one when given.  The exit codes."""
+    from tpujob_torch.workloads import smoke_dist
+
+    codes = [smoke_dist.main(["--device", "cpu"])]
+    if corrupt_rank == rank:
+        smoke_dist.work = lambda x: x * x + 1.0
+    codes.append(smoke_dist.main(["--device", "cpu"]))
+    return codes
+
+
+def operator_ranks(rank):
+    """The smoke, then a heartbeat through ``TrainTelemetry.from_env``
+    with a recording publisher: (exit code, ProcessEnv, heartbeats sent,
+    publisher factory calls)."""
+    from tpujob_torch.workloads import smoke_dist, train_lib
+
+    shipped, made = [], []
+
+    def publisher():
+        made.append(rank)
+        return shipped.append
+
+    dist.progress_publisher_from_env = publisher
+    code = smoke_dist.main(["--device", "cpu"])
+    telemetry = train_lib.TrainTelemetry.from_env()
+    telemetry.step(1, samples=8)
+    telemetry.close()
+    return code, dist.process_env(), shipped, made
+
+
+# where each trainer builds its model: patched in the rank to load weights
+BUILDERS = {"gpt": ("bert", "build_model"), "bert": ("bert", "build_model"),
+            "mnist": ("mnist", "Net"), "resnet": ("resnet", "make_model")}
+
+
+def trainer_ranks(rank, module_name, runs, state):
+    """``module.run`` for each argv in ``runs``, from the weights
+    ``state``: each run's losses, accuracy, final step and state."""
+    import importlib
+
+    join()
+    module = importlib.import_module(f"tpujob_torch.workloads.{module_name}")
+    owner_name, attr = BUILDERS[module_name]
+    owner = importlib.import_module(f"tpujob_torch.workloads.{owner_name}")
+    setattr(owner, attr, loading(getattr(owner, attr), state))
+    out = []
+    for argv in runs:
+        res = module.run(module.build_parser().parse_args(argv))
+        out.append({"losses": res.get("losses"),
+                    "accuracy": res.get("accuracy"),
+                    "final_loss": res.get("final_loss"),
+                    "state": numpy_state(res["state"]["model"]),
+                    "step": res["state"]["step"]})
+    return out
+
+
+def group_ranks(rank):
+    """``initialize`` from a ``host:port`` coordinator: the group it makes,
+    a second call (idempotent), calls with a conflicting env (refused),
+    one all-reduce, the loss helpers; then, with a DDP wrapper still
+    holding the old group, ``reinitialize`` at the same world and the same
+    port, and one all-reduce on the new group."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import train_lib
+
+    pe = join()
+    group = weakref.ref(tdist.group.WORLD)
+    out = {"pe": pe, "backend": tdist.get_backend(),
+           "world": tdist.get_world_size(), "rank": tdist.get_rank()}
+    out["again_same_group"] = (dist.initialize(timeout=RANK_TIMEOUT) == pe
+                               and tdist.group.WORLD is group())
+    refused = []
+    for over in ({"TPUJOB_NUM_PROCESSES": "3"},
+                 {"TPUJOB_PROCESS_ID": str(1 - rank)}):
+        try:
+            dist.initialize(dist.process_env({**os.environ, **over}))
+        except RuntimeError as e:
+            refused.append("already initialized" in str(e))
+    out["refused"] = refused
+    x = torch.tensor([float(rank + 1)])
+    tdist.all_reduce(x)
+    out["sum"] = x.item()
+    out["global_sum"] = train_lib.global_sum(torch.tensor(rank + 1.0)).item()
+    out["global_mean_bf16"] = train_lib.global_mean(
+        torch.tensor(rank + 1.0, dtype=torch.bfloat16))
+    # DDP's hooks keep the group, and rank 0's store server, alive
+    ddp = train_lib.data_parallel(torch.nn.Linear(2, 2))
+    out["data_parallel"] = type(ddp).__name__
+    new = dist.reinitialize(pe, 2, timeout=RANK_TIMEOUT)
+    y = torch.tensor([10.0 * (rank + 1)])
+    tdist.all_reduce(y)
+    out["after_reinit"] = (new == pe, tdist.group.WORLD is not group(),
+                           y.item())
+    dist.shutdown()
+    out["shut_down"] = not tdist.is_initialized()
+    return out
+
+
+def mnist_ranks(rank, argv, state, x, y):
+    """``mnist.run`` from ``state``, then ``make_eval_step`` over this
+    rank's rows of (x, y) with the trained model: the run's result and the
+    eval step's sums."""
+    from tpujob_torch.workloads import mnist, train_lib
+
+    [out] = trainer_ranks(rank, "mnist", [argv], state)
+    model = mnist.Net()
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in out["state"].items()})
+    lo, sz = dist.local_batch_slice(len(x), dist.process_env())
+    eval_step = train_lib.make_eval_step(
+        lambda batch: mnist.eval_metrics(model, batch))
+    sums = eval_step(train_lib.put_batch((x[lo : lo + sz], y[lo : lo + sz]),
+                                         "cpu"))
+    out["eval_sums"] = [s.item() for s in sums]
+    return out
+
+
+def resnet_ranks(rank, argv, state, x, y, run_argv):
+    """One SGD step of the ResNet on this rank's rows of (x, y) through
+    DDP: the loss, every gradient and the state after it; then
+    ``resnet.run`` from ``state`` (``run_argv``): its losses and final
+    state, running statistics included."""
+    from tpujob_torch.workloads import resnet, train_lib
+
+    join()
+    model = resnet.make_model(resnet.build_parser().parse_args(argv))
+    model.load_state_dict(state, strict=True)
+    model.train()
+    opt = train_lib.sgd(model.parameters(), 0.1, 0.9)
+    step = train_lib.make_train_step(
+        resnet.build_loss(train_lib.data_parallel(model)), opt,
+        lambda count: 0.1)
+    lo, sz = dist.local_batch_slice(len(x), dist.process_env())
+    _, loss = step({"model": model, "opt": opt, "step": 0},
+                   (torch.from_numpy(x[lo : lo + sz]),
+                    torch.from_numpy(y[lo : lo + sz].astype(np.int64))))
+    out = {"loss": loss.item(), "state": numpy_state(model),
+           "grads": {n: p.grad.numpy().copy()
+                     for n, p in model.named_parameters()}}
+    [out["run"]] = trainer_ranks(rank, "resnet", [run_argv], state)
+    return out
+
+
+def checkpoint_ranks(rank, argv, state, directory):
+    """``gpt.run`` with checkpoints every 2 steps into one shared
+    ``directory``, counting this process's ``torch.save`` calls; then
+    ``latest_step`` with rank 1 blind to the directory (it must still
+    answer rank 0's step)."""
+    from tpujob_torch.workloads import train_lib
+
+    saves = []
+    save = torch.save
+
+    def counting(obj, path, *a, **kw):
+        saves.append(str(path))
+        return save(obj, path, *a, **kw)
+
+    torch.save = counting
+    [out] = trainer_ranks(rank, "gpt", [argv], state)
+    torch.save = save
+    ckpt = train_lib.Checkpointer(directory)
+    if rank == 1:
+        ckpt._steps = lambda: []
+    out["saves"] = saves
+    out["latest"] = ckpt.latest_step()
+    return out
+
+
+def shrink_ranks(rank, argv, state, resume_argv, draining, committed):
+    """The 2 -> 1 shrink: both ranks train to a checkpoint; the drain
+    signal (``draining``, a downward-API annotations file) plans
+    checkpoint / leave; rank 1 tries to rejoin the smaller world
+    (refused, its group untouched), and leaves after one last collective;
+    rank 0 reads the committed signal, re-initializes at world 1 and
+    resumes from the latest checkpoint (``resume_argv``)."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import bert, gpt
+
+    [first] = trainer_ranks(rank, "gpt", [argv], state)
+    pe = dist.process_env()
+    out = {"first": first,
+           "plan_draining": dist.plan_resize(
+               pe, dist.read_world_signal(draining))}
+    if rank == 1:
+        try:
+            dist.reinitialize(pe, 1)
+        except ValueError as e:
+            out["refused"] = "drained process must exit" in str(e)
+    out["group_live"] = tdist.is_initialized()
+    goodbye = torch.tensor([1.0])
+    tdist.all_reduce(goodbye)
+    out["goodbye"] = goodbye.item()
+    if rank == 1:
+        return out
+    signal = dist.read_world_signal(committed)
+    out["plan_committed"] = dist.plan_resize(pe, signal)
+    new = dist.reinitialize(pe, signal.world_size, timeout=RANK_TIMEOUT)
+    out["new"] = (new.num_processes, new.process_id, tdist.is_initialized())
+    args = gpt.build_parser().parse_args(resume_argv)
+    model = gpt.build_model(args, torch.device("cpu"))
+    ids, _, _ = bert.token_batches(args, new)
+    res = bert.train(args, new, model, gpt.lm_loss,
+                     (bert.batch_to_device(ids, "cpu"),), tag="gpt")
+    out["resumed"] = res["losses"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the harness's own contract
+# ---------------------------------------------------------------------------
+
+
+def _echo(rank, fail_rank=None, sleep_s=0.0):
+    if rank == fail_rank:
+        raise ValueError(f"rank {rank} was told to fail")
+    time.sleep(sleep_s)
+    return rank, dist.process_env()
+
+
+def test_results_come_back_in_rank_order_with_the_operators_env(tmp_path):
+    outs = spawn(_echo, 3, tmp_path)
+    for rank, (got, pe) in enumerate(outs):
+        assert got == pe.process_id == rank and pe.num_processes == 3
+        assert pe.coordinator_address.startswith(f"file://{tmp_path}")
+
+
+def test_a_failing_rank_fails_the_test_with_its_traceback(tmp_path):
+    with pytest.raises(pytest.fail.Exception,
+                       match="(?s)rank 1 of 2 failed.*was told to fail"):
+        spawn(_echo, 2, tmp_path, 1)
+
+
+def test_a_spawn_past_its_timeout_is_killed(tmp_path):
+    t0 = time.monotonic()
+    with pytest.raises(pytest.fail.Exception, match="outlived its 5 s"):
+        spawn(_echo, 2, tmp_path, None, 600.0, timeout=5)
+    assert time.monotonic() - t0 < 60

@@ -374,14 +374,21 @@ def test_process_env_matches_reference(env):
     import dataclasses
 
     ours = dataclasses.asdict(distributed.process_env(env))
-    assert ours == dataclasses.asdict(jdist.process_env(env))
+    want = dataclasses.asdict(jdist.process_env(env))
+    # the port's own field: no launcher in these envs, so local rank 0
+    assert ours.pop("local_rank") == 0
+    assert ours == want
     assert distributed.local_batch_slice(8, distributed.process_env(env)) == \
         jdist.local_batch_slice(8, jdist.process_env(env))
 
 
 def test_initialize_single_process_and_rejects_multi():
+    """One process makes no group; a multi-process env without a
+    coordinator to rendezvous at is refused before any group is made."""
     assert distributed.initialize(distributed.process_env({})).num_processes == 1
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="needs a coordinator"):
         distributed.initialize(distributed.process_env({"WORLD_SIZE": "2"}))
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="not divisible"):
         distributed.local_batch_slice(3, distributed.process_env({"WORLD_SIZE": "2"}))

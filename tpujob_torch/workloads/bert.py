@@ -9,9 +9,10 @@ an explicit ``KVCache``), the masked-LM objective (``mask_batch``,
 ``mlm_loss``), the flag surface, ``tokenizer_from_args`` and
 ``token_batches`` (synthetic, or a real corpus with ``--data-file``, raw
 bytes or ``--tokenizer bpe:...`` tokens, a new batch every step), the flag
-checks that apply to one process, ``build_model`` (dense and flash
-attention), the ``train`` loop (a per-step batch provider, gradient
-accumulation, ``--profile-dir``) and ``run``/``main``.
+checks, ``build_model`` (dense and flash attention), the ``train`` loop (a
+per-step batch provider, gradient accumulation, ``--profile-dir``, data
+parallelism across processes through DDP) and ``run``/``main``.  Of the
+parallel strategies only data parallelism is ported.
 
 Parity with flax, made explicit rather than left to autocast:
 
@@ -46,7 +47,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpujob_torch import resolve_device
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import parallel, train_lib
@@ -307,18 +307,24 @@ class Bert(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def mlm_loss(model: Bert, mask_id: int = 103):
+def mlm_loss(model: nn.Module, mask_id: int = 103):
     """Masked LM: predict the original ids at the masked positions.
     ``mask_id`` is the [MASK] token (103, the WordPiece id, for synthetic
     vocabularies).  The log-softmax runs in the logits' dtype (bf16 under
-    --bf16) and the masked mean in fp32, as in the JAX package."""
+    --bf16) and the masked mean in fp32, as in the JAX package.
+
+    The mean is over the GLOBAL batch's masked positions, which differ in
+    number from rank to rank: each rank divides its sum by the global
+    count over the world, so the ranks' mean (DDP's mean of the grads, and
+    the reported loss) is the JAX package's loss of the whole batch."""
 
     def loss_fn(batch):
         ids, mask = batch  # mask: 1.0 where the position is predicted
         masked_ids = torch.where(mask > 0, mask_id, ids)
         logp = torch.log_softmax(model(masked_ids), dim=-1)
         tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
-        return -(tok_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        count = torch.clamp(train_lib.global_sum(mask.sum()), min=1.0)
+        return -(tok_ll * mask).sum() * dist.group_size() / count
 
     return loss_fn
 
@@ -432,7 +438,7 @@ def reject_unported(args) -> None:
         if getattr(args, name, 1) > 1:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} > 1 is not yet ported to "
-                "tpujob_torch (single-device only)")
+                "tpujob_torch (data parallelism only)")
     if getattr(args, "moe_experts", 0) > 0:
         raise NotImplementedError("--moe-experts is not yet ported to "
                                   "tpujob_torch")
@@ -452,7 +458,8 @@ def validate_pipeline_flags(args) -> None:
 
 
 def validate_parallel_flags(args) -> None:
-    """The flag-coherence rules that apply to one process."""
+    """The flag-coherence rules of the ported strategies (data
+    parallelism only)."""
     reject_unported(args)
     if getattr(args, "position", "learned") == "rope" \
             and (args.hidden // args.heads) % 2 != 0:
@@ -592,23 +599,29 @@ def build_model(args, device, *, causal: bool = False,
     return model.to(device)
 
 
-def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
-          tag: str = "bert", batch_provider: Optional[Callable] = None,
+def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
+          batch, *, tag: str = "bert",
+          batch_provider: Optional[Callable] = None,
           on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
-    """Single-process training loop: AdamW with the flag surface's
-    schedule, gradient accumulation (``--grad-accum``, optax.MultiSteps),
-    step-exact checkpoint/resume, ``--profile-dir``, and honest throughput
-    (the clock starts after set-up, ends after the device has finished,
-    and leaves out the time spent writing a trace).
+    """The training loop: AdamW with the flag surface's schedule, gradient
+    accumulation (``--grad-accum``, optax.MultiSteps), step-exact
+    checkpoint/resume, ``--profile-dir``, and honest throughput (the clock
+    starts after set-up, ends after the device has finished, and leaves
+    out the time spent writing a trace).
 
-    ``loss_fn(batch) -> scalar`` runs ``model``; ``batch`` is a tuple of
-    tensors already on the model's device, the batch of every step unless
-    ``batch_provider(step) -> tuple of host arrays`` gives each step its
-    own (the ``--data-file`` path; deterministic in the step, so a resume
-    replays the same stream).  Its copy to the device
+    ``loss_of(module)`` builds ``loss_fn(batch) -> scalar`` that runs
+    ``module``: ``model`` itself, or with a process group its DDP wrapper,
+    so that every forward goes through DDP (a loss that called
+    ``model.embed`` directly would bypass it).  Each rank feeds its own
+    rows of the global batch; losses are the global batch's.  ``batch`` is
+    a tuple of tensors already on the model's device, the batch of every
+    step unless ``batch_provider(step) -> tuple of host arrays`` gives
+    each step its own (the ``--data-file`` path; deterministic in the
+    step, so a resume replays the same stream).  Its copy to the device
     (``train_lib.put_batch``) is inside the clock, as in the JAX package.
     ``on_step(i)``, if given, runs after step ``i`` inside the clock (a
-    caller's timer or profiler)."""
+    caller's timer or profiler).  The checkpointed and returned state
+    holds ``model``, never the wrapper."""
     validate_parallel_flags(args)
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -630,8 +643,6 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
         getattr(args, "warmup_steps", 0) // accum, args.steps // accum)
     optimizer = train_lib.adamw(model.parameters(), args.lr)
     accumulator = train_lib.with_grad_accum(model.parameters(), accum)
-    train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
-                                           accumulator)
     state = {"model": model, "opt": optimizer, "step": 0}
     if accumulator is not None:
         state["accum"] = accumulator  # checkpointed: resume mid-group
@@ -646,11 +657,14 @@ def train(args, pe, model: Bert, loss_fn: Callable, batch, *,
             start_step = latest
             print(f"resumed from checkpoint step {latest}")
 
+    loss_fn = loss_of(train_lib.data_parallel(model))
+    train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
+                                           accumulator)
     if start_step >= args.steps:
         # restarted after the final checkpoint (the preemption race):
         # report completion instead of training further
         with torch.no_grad():
-            final_loss = float(loss_fn(batch))
+            final_loss = float(train_lib.global_mean(loss_fn(batch)))
         if pe.process_id == 0:
             print(f"already complete: resumed at step {start_step} >= "
                   f"--steps {args.steps}")
@@ -729,10 +743,10 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
     one fixed mask drawn from ``--seed``, or with ``--data-file`` a new
     corpus batch every step and its mask drawn from ``seed + step``.
     ``on_step(i)`` runs after each step (see ``train``)."""
-    pe = dist.initialize()
+    device = dist.local_device(getattr(args, "device", "cuda"))
+    pe = dist.initialize(device=device)
     tok = tokenizer_from_args(args, reserve=1)
     mask_id = mask_id_from_args(args, tok)
-    device = resolve_device(getattr(args, "device", "cuda"))
     model = build_model(args, device)
     ids0, provider, _ = token_batches(args, pe, tokenizer=tok)
     lo, sz = dist.local_batch_slice(args.batch_size, pe)
@@ -748,7 +762,7 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
     bp = None
     if provider is not None:
         bp = lambda step: masked(provider(step), args.seed + step)
-    return train(args, pe, model, mlm_loss(model, mask_id=mask_id),
+    return train(args, pe, model, lambda net: mlm_loss(net, mask_id=mask_id),
                  train_lib.put_batch(masked(ids0, args.seed), device),
                  batch_provider=bp, on_step=on_step)
 

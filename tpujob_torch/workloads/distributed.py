@@ -4,10 +4,22 @@ The operator injects either the ``TPUJOB_*`` variables or the
 torch.distributed spelling (``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
 ``RANK``); ``process_env`` reads both, exactly as the JAX package's
 ``tpujob/workloads/distributed.py`` does (this is a copy of its
-JAX-free part, so the port imports nothing of ``tpujob``).
+JAX-free part, so the port imports nothing of ``tpujob``).  One
+difference, deliberate: under a launcher (``torchrun`` sets
+``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``) the launcher's world and rank
+win, because its children inherit the pod's ``TPUJOB_*`` values, which
+count pods, not processes.
 
-Only single-process jobs run in this port so far: a multi-process env
-raises from ``initialize`` instead of training one replica alone.
+``initialize`` is the port's ``jax.distributed.initialize``: one
+``torch.distributed`` process group (NCCL on the card, gloo on the CPU)
+for a multi-process job, none for a single process.  The trainers wrap
+their model in ``DistributedDataParallel`` when a group exists
+(``train_lib.data_parallel``).
+
+Elastic resize, the workload half of the drain/join protocol
+(``WorldSignal``, ``parse_world_signal``, ``plan_resize``, ``shutdown``,
+``reinitialize``): the controller publishes the live world on job
+annotations, and a process re-rendezvouses at the new size.
 
 The other direction, workload to controller, is the progress heartbeat:
 ``ProgressReporter`` publishes a ``tpujob.dev/progress`` record (the
@@ -19,6 +31,7 @@ CA, one merge-patch ``PATCH`` through ``urllib``).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import logging
 import os
@@ -27,12 +40,19 @@ import time
 import urllib.request
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
+import torch.distributed as tdist
+
+from tpujob_torch import resolve_device
+
 log = logging.getLogger("tpujob_torch.workloads")
 
 
 @dataclasses.dataclass(frozen=True)
 class ProcessEnv:
-    """The injected cluster spec, parsed."""
+    """The injected cluster spec, parsed.  ``local_rank`` (the port's own
+    field) is this process's index among the processes of its host: the
+    launcher's ``LOCAL_RANK``, else 0 (one process a pod)."""
 
     coordinator_address: Optional[str]
     num_processes: int
@@ -43,6 +63,7 @@ class ProcessEnv:
     global_devices: Optional[int]
     accelerator: Optional[str]
     topology: Optional[str]
+    local_rank: int = 0
 
     @property
     def is_coordinator(self) -> bool:
@@ -60,8 +81,19 @@ def _geti(env: Dict[str, str], key: str, default: Optional[int] = None) -> Optio
     return int(v)
 
 
+def under_launcher(env: Dict[str, str]) -> bool:
+    """True in a child of a per-host launcher (``torchrun``), which sets
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` for each process it starts."""
+    return bool(env.get("LOCAL_RANK")) and bool(env.get("LOCAL_WORLD_SIZE"))
+
+
 def process_env(env: Optional[Dict[str, str]] = None) -> ProcessEnv:
-    """Parse TPUJOB_* (preferred) or MASTER_ADDR-compat env into a ProcessEnv."""
+    """Parse the env into a ProcessEnv: the one place the rank is derived.
+
+    Under a launcher, its ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and
+    ``MASTER_ADDR:MASTER_PORT``.  Otherwise the JAX package's order:
+    ``TPUJOB_*`` first, the torch.distributed spelling as fallback, local
+    rank 0."""
     e = dict(os.environ) if env is None else env
     coord = e.get("TPUJOB_COORDINATOR_ADDRESS")
     if coord is None and e.get("MASTER_ADDR"):
@@ -70,6 +102,13 @@ def process_env(env: Optional[Dict[str, str]] = None) -> ProcessEnv:
     pid = _geti(e, "TPUJOB_PROCESS_ID")
     if pid is None:
         pid = _geti(e, "RANK", 0) or 0
+    local_rank = 0
+    if under_launcher(e):
+        if e.get("MASTER_ADDR"):
+            coord = f"{e['MASTER_ADDR']}:{e.get('MASTER_PORT', '23456')}"
+        num = _geti(e, "WORLD_SIZE", 1) or 1
+        pid = _geti(e, "RANK", 0) or 0
+        local_rank = _geti(e, "LOCAL_RANK", 0) or 0
     return ProcessEnv(
         coordinator_address=coord,
         num_processes=num,
@@ -80,21 +119,110 @@ def process_env(env: Optional[Dict[str, str]] = None) -> ProcessEnv:
         global_devices=_geti(e, "TPUJOB_GLOBAL_DEVICES"),
         accelerator=e.get("TPU_ACCELERATOR_TYPE"),
         topology=e.get("TPU_TOPOLOGY"),
+        local_rank=local_rank,
     )
 
 
-def initialize(env: Optional[ProcessEnv] = None) -> ProcessEnv:
-    """The single-process half of ``init_process_group``.
+def local_device(name) -> torch.device:
+    """``resolve_device(name)`` for this process: in a multi-process job a
+    bare ``"cuda"`` is this process's card, ``cuda:<local rank>``
+    (``ProcessEnv.local_rank``); an explicit ``cuda:N`` is kept as it
+    is."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        pe = process_env()
+        if pe.is_distributed:
+            dev = resolve_device(f"cuda:{pe.local_rank}")
+    return dev
 
-    A single-process job needs no rendezvous.  A multi-process env raises:
-    the process group and DDP are not ported yet, and training one replica
-    alone while the others do the same would silently waste the job."""
+
+def group_size() -> int:
+    """The world of the live process group; 1 when there is none."""
+    return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+def init_method(address: str) -> str:
+    """The rendezvous URL of a coordinator address: ``host:port`` dials
+    TCP (rank 0 hosts the store); an address with a scheme
+    (``file:///shared/path``, ``tcp://...``) is used as it is."""
+    return address if "://" in address else f"tcp://{address}"
+
+
+# The rendezvous store of each address this process joined a group at,
+# kept for the life of the process and used again by every later group
+# there.  A re-rendezvous then always meets the same server (rank 0's TCP
+# server never goes away between groups).  Otherwise torch hands a new
+# rendezvous the old server while anything still holds the old group
+# (DDP's hooks on the parameters do), or a new one once nothing does, and
+# a peer that dials early reaches the old one: the ranks then rendezvous
+# on two servers and hang.
+_stores: Dict[str, "tdist.Store"] = {}
+
+
+def init_group(pe: ProcessEnv, device=None, backend: Optional[str] = None,
+               timeout: Optional[datetime.timedelta] = None) -> None:
+    """Join ``pe``'s process group, whatever its size: NCCL when
+    ``device`` is a CUDA device (made this process's current device), gloo
+    otherwise; ``backend`` overrides the choice.  A single process with no
+    coordinator rendezvouses on an in-memory store."""
+    device = torch.device(device if device is not None else "cpu")
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kw = {} if timeout is None else {"timeout": timeout}
+    log.info("init_process_group backend=%s coordinator=%s world=%d rank=%d",
+             backend, pe.coordinator_address, pe.num_processes,
+             pe.process_id)
+    if pe.coordinator_address is None:
+        if pe.is_distributed:
+            raise ValueError(
+                f"a {pe.num_processes}-process job needs a coordinator "
+                "address (TPUJOB_COORDINATOR_ADDRESS or MASTER_ADDR)")
+        tdist.init_process_group(backend, store=tdist.HashStore(),
+                                 world_size=1, rank=0, **kw)
+        return
+    url = init_method(pe.coordinator_address)
+    store = _stores.get(url)
+    if store is None:
+        store, _, _ = next(tdist.rendezvous(url, pe.process_id,
+                                            pe.num_processes, **kw))
+        _stores[url] = store
+    elif timeout is not None:
+        store.set_timeout(timeout)
+    # Each rendezvous at a world counts its joins on the store and keys its
+    # group under the count, so every group starts on keys of its own.
+    world = pe.num_processes
+    joins = store.add(f"tpujob/joins/{world}", 1)
+    tdist.init_process_group(
+        backend, store=tdist.PrefixStore(
+            f"tpujob/{world}/{(joins - 1) // world}", store),
+        world_size=world, rank=pe.process_id, **kw)
+
+
+def initialize(env: Optional[ProcessEnv] = None, *, device=None,
+               backend: Optional[str] = None,
+               timeout: Optional[datetime.timedelta] = None) -> ProcessEnv:
+    """The port's ``init_process_group`` (the JAX package's ``initialize``).
+
+    A single-process job makes no group.  A multi-process job joins one
+    (``init_group``: NCCL for a CUDA ``device``, gloo for the CPU, or
+    ``backend``).  Idempotent: with a group already up (a caller that
+    brought up its own, or an earlier call) the env is checked against it
+    and returned; a group of another world or rank is an error."""
     pe = env or process_env()
-    if pe.is_distributed:
-        raise NotImplementedError(
-            f"multi-process training is not yet ported to tpujob_torch "
-            f"(env asks for {pe.num_processes} processes); run one process")
-    log.info("single-process job; no process group")
+    if tdist.is_initialized():
+        world, rank = tdist.get_world_size(), tdist.get_rank()
+        if (world, rank) != (pe.num_processes, pe.process_id):
+            raise RuntimeError(
+                f"a process group of world {world} (rank {rank}) is "
+                f"already initialized, but the env asks for world "
+                f"{pe.num_processes} (rank {pe.process_id})")
+        return pe
+    if not pe.is_distributed:
+        log.info("single-process job; no process group")
+        return pe
+    init_group(pe, device, backend, timeout)
     return pe
 
 
@@ -107,6 +235,163 @@ def local_batch_slice(global_batch: int, env: Optional[ProcessEnv] = None) -> Tu
         )
     per = global_batch // pe.num_processes
     return pe.process_id * per, per
+
+
+# ---------------------------------------------------------------------------
+# elastic resize: the workload half of the drain/join protocol
+# ---------------------------------------------------------------------------
+#
+# The controller publishes the LIVE world size on job annotations (pod env
+# is bootstrap-only): a pending shrink publishes `target-world-size` first
+# so every process can hit a checkpoint barrier, and the committed world
+# arrives as `world-size` + a bumped `resize-generation` once the join /
+# drain staging completed.  A real pod reads the annotations through a
+# downward-API file mount (one `key="escaped value"` line per annotation).
+
+# the annotation keys (``tpujob.api.constants``), the port's own copies
+ANNOTATION_WORLD_SIZE = "tpujob.dev/world-size"
+ANNOTATION_TARGET_WORLD_SIZE = "tpujob.dev/target-world-size"
+ANNOTATION_RESIZE_GENERATION = "tpujob.dev/resize-generation"
+
+# env var naming the downward-API file carrying the job annotations;
+# absent = not elastic
+RESIZE_SIGNAL_ENV = "TPUJOB_RESIZE_SIGNAL_FILE"
+
+# resize plan actions (plan_resize return values)
+PLAN_CHECKPOINT = "checkpoint"  # drain pending: checkpoint NOW and ack
+PLAN_LEAVE = "leave"  # beyond the target: checkpoint, then idle until deleted
+PLAN_REJOIN = "rejoin"  # world republished: reinitialize at the new size
+# and restore from the latest checkpoint
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldSignal:
+    """The published elastic state, parsed from the job annotations."""
+
+    world_size: int  # committed world (every live replica rendezvouses here)
+    target_world_size: Optional[int]  # pending drain target (None = steady)
+    resize_generation: int  # bumps on every completed resize
+
+    @property
+    def drain_pending(self) -> bool:
+        return (self.target_world_size is not None
+                and self.target_world_size != self.world_size)
+
+
+def parse_world_signal(annotations: Dict[str, str],
+                       default_world: int) -> WorldSignal:
+    """A :class:`WorldSignal` from job annotations.  ``default_world`` is
+    the bootstrap world (the injected process count): the committed world
+    before the controller ever published one.  A value that is not an
+    integer counts as absent."""
+
+    def _geti_ann(key):
+        v = annotations.get(key)
+        if v is None or v == "":
+            return None
+        try:
+            return int(v)
+        except ValueError:
+            return None
+
+    world = _geti_ann(ANNOTATION_WORLD_SIZE)
+    return WorldSignal(
+        world_size=world if world is not None else default_world,
+        target_world_size=_geti_ann(ANNOTATION_TARGET_WORLD_SIZE),
+        resize_generation=_geti_ann(ANNOTATION_RESIZE_GENERATION) or 0,
+    )
+
+
+def parse_downward_annotations(text: str) -> Dict[str, str]:
+    """The downward-API ``metadata.annotations`` file format: one
+    ``key="escaped value"`` line per annotation (Go strconv.Quote)."""
+    out: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or "=" not in line:
+            continue
+        key, _, raw = line.partition("=")
+        raw = raw.strip()
+        if raw.startswith('"') and raw.endswith('"') and len(raw) >= 2:
+            raw = raw[1:-1].encode().decode("unicode_escape")
+        out[key.strip()] = raw
+    return out
+
+
+def read_world_signal(path: Optional[str] = None,
+                      default_world: Optional[int] = None) -> Optional[WorldSignal]:
+    """The elastic signal from the downward-API annotations file ``path``
+    (default: ``$TPUJOB_RESIZE_SIGNAL_FILE``); None when the job is not
+    elastic (no file configured or present)."""
+    path = path if path is not None else os.environ.get(RESIZE_SIGNAL_ENV)
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError:
+        return None
+    if default_world is None:
+        default_world = process_env().num_processes
+    return parse_world_signal(parse_downward_annotations(text), default_world)
+
+
+def plan_resize(pe: ProcessEnv, signal: Optional[WorldSignal]) -> Optional[str]:
+    """What this process must do about the published elastic state:
+
+    - ``None``: steady state, keep training;
+    - :data:`PLAN_CHECKPOINT`: a drain is pending; checkpoint now, ack the
+      target and pause stepping until the world republishes;
+    - :data:`PLAN_LEAVE`: this process is beyond the target; checkpoint,
+      then idle until deleted;
+    - :data:`PLAN_REJOIN`: the world republished at a size this process
+      is not initialized for; :func:`reinitialize` and restore the latest
+      checkpoint.
+    """
+    if signal is None:
+        return None
+    if signal.drain_pending:
+        if pe.process_id >= signal.target_world_size:
+            return PLAN_LEAVE
+        return PLAN_CHECKPOINT
+    if signal.world_size != pe.num_processes:
+        if pe.process_id >= signal.world_size:
+            # beyond the committed world with no drain pending: a joiner
+            # waiting for the republish, or a drained process awaiting
+            # deletion; neither has a seat to rejoin
+            return None
+        return PLAN_REJOIN
+    return None
+
+
+def shutdown() -> None:
+    """Destroy the process group (a no-op without one): the first half of
+    a re-rendezvous."""
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+
+
+def reinitialize(pe: ProcessEnv, num_processes: int,
+                 process_id: Optional[int] = None, *, device=None,
+                 timeout: Optional[datetime.timedelta] = None) -> ProcessEnv:
+    """Re-rendezvous at a new world size: ``shutdown``, then ``initialize``
+    with ``num_processes`` at the same coordinator (on ``device``'s
+    backend, as ``initialize`` picks it).  Process ids are
+    stable under the drain/join protocol (a shrink drains the highest
+    ids), so the default keeps this process's id.  Tensors survive, but
+    optimizer steps taken since the last checkpoint differ between the
+    ranks that stay: restore the latest checkpoint after this returns."""
+    new = dataclasses.replace(
+        pe, num_processes=num_processes,
+        process_id=process_id if process_id is not None else pe.process_id)
+    if new.process_id >= new.num_processes:
+        # refused BEFORE the teardown: a drained process that gets here by
+        # mistake keeps its live group while it waits to be deleted
+        raise ValueError(
+            f"process {new.process_id} is beyond the new world "
+            f"{new.num_processes}: a drained process must exit, not rejoin")
+    shutdown()
+    return initialize(new, device=device, timeout=timeout)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,6 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from tpujob_torch import resolve_device
 from tpujob_torch.workloads import bert as bertlib
 from tpujob_torch.workloads import distributed as dist
 
@@ -168,9 +167,11 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
     ``--tokenizer`` a corpus batch a step), then with ``--generate N``
     decode N tokens (KV-cached) from the first ids of global row 0 (the
     corpus' first chunk on a corpus) and print them; the ids are also
-    returned as ``generated``.  ``on_step(i)`` runs after each step (see
+    returned as ``generated``: every process decodes on its unwrapped
+    model, process 0 prints.  ``on_step(i)`` runs after each step (see
     ``bert.train``)."""
-    pe = dist.initialize()
+    device = dist.local_device(getattr(args, "device", "cuda"))
+    pe = dist.initialize(device=device)
     n_gen = getattr(args, "generate", 0)
     temp = getattr(args, "generate_temperature", 0.0)
     # both checks fail BEFORE training, not after the whole run
@@ -185,12 +186,11 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
             "--generate-top-k/--generate-top-p need "
             "--generate-temperature > 0 (greedy decode samples nothing)")
     tok = bertlib.tokenizer_from_args(args)
-    device = resolve_device(getattr(args, "device", "cuda"))
     model = build_model(args, device)
     ids0, provider, sample = bertlib.token_batches(args, pe, tokenizer=tok)
     bp = None if provider is None else (lambda step: (provider(step),))
     batch = (bertlib.batch_to_device(ids0, device),)
-    result = bertlib.train(args, pe, model, lm_loss(model), batch, tag="gpt",
+    result = bertlib.train(args, pe, model, lm_loss, batch, tag="gpt",
                            batch_provider=bp, on_step=on_step)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(

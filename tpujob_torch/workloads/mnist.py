@@ -14,8 +14,15 @@ so ``fc1``'s weight is flax's kernel transposed; every kernel starts from
 flax's lecun-normal, every bias from 0.  Submodules carry the flax names
 (``conv1``, ``conv2``, ``fc1``, ``fc2``) for ``convert.params_from_flax``.
 
+Across processes (a process group from the injected env) ``Net`` trains
+in ``DistributedDataParallel`` on each rank's rows of the global batch,
+both batch sizes round down to a multiple of the world, and the test
+epoch's loss and correct count are summed over the ranks, so the accuracy
+is the whole test set's, as in the JAX package.
+
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.mnist --epochs 1
+    torchrun --nproc-per-node 2 -m tpujob_torch.workloads.mnist --device cpu
 """
 from __future__ import annotations
 
@@ -27,7 +34,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpujob_torch import resolve_device
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import train_lib
@@ -58,13 +64,13 @@ class Net(nn.Module):
         return F.log_softmax(x, dim=-1)
 
 
-def nll_loss(model: Net, batch) -> torch.Tensor:
+def nll_loss(model: nn.Module, batch) -> torch.Tensor:
     """F.nll_loss on the log-probabilities: the mean over the batch."""
     x, y = batch
     return F.nll_loss(model(x), y)
 
 
-def eval_metrics(model: Net, batch):
+def eval_metrics(model: nn.Module, batch):
     """(summed nll, count of correct predictions) of one batch."""
     x, y = batch
     logp = model(x)
@@ -107,18 +113,18 @@ def train_epoch(args, state, train_step, device, train_x, train_y, epoch,
     return state, last_loss
 
 
-def test_epoch(args, state, device, test_x, test_y, epoch, writer, pe) -> float:
+def test_epoch(args, state, eval_step, device, test_x, test_y, epoch,
+               writer, pe) -> float:
     total = len(test_x) - len(test_x) % args.test_batch_size
     lo, sz = dist.local_batch_slice(args.test_batch_size, pe)
-    model = state["model"]
     loss_sum, correct = 0.0, 0
-    with torch.no_grad():
-        for bx, by in datalib.batches(test_x, test_y, args.test_batch_size,
-                                      shuffle=False):
-            ls, c = eval_metrics(model, train_lib.put_batch(
-                (bx[lo : lo + sz], by[lo : lo + sz]), device))
-            loss_sum += float(ls)
-            correct += int(c)
+    for bx, by in datalib.batches(test_x, test_y, args.test_batch_size,
+                                  shuffle=False):
+        # the global batch's sums: every rank holds them
+        ls, c = eval_step(train_lib.put_batch(
+            (bx[lo : lo + sz], by[lo : lo + sz]), device))
+        loss_sum += float(ls)
+        correct += int(c)
     accuracy = correct / max(1, total)
     print("\naccuracy={:.4f}\n".format(accuracy))
     writer.add_scalar("accuracy", accuracy, epoch)
@@ -162,8 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(args) -> Dict[str, Any]:
-    pe = dist.initialize()
-    device = resolve_device(getattr(args, "device", "cuda"))
+    device = dist.local_device(getattr(args, "device", "cuda"))
+    pe = dist.initialize(device=device)
     writer = train_lib.SummaryWriter(args.dir, enabled=pe.process_id == 0)
 
     dataset = datalib.resolve_dataset(args.data_dir,
@@ -171,16 +177,22 @@ def run(args) -> Dict[str, Any]:
     train_x, train_y, test_x, test_y = datalib.mnist_datasets(
         args.data_dir, args.train_size, args.test_size, dataset=dataset)
     # clamp so a small set still yields one full batch (dropping the
-    # remainder would otherwise report accuracy 0)
-    args.test_batch_size = max(1, min(args.test_batch_size, len(test_x)))
-    args.batch_size = max(1, min(args.batch_size, len(train_x)))
+    # remainder would otherwise report accuracy 0), rounded down to a
+    # multiple of the world so each process feeds as many rows
+    div = pe.num_processes
+    args.test_batch_size = max(div, min(args.test_batch_size,
+                                        len(test_x)) // div * div)
+    args.batch_size = max(div, min(args.batch_size, len(train_x)) // div * div)
 
     model = Net(seed=args.seed).to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     optimizer = train_lib.sgd(model.parameters(), args.lr, args.momentum)
+    net = train_lib.data_parallel(model)
     train_step = train_lib.make_train_step(
-        lambda batch: nll_loss(model, batch), optimizer, lambda count: args.lr)
+        lambda batch: nll_loss(net, batch), optimizer, lambda count: args.lr)
+    eval_step = train_lib.make_eval_step(
+        lambda batch: eval_metrics(model, batch))
     state = {"model": model, "opt": optimizer, "step": 0}
 
     accuracy, last_loss = 0.0, None
@@ -192,8 +204,8 @@ def run(args) -> Dict[str, Any]:
             state, last_loss = train_epoch(
                 args, state, train_step, device, train_x, train_y, epoch,
                 writer, pe, profiler=profiler, telemetry=telemetry)
-            accuracy = test_epoch(args, state, device, test_x, test_y, epoch,
-                                  writer, pe)
+            accuracy = test_epoch(args, state, eval_step, device, test_x,
+                                  test_y, epoch, writer, pe)
         # test_epoch ends on a host read, so the card has finished; a trace
         # written mid-loop is not training time
         wall = time.perf_counter() - t0 - profiler.overhead_s

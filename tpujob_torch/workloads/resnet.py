@@ -23,6 +23,11 @@ Parity with flax, made explicit:
   ``Bottleneck_{i}/Conv_{j}``, ``BatchNorm_{j}``, ``downsample_conv``,
   ``downsample_bn``, ``head``) for ``convert.params_from_flax``.
 
+Across processes the model trains in ``DistributedDataParallel`` on each
+rank's rows of the global batch, and ``BatchNorm`` takes its statistics
+over the global batch (the JAX package's jit over the sharded batch does
+so), through an all-reduce that autograd differentiates.
+
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.resnet --steps 100 --batch-size 256
 """
@@ -36,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpujob_torch import resolve_device
+import torch.distributed as tdist
+
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import train_lib
@@ -81,6 +87,22 @@ class Conv(nn.Module):
                         stride=self.stride)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks whose gradient is the sum of the ranks'
+    gradients: every rank's loss depends on every rank's input through
+    the summed statistics."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        tdist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5) over NCHW channels.
 
@@ -91,7 +113,11 @@ class BatchNorm(nn.Module):
     running buffers, but with the unbiased variance; the explicit update
     after it takes that variance's share back out (a [C]-vector
     correction, no second pass over the activations).  The output is in
-    ``dtype``."""
+    ``dtype``.
+
+    With a process group of more than one rank the statistics are the
+    global batch's (``_global_forward``); alone, ``F.batch_norm`` (cuDNN
+    on the card) as above."""
 
     momentum, eps = 0.9, 1e-5  # flax's, as the JAX package sets them
 
@@ -110,6 +136,8 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.dtype)
+        if tdist.is_initialized() and tdist.get_world_size() > 1:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
         # torch folds its variance into a copy (the op keeps the copy for
@@ -121,6 +149,29 @@ class BatchNorm(nn.Module):
             # torch added (1 - m) * var * n / (n - 1); flax adds (1 - m) * var
             kept = self.running_var * m
             self.running_var.copy_((folded - kept) * ((n - 1) / n) + kept)
+        return y.to(self.dtype)
+
+    def _global_forward(self, x):
+        """Statistics over every rank's rows: the per-channel fp32 sum, sum
+        of squares and count, summed over the ranks in one all-reduce; the
+        mean and the biased variance as flax takes them, max(E[x^2] -
+        E[x]^2, 0); the running averages from those (the same on every
+        rank)."""
+        c = x.shape[1]
+        xf = x.float()
+        stats = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        stats = _AllReduceSum.apply(stats)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c : 2 * c] / n - mean.square(), min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
         return y.to(self.dtype)
 
 
@@ -195,7 +246,7 @@ def make_model(args) -> ResNet:
                   seed=args.seed)
 
 
-def build_loss(model: ResNet):
+def build_loss(model: nn.Module):
     """``loss_fn(batch)``: the train-mode forward (batch statistics; the
     running averages update in place, flax's mutable ``batch_stats``) and
     the cross-entropy."""
@@ -232,10 +283,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(args) -> Dict[str, Any]:
-    """Warm-up steps, then ``--steps`` timed steps on one synthetic batch.
-    ``losses`` holds every step's loss, warm-up first."""
-    pe = dist.initialize()
-    device = resolve_device(getattr(args, "device", "cuda"))
+    """Warm-up steps, then ``--steps`` timed steps on one synthetic batch
+    (each process its rows of it).  ``losses`` holds every step's loss,
+    warm-up first."""
+    device = dist.local_device(getattr(args, "device", "cuda"))
+    pe = dist.initialize(device=device)
     writer = train_lib.SummaryWriter(args.dir, enabled=pe.process_id == 0)
 
     model = make_model(args).to(device)
@@ -243,8 +295,9 @@ def run(args) -> Dict[str, Any]:
         model = model.to(memory_format=torch.channels_last)
     model.train()
     optimizer = train_lib.sgd(model.parameters(), args.lr, args.momentum)
-    train_step = train_lib.make_train_step(build_loss(model), optimizer,
-                                           lambda count: args.lr)
+    train_step = train_lib.make_train_step(
+        build_loss(train_lib.data_parallel(model)), optimizer,
+        lambda count: args.lr)
     state = {"model": model, "opt": optimizer, "step": 0}
 
     lo, sz = dist.local_batch_slice(args.batch_size, pe)

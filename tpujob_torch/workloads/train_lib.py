@@ -15,9 +15,14 @@
 - ``make_train_step``: forward, backward, one optimizer update (the
   counterpart of ``_step_body``), or with the ``GradAccum`` that
   ``with_grad_accum`` gives one update every ``every`` mini-steps
-  (optax.MultiSteps).
+  (optax.MultiSteps); the loss it returns is the global batch's mean.
+- ``data_parallel``: the model in ``DistributedDataParallel`` when a
+  process group exists (the gradient all-reduce that jit inserts in the
+  JAX package), ``global_mean`` / ``global_sum`` across the ranks, and
+  ``make_eval_step`` (metric sums over the global batch).
 - ``Checkpointer``: step-numbered ``torch.save`` checkpoints with the same
-  ``latest_step``/``restore``/``restore_latest``/``max_to_keep`` contract.
+  ``latest_step``/``restore``/``restore_latest``/``max_to_keep`` contract;
+  process 0 writes, every process agrees on the latest step.
 - ``Profiler``, ``add_profile_flags``, ``profiler_from_args``: the
   ``--profile-*`` surface on ``torch.profiler`` (a Chrome trace where the
   JAX package writes an xplane one).
@@ -34,6 +39,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch.nn.parallel import DistributedDataParallel
 
 from tpujob_torch.workloads import distributed as dist
 
@@ -409,6 +416,57 @@ def with_grad_accum(params, every: int) -> Optional[GradAccum]:
     return GradAccum(params, every) if every > 1 else None
 
 
+# ---------------------------------------------------------------------------
+# data parallelism across processes
+# ---------------------------------------------------------------------------
+
+
+def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` in ``DistributedDataParallel`` when a process group of
+    more than one rank exists, else ``model`` itself.  Every rank builds
+    the same weights from the seed (DDP checks and broadcasts them once);
+    the grads of each backward are averaged across the ranks, which over
+    equal local batches is the global batch's gradient."""
+    if dist.group_size() == 1:
+        return model
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None)
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks (a new tensor; ``x`` itself with no
+    group).  Queued on the card under NCCL: the host does not wait."""
+    if dist.group_size() == 1:
+        return x
+    y = x.clone()
+    tdist.all_reduce(y)
+    return y
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the ranks, in fp32 and then in ``x``'s dtype
+    (one rounding of a bf16 loss, as the global mean has): of a per-rank
+    mean over equal local batches, the global batch's mean."""
+    world = dist.group_size()
+    if world == 1:
+        return x
+    return (global_sum(x.float()) / world).to(x.dtype)
+
+
+def make_eval_step(metric_fn: Callable[[Any], Tuple[torch.Tensor, ...]]):
+    """``eval_step(batch) -> sums``: ``metric_fn(batch)`` (per-batch
+    sums, e.g. summed loss and correct count) without grad, each summed
+    over the ranks, so every process holds the global batch's sums (the
+    JAX package's ``make_eval_step``)."""
+
+    def eval_step(batch):
+        with torch.no_grad():
+            return tuple(global_sum(m) for m in metric_fn(batch))
+
+    return eval_step
+
+
 def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
@@ -419,7 +477,12 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
     place (the parameters and moments are the state).  With ``accum`` the
     update comes on every ``accum.every``-th mini-step only, from the mean
     of the group's grads; ``state['step']`` counts mini-steps and the loss
-    is each mini-step's own."""
+    is each mini-step's own.
+
+    Across processes ``loss_fn`` runs the DDP wrapper (``data_parallel``),
+    so the grads are the ranks' mean before ``accum`` folds them in; the
+    returned loss is the ranks' mean too (``global_mean``), the global
+    batch's loss as the JAX package reports it."""
 
     def step(state: Dict[str, Any], batch) -> Tuple[Dict[str, Any], torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -429,7 +492,7 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
         if update is not None:
             set_lr(optimizer, lr_fn(update))
             optimizer.step()
-        return dict(state, step=state["step"] + 1), loss.detach()
+        return dict(state, step=state["step"] + 1), global_mean(loss.detach())
 
     return step
 
@@ -469,6 +532,12 @@ class Checkpointer:
     ``<directory>/<N>/state.pt``, written to a temporary name and renamed,
     so a crash mid-save leaves no step that ``latest_step`` would pick.
     The newest ``max_to_keep`` steps are kept.
+
+    Across processes (a shared directory, as the JAX package's orbax
+    needs on several hosts) process 0 writes and every process waits for
+    it at a barrier; ``latest_step`` is process 0's answer, so no process
+    resumes at another step.  A state holds the unwrapped module, never
+    the DDP wrapper, so a checkpoint restores at any world size.
     """
 
     FILE = "state.pt"
@@ -487,17 +556,24 @@ class Checkpointer:
         return sorted(out)
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
-        d = os.path.join(self._dir, str(step))
-        os.makedirs(d, exist_ok=True)
-        tmp = os.path.join(d, self.FILE + ".tmp")
-        torch.save(_to_saveable(state), tmp)
-        os.replace(tmp, os.path.join(d, self.FILE))
-        for old in self._steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self._dir, str(old)), ignore_errors=True)
+        if not tdist.is_initialized() or tdist.get_rank() == 0:
+            d = os.path.join(self._dir, str(step))
+            os.makedirs(d, exist_ok=True)
+            tmp = os.path.join(d, self.FILE + ".tmp")
+            torch.save(_to_saveable(state), tmp)
+            os.replace(tmp, os.path.join(d, self.FILE))
+            for old in self._steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self._dir, str(old)),
+                              ignore_errors=True)
+        if dist.group_size() > 1:
+            tdist.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()
-        return steps[-1] if steps else None
+        latest = [steps[-1] if steps else None]
+        if dist.group_size() > 1:
+            tdist.broadcast_object_list(latest, src=0)
+        return latest[0]
 
     def restore(self, step: int, like: Dict[str, Any]) -> Dict[str, Any]:
         """The checkpointed state in ``like``'s structure: modules and
