@@ -34,20 +34,33 @@ Phases, one JSON line each on stdout:
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error); ``model_bert``: the
    same for a 2-layer full-width BERT (seq 512, non-causal) on the MLM loss.
-5. ``train``: the main path — ``gpt.run`` trains GPT-2-medium (24 layers,
+5. ``graph``: the compiled step.  Each trainer through its entry point
+   once with ``capture=False`` (the eager step) and once captured (one
+   eager step, then CUDA-graph replays), from one seed: GPT-2-medium 8
+   steps, BERT-large MLM 8 mini-steps with ``--grad-accum 2`` (both graphs
+   of a group), ResNet-50 2 steps, MNIST one epoch.  The losses, the
+   parameter digests and the running statistics must be bit-equal (the
+   same kernels in the same order), the launches equal (48 / 24 / 24 a
+   transformer step: a replay counts the kernels the card ran); peak
+   memory and host ms a step of both are reported.  Every later phase
+   runs the captured step and requires ``step_mode`` ``graph`` (``ddp``'s
+   ranks excepted: across processes the step is eager).
+6. ``train``: the main path — ``gpt.run`` trains GPT-2-medium (24 layers,
    hidden 1024, 16 heads, vocab 50257, seq 1024, batch 8, bf16, remat,
    flash attention) for 16 steps from a seed; losses must be finite and
    fall.  Kernel launch counts are zeroed just before and read just after.
    The rate is all tokens over all the time of steps 3-12; ``profile``:
    steps 13-16 under torch.profiler, device time by kernel class and the
    device's busy share of those steps (the profiler's own host cost
-   included: compare ``host_step_ms`` with the unprofiled steps).
-6. ``mlm``: the second path — ``bert.run`` trains BERT-large (24 layers,
+   included: compare ``host_step_ms`` with the unprofiled steps); the
+   unprofiled steps' host ms must be within HOST_OVER_BUSY_MAX of the
+   profiled device busy ms: the host no longer sets the rate.
+7. ``mlm``: the second path — ``bert.run`` trains BERT-large (24 layers,
    hidden 1024, 16 heads, intermediate 4096, vocab 30522, seq 512, batch 8,
    bf16, remat, flash attention) for 10 steps from a seed: losses finite
    and falling, every kernel launched, each launch without the causal
    mask; tokens/s and the per-step ms.
-7. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
+8. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
    GPT-2-medium, then on that model, from a batch-8 prompt of 16 synthetic
    tokens, 48 greedy new tokens by each route: ``generate_cached`` (dense
    attention on the KV cache) launches no kernel, ``generate`` (full
@@ -59,7 +72,7 @@ Phases, one JSON line each on stdout:
    through its cache, the full route's flash forward) match it by normwise
    error; decode tokens/s and ms per new token for each route.
 
-8. ``corpus``: the trainers on a real corpus, the ``.py`` and ``.md``
+9. ``corpus``: the trainers on a real corpus, the ``.py`` and ``.md``
    files under ``tpujob/`` and ``docs/`` concatenated in sorted path order
    into a temporary directory outside the repo (about 1.38 MB).  A 512-id
    BPE tokenizer is trained on its first 256 KB and the corpus encoded
@@ -69,16 +82,16 @@ Phases, one JSON line each on stdout:
    step.  The batch each step copied to the card must equal the
    provider's for that step, losses must be finite, and each run must
    launch B1, B2 and B3 (GPT with the causal mask, BERT without).
-9. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
+10. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
    10,000 images, batch 64, 1 epoch; cuDNN/cuBLAS, no hand-written
    kernel): accuracy above 0.9, samples/s over the run.
-10. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
+11. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
     256, bf16, channels-last), 2 warm-up and 10 timed steps: losses finite
     and falling, samples/s over the timed steps, peak device memory;
     ``resnet_profile``: a second run traces 4 steps after its warm-up
     through ``--profile-dir``, and the trace gives the kernels' ms a step
     by class and the device's busy share of the kernels' span.
-11. ``ddp``: the multi-process path, after the others and with the
+12. ``ddp``: the multi-process path, after the others and with the
     parent's models freed.  ``smoke_dist`` at world 1 over NCCL on
     ``cuda:0`` (the only NCCL group one card allows), then two ranks on
     the one card over gloo (NCCL refuses two ranks on one card; gloo
@@ -93,6 +106,12 @@ Phases, one JSON line each on stdout:
     once).  Each is held to the parent's own one-process run of the same
     seed; per-rank ms a step are a record of this layout (gloo's host
     copies included), not a DDP speed.
+13. ``bench``: ``python -m tpujob_torch.bench`` and ``python -m
+    tpujob_torch.bench_models --models resnet50,bert-large,gpt`` as child
+    processes on the card; their JSON lines are printed as they are, and
+    held to their contract: one headline line with the JAX line's keys,
+    accuracy above 0.8; one line a row with ``mfu_vs_spec`` at most 1;
+    every line on the captured step, on this card.
 
 Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
 launched it), the card's ``name, power.limit`` as nvidia-smi prints them,
@@ -187,6 +206,39 @@ DDP_GPT_UPDATE_RTOL = 0.25
 DDP_RESNET_RTOL = 1e-3  # ResNet's losses and running statistics
 DDP_MNIST_ATOL = 0.01  # accuracy: 20 of the 2,000 test images
 DDP_TIMEOUT_S = 600  # the whole spawn; the ranks' collectives get half
+# graph: each trainer once eager (capture=False) and once captured, from
+# one seed; the two must agree bit for bit (the same kernels in the same
+# order): GPT-2-medium 8 steps, BERT-large MLM 8 mini-steps in groups of 2
+# (both graphs of the accumulation), ResNet-50 2 steps, MNIST one epoch
+GRAPH_STEPS = 8
+GRAPH_GPT_ARGV = ["--attention", "flash", "--batch-size", "8", "--steps",
+                  str(GRAPH_STEPS), "--log-interval", "1", "--seed", "0"]
+GRAPH_MLM_ARGV = GRAPH_GPT_ARGV + ["--grad-accum", "2"]
+GRAPH_RESNET_ARGV = ["--batch-size", "256", "--image-size", "224", "--width",
+                     "64", "--warmup-steps", "0", "--steps", "2"]
+GRAPH_MNIST_ARGV = MNIST_ARGV
+# ...and a resume on the card: BERT-large's width at 2 layers, 8
+# mini-steps in groups of 2, straight against a run checkpointed at
+# mini-step 3 (inside a group) and resumed; the resumed run restores
+# before its first (eager) step and captures after it
+GRAPH_RESUME_ARGV = ["--attention", "flash", "--batch-size", "8",
+                     "--layers", "2", "--grad-accum", "2", "--log-interval",
+                     "1", "--seed", "0"]
+GRAPH_RESUME_STEPS, GRAPH_RESUME_AT = 8, 3
+# the captured GPT step's host ms over its device busy ms (phases train and
+# profile) may be at most this: the host no longer sets the rate
+HOST_OVER_BUSY_MAX = 1.15
+# bench: the port's two benches as child processes, each line's contract held
+BENCH_TIMEOUT_S = 300
+BENCH_MODELS = "resnet50,bert-large,gpt"
+BENCH_ARGV = ["tpujob_torch.bench"]
+BENCH_MODELS_ARGV = ["tpujob_torch.bench_models", "--models", BENCH_MODELS]
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "accuracy",
+              "gate_dataset", "chips", "platform", "steps", "wall_s",
+              "step_ms_mean", "step_ms_std", "step_ms_cv_pct"}
+BENCH_MODELS_KEYS = {"metric", "value", "unit", "global_batch", "chips",
+                     "steps", "step_ms", "step_ms_std", "platform",
+                     "flops_per_step", "achieved_tflops_per_chip"}
 
 
 def emit(obj) -> None:
@@ -590,15 +642,21 @@ def run_train() -> dict:
     by_class, top = device_ms_by_class(prof, PROFILED_STEPS)
     busy_ms = sum(by_class.values())
     prof_step_ms = (stamps[-1] - prof_t0[0]) * 1e3 / PROFILED_STEPS
+    host_ms = (a1 - a0) * 1e3 / TIMED_STEPS
+    host_over_busy = host_ms / busy_ms if busy_ms > 0 else math.inf
     ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
-          and busy_ms > 0)
+          and busy_ms > 0 and res["step_mode"] == "graph"
+          and host_over_busy <= HOST_OVER_BUSY_MAX)
     n_params = sum(p.numel() for p in res["state"]["model"].parameters())
     emit({"phase": "train", "ok": ok, "argv": argv, "params": n_params,
-          "losses": losses,
+          "step_mode": res["step_mode"], "losses": losses,
           "window_steps": TIMED_STEPS,
           "window_tokens_per_sec": TIMED_STEPS * tokens / (a1 - a0),
-          "window_step_ms_mean": (a1 - a0) * 1e3 / TIMED_STEPS,
+          "window_step_ms_mean": host_ms,
+          "device_busy_ms_per_step": busy_ms,
+          "host_over_device_busy": host_over_busy,
+          "host_over_device_busy_max": HOST_OVER_BUSY_MAX,
           "window_step_ms_median": statistics.median(timed_ms),
           "window_step_ms_q1_q3": [quart[0], quart[2]],
           "step_ms_all": step_ms,
@@ -608,14 +666,16 @@ def run_train() -> dict:
           "launches": launches,
           "launches_per_step": {k: n / steps for k, n in launches.items()}})
     emit({"phase": "profile", "steps": PROFILED_STEPS,
-          "host_step_ms": prof_step_ms,
+          "step_mode": res["step_mode"], "host_step_ms": prof_step_ms,
           "device_ms_per_step": by_class,
           "device_busy_ms_per_step": busy_ms,
           "device_busy_share": busy_ms / prof_step_ms,
           "top_kernels_ms_launches_per_step": top})
     if not ok:
         raise AssertionError(f"main path failed: losses {losses}, "
-                             f"launches {launches}, busy {busy_ms} ms")
+                             f"launches {launches}, busy {busy_ms} ms, "
+                             f"mode {res['step_mode']}, host ms over busy "
+                             f"{host_over_busy}")
     return launches
 
 
@@ -676,10 +736,12 @@ def run_mlm() -> dict:
     losses = res["losses"]
     ok = (len(losses) == MLM_STEPS and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
-          and all(v == {False} for v in seen.values()))
+          and all(v == {False} for v in seen.values())
+          and res["step_mode"] == "graph")
     n_params = sum(p.numel() for p in res["state"]["model"].parameters())
     emit({"phase": "mlm", "ok": ok, "argv": argv, "params": n_params,
-          "losses": losses, "trainer_tokens_per_sec": res["tokens_per_sec"],
+          "step_mode": res["step_mode"], "losses": losses,
+          "trainer_tokens_per_sec": res["tokens_per_sec"],
           "wall_s": res["wall_s"], **step_stats(stamps, WARMUP_STEPS),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
           "launches": launches,
@@ -687,7 +749,8 @@ def run_mlm() -> dict:
           "causal_flags": {k: sorted(v) for k, v in seen.items()}})
     if not ok:
         raise AssertionError(f"mlm path failed: losses {losses}, launches "
-                             f"{launches}, causal flags {seen}")
+                             f"{launches}, causal flags {seen}, mode "
+                             f"{res['step_mode']}")
     return launches
 
 
@@ -856,7 +919,7 @@ def corpus_run(name: str, module, argv: list, expected_batch) -> dict:
         for i, got in enumerate(steps)
         for want in [expected_batch(args, i)])
     losses = res["losses"]
-    return {"argv": argv, "losses": losses,
+    return {"argv": argv, "step_mode": res["step_mode"], "losses": losses,
             "trainer_tokens_per_sec": res["tokens_per_sec"],
             "wall_s": res["wall_s"], **step_stats(stamps, 2),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -924,7 +987,7 @@ def run_corpus() -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want_causal = {"gpt_bpe": [True], "bert_bytes": [False]}
-    ok = all(r["stream_ok"] and r["finite"]
+    ok = all(r["stream_ok"] and r["finite"] and r["step_mode"] == "graph"
              and r["distinct_step_batches"] == CORPUS_STEPS
              and all(n > 0 for n in r["launches"].values())
              and all(v == want_causal[name]
@@ -954,8 +1017,10 @@ def run_mnist() -> None:
     argv = MNIST_ARGV + ["--dir", logdir, "--device", DEVICE]
     args = mnist.build_parser().parse_args(argv)
     res = mnist.run(args)
-    ok = res["accuracy"] > 0.9 and math.isfinite(res["final_loss"])
+    ok = (res["accuracy"] > 0.9 and math.isfinite(res["final_loss"])
+          and res["step_mode"] == "graph")
     emit({"phase": "mnist", "ok": ok, "argv": argv,
+          "step_mode": res["step_mode"],
           "dataset": res["dataset"], "accuracy": res["accuracy"],
           "final_loss": res["final_loss"], "samples": res["samples"],
           "wall_s": res["wall_s"],
@@ -963,7 +1028,7 @@ def run_mnist() -> None:
           "steps": res["state"]["step"]})
     if not ok:
         raise AssertionError(f"mnist path failed: accuracy "
-                             f"{res['accuracy']}")
+                             f"{res['accuracy']}, mode {res['step_mode']}")
 
 
 def run_resnet() -> None:
@@ -980,8 +1045,9 @@ def run_resnet() -> None:
     model = res["state"]["model"]
     ok = (len(losses) == args.warmup_steps + args.steps
           and all(math.isfinite(x) for x in losses)
-          and losses[-1] < losses[0])
+          and losses[-1] < losses[0] and res["step_mode"] == "graph")
     emit({"phase": "resnet", "ok": ok, "argv": argv,
+          "step_mode": res["step_mode"],
           "params": sum(p.numel() for p in model.parameters()),
           "losses": losses, "samples_per_sec": res["samples_per_sec"],
           "timed_steps": args.steps, "wall_s": res["wall_s"],
@@ -990,7 +1056,8 @@ def run_resnet() -> None:
           "channels_last": model.conv_init.weight.is_contiguous(
               memory_format=torch.channels_last)})
     if not ok:
-        raise AssertionError(f"resnet path failed: losses {losses}")
+        raise AssertionError(f"resnet path failed: losses {losses}, mode "
+                             f"{res['step_mode']}")
 
     # a second run through the entry point's --profile-dir, traced from the
     # first step after the warm-up: the device's time a step against the
@@ -1004,7 +1071,7 @@ def run_resnet() -> None:
         os.path.join(prof_dir, f"trace_steps0-{RESNET_PROFILED_STEPS - 1}"
                                ".pt.trace.json"), RESNET_PROFILED_STEPS)
     emit({"phase": "resnet_profile", "argv": pargv,
-          "steps": RESNET_PROFILED_STEPS,
+          "step_mode": pres["step_mode"], "steps": RESNET_PROFILED_STEPS,
           "unprofiled_step_ms": res["wall_s"] * 1e3 / args.steps,
           "profiled_run_losses": pres["losses"], **trace})
 
@@ -1320,6 +1387,200 @@ def run_ddp() -> dict:
     return r0["gpt"]["launches"]
 
 
+def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
+    """``module.run`` once through its flag surface, eager
+    (``capture=False``) or captured: what the graph phase compares (the
+    losses, the parameter digest with the leaves ``whole(model)`` names
+    whole, the running statistics) and what it reports (launches, peak
+    memory, host ms a step where the entry point takes an ``on_step``
+    hook)."""
+    import gc
+
+    from tpujob_torch.workloads import flash
+
+    logdir = os.path.join("build", "chip_smoke", "graph",
+                          f"{key}_{'graph' if capture else 'eager'}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    args = module.build_parser().parse_args(
+        argv + ["--dir", logdir, "--device", DEVICE])
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    hook = {"on_step": on_step} if module.__name__.endswith(
+        (".gpt", ".bert")) else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    res = module.run(args, capture=capture, **hook)
+    torch.cuda.synchronize()
+    model = res["state"]["model"]
+    out = {"step_mode": res["step_mode"], "losses": res.get("losses"),
+           "final_loss": res["final_loss"], "accuracy": res.get("accuracy"),
+           "launches": dict(flash.LAUNCHES), "wall_s": res["wall_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "digest": param_digest(model, whole(model)),
+           "stats": running_stats(model)}
+    if len(stamps) > 2:
+        out.update(step_stats(stamps, 2))
+    return out
+
+
+def bit_equal(a: dict, b: dict) -> bool:
+    """Two runs' losses, final loss, accuracy, parameter digests and
+    running statistics equal bit for bit."""
+    return (a["losses"] == b["losses"] and a["final_loss"] == b["final_loss"]
+            and a["accuracy"] == b["accuracy"]
+            and a["digest"]["abs_sums"] == b["digest"]["abs_sums"]
+            and sorted(a["digest"]["leaves"]) == sorted(b["digest"]["leaves"])
+            and all(torch.equal(v, b["digest"]["leaves"][k])
+                    for k, v in a["digest"]["leaves"].items())
+            and sorted(a["stats"]) == sorted(b["stats"])
+            and all(torch.equal(v, b["stats"][k])
+                    for k, v in a["stats"].items()))
+
+
+def run_graph() -> dict:
+    """Each trainer eager and captured from one seed: bit-equal results,
+    the same kernel launches (a replay counts the kernels the card ran),
+    step mode ``graph`` only where it was asked for; launches a step,
+    peak memory and host ms a step of both beside each other."""
+    from tpujob_torch.workloads import bert, gpt, mnist, resnet
+
+    cases = {
+        "gpt": (gpt, GRAPH_GPT_ARGV, gpt_leaves, GRAPH_STEPS),
+        "mlm_accum2": (bert, GRAPH_MLM_ARGV, gpt_leaves, GRAPH_STEPS),
+        "resnet": (resnet, GRAPH_RESNET_ARGV, lambda m: ("head.",), None),
+        "mnist": (mnist, GRAPH_MNIST_ARGV, lambda m: ("",), None),
+    }
+    want = {"flash_fwd": 48 * GRAPH_STEPS, "flash_dq": 24 * GRAPH_STEPS,
+            "flash_dkv": 24 * GRAPH_STEPS}
+    none = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    runs, checks = {}, {}
+    for key, (module, argv, whole, steps) in cases.items():
+        eager = graph_run(key, module, argv, False, whole)
+        graph = graph_run(key, module, argv, True, whole)
+        kernels = want if key in ("gpt", "mlm_accum2") else none
+        checks[key] = {
+            "modes": [eager["step_mode"], graph["step_mode"]]
+            == ["eager", "graph"],
+            "bit_equal": bit_equal(eager, graph),
+            "launches": eager["launches"] == graph["launches"] == kernels,
+            "finite": all(math.isfinite(x) for x in graph["losses"] or [])
+            and math.isfinite(graph["final_loss"]),
+        }
+        runs[key] = {mode: {k: v for k, v in r.items()
+                            if k not in ("digest", "stats")}
+                     for mode, r in (("eager", eager), ("graph", graph))}
+        if steps:
+            for r in runs[key].values():
+                r["launches_per_step"] = {k: n / steps
+                                          for k, n in r["launches"].items()}
+        del eager, graph
+    checks["mlm_resume"], runs["mlm_resume"] = graph_resume()
+    ok = all(all(c.values()) for c in checks.values())
+    emit({"phase": "graph", "ok": ok, "checks": checks, "runs": runs})
+    if not ok:
+        raise AssertionError(f"graph phase failed: {checks}")
+    return runs["gpt"]["graph"]["launches"]
+
+
+def graph_resume() -> tuple:
+    """Captured runs of ``bert.run`` (``GRAPH_RESUME_ARGV``): straight,
+    and stopped with a checkpoint inside a group then resumed; the resumed
+    losses and parameters must be the straight run's, bit for bit."""
+    from tpujob_torch.workloads import bert
+
+    base = os.path.join("build", "chip_smoke", "graph", "resume")
+    shutil.rmtree(base, ignore_errors=True)
+
+    def run(name, steps, interval):
+        return bert.run(bert.build_parser().parse_args(
+            GRAPH_RESUME_ARGV + ["--steps", str(steps),
+                                 "--checkpoint-interval", str(interval),
+                                 "--dir", os.path.join(base, name),
+                                 "--device", DEVICE]))
+
+    straight = run("straight", GRAPH_RESUME_STEPS, 0)
+    run("resumed", GRAPH_RESUME_AT + 1, GRAPH_RESUME_AT)
+    resumed = run("resumed", GRAPH_RESUME_STEPS, GRAPH_RESUME_AT)
+    a = straight["state"]["model"].state_dict()
+    b = resumed["state"]["model"].state_dict()
+    lr_devices = sorted({str(getattr(g["lr"], "device", "a float"))
+                         for g in resumed["state"]["opt"].param_groups})
+    checks = {
+        "modes": straight["step_mode"] == resumed["step_mode"] == "graph",
+        "losses": resumed["losses"]
+        == straight["losses"][GRAPH_RESUME_AT:],
+        "params": all(torch.equal(a[k], b[k]) for k in a),
+        "lr_on_card": lr_devices == [str(next(iter(b.values())).device)],
+    }
+    shutil.rmtree(base, ignore_errors=True)
+    return checks, {"straight_losses": straight["losses"],
+                    "resumed_losses": resumed["losses"],
+                    "resumed_at": GRAPH_RESUME_AT, "lr_devices": lr_devices}
+
+
+def bench_child(argv: list) -> list:
+    """``python -m <argv>`` from the repo root: its JSON lines, each
+    printed here on a line of its own.  A nonzero exit raises."""
+    out = subprocess.run([sys.executable, "-m"] + argv, cwd=ROOT,
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)} exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        print(ln, flush=True)
+    return [json.loads(ln) for ln in lines]
+
+
+def run_bench() -> dict:
+    """The port's benches on the card, as a user runs them: the
+    MNIST headline (exactly one line, the JAX line's keys, accuracy above
+    0.8) and the flagship rows (one line a row, MFU at most 1); every row
+    on the captured step, the spread across windows reported."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    headline = bench_child(BENCH_ARGV)
+    models = bench_child(BENCH_MODELS_ARGV)
+    seconds = time.perf_counter() - t0
+    line = headline[0] if len(headline) == 1 else {}
+    names = BENCH_MODELS.split(",")
+    rows_ok = len(models) == len(names) and all(
+        BENCH_MODELS_KEYS <= set(r) and r["value"] > 0
+        and r["platform"] == card and r["step_mode"] == "graph"
+        and "spec_peak_exceeded_x" not in r
+        and 0 < r.get("mfu_vs_spec", 0.5) <= 1.0
+        and r["step_ms_std"] >= 0 for r in models)
+    gpt_row = models[-1] if models else {}
+    checks = {
+        "headline_one_line": len(headline) == 1,
+        "headline_keys": BENCH_KEYS <= set(line),
+        "headline_accuracy": line.get("accuracy", 0) > 0.8,
+        "headline_card": line.get("platform") == card
+        and line.get("step_mode") == "graph" and line.get("value", 0) > 0,
+        "rows": rows_ok,
+        "gpt_row_kernels": all(
+            n > 0 for n in gpt_row.get("kernel_launches", {"": 0}).values()),
+    }
+    ok = all(checks.values())
+    emit({"phase": "bench", "ok": ok, "checks": checks, "seconds": seconds,
+          "headline_metric": line.get("metric"),
+          "rows": [r.get("metric") for r in models]})
+    if not ok:
+        raise AssertionError(f"bench phase failed: {checks}")
+    return gpt_row["kernel_launches"]
+
+
 KERNELS = {
     "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
                   "tpujob/workloads/flash.py:74"),
@@ -1387,12 +1648,14 @@ def main(argv=None) -> int:
         check_kernels(s=s_dec, window=0, timed=True, case=f"decode_s{s_dec}")
         check_model()
         check_model_bert()
-        by_path = {"train": run_train(), "mlm": run_mlm(),
+        by_path = {"graph": run_graph(), "train": run_train(),
+                   "mlm": run_mlm(),
                    "decode": run_decode(args.decode_prompt, args.decode_new),
                    "corpus": run_corpus()}
         run_mnist()
         run_resnet()
         by_path["ddp"] = run_ddp()
+        by_path["bench"] = run_bench()
         launches = by_path["train"]
 
         rows = []

@@ -13,12 +13,17 @@ two halves' mean gradient differs from the whole batch's by fp32
 rounding only):
 - GPT (``--attention flash``; Pallas in interpret mode, the plain
   versions on the port's side) and BERT MLM, fp32, 3 steps (4 with
-  ``--grad-accum 2``): losses 1e-5 relative, params 1e-5 (the key bias
-  skipped: its exact gradient is 0 and Adam normalises rounding noise).
-  BERT's params need atol 1e-4 (lr / 30, the single-process corpus MLM
-  test's): the tied embedding's gradient adds the two halves' terms in
-  another order, and Adam turns rounding noise in a near-zero element
-  into a visible fraction of lr (observed 2.3e-5 in one of 16,384);
+  ``--grad-accum 2``): losses 1e-5 relative, params rtol 1e-5 and atol
+  1e-4 (the key bias skipped: its exact gradient is 0 and Adam
+  normalises rounding noise).  The atol is lr / 30, the single-process
+  corpus MLM test's: the two halves' gradients add in another order than
+  the whole batch's, and Adam turns rounding noise in a near-zero
+  gradient element into a visible fraction of lr.  Observed: BERT 2.3e-5
+  in one of 16,384; GPT at most 5.4e-6 in five runs of one machine (the
+  ranks at 1 to 8 threads: one answer), and 1.81e-5 in one of 8,192
+  elements of ``layer_0.mlp_wi.weight`` (0.6% of lr; 1.5e-6 on the first
+  machine) in a run of the whole suite under six test workers, which
+  failed the former atol 1e-5;
 - MNIST, 4 steps and the test epoch: losses and params 1e-5, the
   accuracy and the correct count equal, the summed test loss 1e-5;
 - ResNet-50 at width 8, fp32, one SGD step: loss 1e-5, every gradient and
@@ -136,7 +141,7 @@ def test_gpt_two_ranks_match_jax_on_the_global_batch(tmp_path, monkeypatch):
     assert out["step"] == 3 and len(out["losses"]) == 3
     np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-5)
     assert _logged_losses(tmp_path / "t") == out["losses"]  # rank 0 logs
-    _params_close(out["state"], jparams)
+    _params_close(out["state"], jparams, atol=1e-4)
     _ranks_equal([out, out1])
     one = _port_run(tgpt, tbert, "build_model", init,
                     _port_argv(GPT_ARGV, tmp_path / "one"), monkeypatch)

@@ -50,11 +50,13 @@ def test_port_imports_nothing_of_jax_or_tpujob(path):
 
 def test_scan_covers_every_port_module():
     """The scan above reads every module of the port, the multi-process
-    ones included, and the chip smoke."""
+    ones and the benches included, and the chip smoke."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for module in ("smoke_dist", "distributed", "train_lib", "bert", "gpt",
-                   "mnist", "resnet"):
+                   "mnist", "resnet", "benchlib"):
         assert f"tpujob_torch/workloads/{module}.py" in names
+    for bench in ("bench", "bench_models"):
+        assert f"tpujob_torch/{bench}.py" in names
     assert "chip_smoke.py" in names
     assert set(FORBIDDEN) == {"jax", "flax", "optax", "orbax", "tpujob"}
 

@@ -274,8 +274,12 @@ class Bert(nn.Module):
         for i in range(self.layers):
             blk = getattr(self, f"layer_{i}")
             if self.remat and torch.is_grad_enabled():
-                # rematerialise each block on backward (jax.checkpoint)
-                x = checkpoint(blk, x, use_reentrant=False)
+                # rematerialise each block on backward (jax.checkpoint);
+                # the trunk draws no random numbers (no dropout, as in the
+                # JAX package), so no RNG state is saved: reading it is
+                # not allowed inside a CUDA graph capture
+                x = checkpoint(blk, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = blk(x)
         return self.head(x)
@@ -602,7 +606,8 @@ def build_model(args, device, *, causal: bool = False,
 def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
           batch, *, tag: str = "bert",
           batch_provider: Optional[Callable] = None,
-          on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
+          on_step: Optional[Callable[[int], None]] = None,
+          capture: bool = True) -> Dict[str, Any]:
     """The training loop: AdamW with the flag surface's schedule, gradient
     accumulation (``--grad-accum``, optax.MultiSteps), step-exact
     checkpoint/resume, ``--profile-dir``, and honest throughput (the clock
@@ -621,7 +626,13 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     (``train_lib.put_batch``) is inside the clock, as in the JAX package.
     ``on_step(i)``, if given, runs after step ``i`` inside the clock (a
     caller's timer or profiler).  The checkpointed and returned state
-    holds ``model``, never the wrapper."""
+    holds ``model``, never the wrapper.
+
+    On one card the step is compiled (``train_lib.make_train_step``): the
+    first step (with ``--grad-accum``, the first group) runs eagerly, after
+    any restore, and the others replay its CUDA graph; ``step_mode`` in the result (and the first log line) says
+    which ran.  ``capture=False`` keeps it eager, to hold the graph
+    against."""
     validate_parallel_flags(args)
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -643,7 +654,7 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
         getattr(args, "warmup_steps", 0) // accum, args.steps // accum)
     optimizer = train_lib.adamw(model.parameters(), args.lr)
     accumulator = train_lib.with_grad_accum(model.parameters(), accum)
-    state = {"model": model, "opt": optimizer, "step": 0}
+    state = train_lib.init_state(model, optimizer)
     if accumulator is not None:
         state["accum"] = accumulator  # checkpointed: resume mid-group
 
@@ -659,7 +670,9 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
 
     loss_fn = loss_of(train_lib.data_parallel(model))
     train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
-                                           accumulator)
+                                           accumulator, capture=capture)
+    if pe.process_id == 0:
+        print(f"{tag}: step_mode={train_step.mode}")
     if start_step >= args.steps:
         # restarted after the final checkpoint (the preemption race):
         # report completion instead of training further
@@ -670,7 +683,8 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
                   f"--steps {args.steps}")
         writer.close()
         return {"samples_per_sec": 0.0, "tokens_per_sec": 0.0, "wall_s": 0.0,
-                "final_loss": final_loss, "losses": [], "state": state}
+                "final_loss": final_loss, "losses": [], "state": state,
+                "step_mode": train_step.mode}
 
     if device.type == "cuda" and getattr(args, "attention", "dense") == "flash":
         # build the kernels before the clock starts (the counterpart of the
@@ -690,9 +704,9 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
             if batch_provider is not None:
                 batch = train_lib.put_batch(batch_provider(i), device)
             state, loss = train_step(state, batch)
-            losses.append(loss)
+            losses.append(loss)  # the step's own copy: no wait for the card
             if i % args.log_interval == 0:
-                writer.add_scalar("loss", float(loss), i)
+                writer.add_scalar("loss", loss, i)
             if ckpt and (i + 1) % args.checkpoint_interval == 0:
                 ckpt.save(i + 1, state)
             if on_step is not None:
@@ -713,7 +727,8 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
               f"{tps:.0f} tokens/sec, loss={final_loss:.3f}")
     return {"samples_per_sec": sps, "tokens_per_sec": tps, "wall_s": wall,
             "final_loss": final_loss, "losses": losses, "state": state,
-            "profile_overhead_s": profiler.overhead_s}
+            "profile_overhead_s": profiler.overhead_s,
+            "step_mode": train_step.mode}
 
 
 def batch_to_device(ids: np.ndarray, device) -> torch.Tensor:
@@ -737,12 +752,13 @@ def mask_id_from_args(args, tokenizer) -> int:
     return 103
 
 
-def run(args, *, on_step: Optional[Callable[[int], None]] = None
-        ) -> Dict[str, Any]:
+def run(args, *, on_step: Optional[Callable[[int], None]] = None,
+        capture: bool = True) -> Dict[str, Any]:
     """BERT masked-LM pretraining from the flags: the synthetic batch with
     one fixed mask drawn from ``--seed``, or with ``--data-file`` a new
     corpus batch every step and its mask drawn from ``seed + step``.
-    ``on_step(i)`` runs after each step (see ``train``)."""
+    ``on_step(i)`` runs after each step and ``capture=False`` keeps the
+    card's step eager (see ``train``)."""
     device = dist.local_device(getattr(args, "device", "cuda"))
     pe = dist.initialize(device=device)
     tok = tokenizer_from_args(args, reserve=1)
@@ -764,7 +780,7 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
         bp = lambda step: masked(provider(step), args.seed + step)
     return train(args, pe, model, lambda net: mlm_loss(net, mask_id=mask_id),
                  train_lib.put_batch(masked(ids0, args.seed), device),
-                 batch_provider=bp, on_step=on_step)
+                 batch_provider=bp, on_step=on_step, capture=capture)
 
 
 def main(argv=None) -> int:

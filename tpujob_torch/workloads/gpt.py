@@ -161,15 +161,15 @@ def build_model(args, device):
     return bertlib.build_model(args, device, causal=True, final_ln=True)
 
 
-def run(args, *, on_step: Optional[Callable[[int], None]] = None
-        ) -> Dict[str, Any]:
+def run(args, *, on_step: Optional[Callable[[int], None]] = None,
+        capture: bool = True) -> Dict[str, Any]:
     """Train from the flags (synthetic ids, or with ``--data-file`` /
     ``--tokenizer`` a corpus batch a step), then with ``--generate N``
     decode N tokens (KV-cached) from the first ids of global row 0 (the
     corpus' first chunk on a corpus) and print them; the ids are also
     returned as ``generated``: every process decodes on its unwrapped
-    model, process 0 prints.  ``on_step(i)`` runs after each step (see
-    ``bert.train``)."""
+    model, process 0 prints.  ``on_step(i)`` runs after each step and
+    ``capture=False`` keeps the card's step eager (see ``bert.train``)."""
     device = dist.local_device(getattr(args, "device", "cuda"))
     pe = dist.initialize(device=device)
     n_gen = getattr(args, "generate", 0)
@@ -191,7 +191,8 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None
     bp = None if provider is None else (lambda step: (provider(step),))
     batch = (bertlib.batch_to_device(ids0, device),)
     result = bertlib.train(args, pe, model, lm_loss, batch, tag="gpt",
-                           batch_provider=bp, on_step=on_step)
+                           batch_provider=bp, on_step=on_step,
+                           capture=capture)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(
             sample[:, : min(8, args.seq_len - n_gen)], device)

@@ -167,7 +167,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run(args) -> Dict[str, Any]:
+def run(args, capture: bool = True) -> Dict[str, Any]:
+    """Train and test from the flags.  On one card each training step
+    after the first replays a CUDA graph (``train_lib.make_train_step``;
+    ``capture=False`` keeps it eager); the test epoch is eager.
+    ``step_mode`` in the result says which ran."""
     device = dist.local_device(getattr(args, "device", "cuda"))
     pe = dist.initialize(device=device)
     writer = train_lib.SummaryWriter(args.dir, enabled=pe.process_id == 0)
@@ -190,10 +194,13 @@ def run(args) -> Dict[str, Any]:
     optimizer = train_lib.sgd(model.parameters(), args.lr, args.momentum)
     net = train_lib.data_parallel(model)
     train_step = train_lib.make_train_step(
-        lambda batch: nll_loss(net, batch), optimizer, lambda count: args.lr)
+        lambda batch: nll_loss(net, batch), optimizer, lambda count: args.lr,
+        capture=capture)
+    if pe.process_id == 0:
+        print(f"mnist: step_mode={train_step.mode}")
     eval_step = train_lib.make_eval_step(
         lambda batch: eval_metrics(model, batch))
-    state = {"model": model, "opt": optimizer, "step": 0}
+    state = train_lib.init_state(model, optimizer)
 
     accuracy, last_loss = 0.0, None
     profiler = train_lib.profiler_from_args(args, pe, device)
@@ -225,6 +232,7 @@ def run(args) -> Dict[str, Any]:
         "samples": (len(train_x) - len(train_x) % args.batch_size) * args.epochs,
         "dataset": dataset,
         "state": state,
+        "step_mode": train_step.mode,
     }
 
 

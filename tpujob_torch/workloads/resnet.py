@@ -282,10 +282,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run(args) -> Dict[str, Any]:
+def run(args, capture: bool = True) -> Dict[str, Any]:
     """Warm-up steps, then ``--steps`` timed steps on one synthetic batch
     (each process its rows of it).  ``losses`` holds every step's loss,
-    warm-up first."""
+    warm-up first.  On one card every step after the first replays a CUDA
+    graph (``train_lib.make_train_step``; ``capture=False`` keeps it
+    eager); ``step_mode`` in the result says which ran."""
     device = dist.local_device(getattr(args, "device", "cuda"))
     pe = dist.initialize(device=device)
     writer = train_lib.SummaryWriter(args.dir, enabled=pe.process_id == 0)
@@ -297,8 +299,10 @@ def run(args) -> Dict[str, Any]:
     optimizer = train_lib.sgd(model.parameters(), args.lr, args.momentum)
     train_step = train_lib.make_train_step(
         build_loss(train_lib.data_parallel(model)), optimizer,
-        lambda count: args.lr)
-    state = {"model": model, "opt": optimizer, "step": 0}
+        lambda count: args.lr, capture=capture)
+    if pe.process_id == 0:
+        print(f"resnet{args.depth}: step_mode={train_step.mode}")
+    state = train_lib.init_state(model, optimizer)
 
     lo, sz = dist.local_batch_slice(args.batch_size, pe)
     x, y = datalib.synthetic_imagenet_batch(args.batch_size, args.image_size)
@@ -318,7 +322,7 @@ def run(args) -> Dict[str, Any]:
             state, loss = train_step(state, batch)
             losses.append(loss)
             if i % args.log_interval == 0:
-                writer.add_scalar("loss", float(loss), i)
+                writer.add_scalar("loss", loss, i)
         train_lib.sync(device)
         # a trace written mid-loop is not training time
         wall = time.perf_counter() - t0 - profiler.overhead_s
@@ -331,7 +335,7 @@ def run(args) -> Dict[str, Any]:
         print(f"resnet{args.depth}: {sps:.1f} samples/sec "
               f"({sps:.1f}/device), loss={losses[-1]:.3f}")
     return {"samples_per_sec": sps, "wall_s": wall, "final_loss": losses[-1],
-            "losses": losses, "state": state}
+            "losses": losses, "state": state, "step_mode": train_step.mode}
 
 
 def main(argv=None) -> int:

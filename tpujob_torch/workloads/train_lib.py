@@ -16,6 +16,12 @@
   counterpart of ``_step_body``), or with the ``GradAccum`` that
   ``with_grad_accum`` gives one update every ``every`` mini-steps
   (optax.MultiSteps); the loss it returns is the global batch's mean.
+  On one card it is the compiled step: the first call runs eagerly (it
+  creates the optimizer's moments and picks the libraries' algorithms),
+  the next ones replay a CUDA graph of the whole step (the counterpart of
+  the JAX trainers' AOT ``compile()``); ``step_mode`` is the rule.
+- ``make_multi_step``: k updates in one call (the ``lax.scan``), k steps
+  in one CUDA graph on one card; ``init_state``: the state dict.
 - ``data_parallel``: the model in ``DistributedDataParallel`` when a
   process group exists (the gradient all-reduce that jit inserts in the
   JAX package), ``global_mean`` / ``global_sum`` across the ranks, and
@@ -29,6 +35,7 @@
 """
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import math
@@ -43,11 +50,17 @@ import torch.distributed as tdist
 from torch.nn.parallel import DistributedDataParallel
 
 from tpujob_torch.workloads import distributed as dist
+from tpujob_torch.workloads import flash
 
 
 class SummaryWriter:
     """tensorboardX-shaped scalar writer; one JSONL file per run, only
-    process 0 writes."""
+    process 0 writes.
+
+    A value on the card is not read at once (a read would wait for every
+    step queued before it): it is copied to pinned host memory behind the
+    step that made it, and its row is written, in order, once the copy
+    has landed (at a later ``add_scalar`` or at ``close``)."""
 
     def __init__(self, logdir: str, enabled: Optional[bool] = None):
         self.logdir = logdir
@@ -55,20 +68,40 @@ class SummaryWriter:
             enabled = dist.process_env().process_id == 0
         self.enabled = enabled
         self._f = None
+        self._pending: collections.deque = collections.deque()
         if enabled:
             os.makedirs(logdir, exist_ok=True)
             self._f = open(os.path.join(logdir, "scalars.jsonl"), "a")
 
     def add_scalar(self, tag: str, value, step: int) -> None:
-        if self._f:
-            self._f.write(
-                json.dumps({"tag": tag, "value": float(value), "step": int(step),
-                            "wall_time": time.time()}) + "\n"
-            )
-            self._f.flush()
+        if not self._f:
+            return
+        row = {"tag": tag, "value": value, "step": int(step),
+               "wall_time": time.time()}
+        landed = None
+        if isinstance(value, torch.Tensor) and value.is_cuda:
+            host = torch.empty_like(value, device="cpu", pin_memory=True)
+            row["value"] = host.copy_(value.detach(), non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record()
+        self._pending.append((row, landed))
+        self._write(wait=False)
+
+    def _write(self, wait: bool) -> None:
+        while self._pending:
+            row, landed = self._pending[0]
+            if landed is not None and not (wait or landed.query()):
+                break
+            if landed is not None:
+                landed.synchronize()
+            self._f.write(json.dumps(dict(row, value=float(row["value"])))
+                          + "\n")
+            self._pending.popleft()
+        self._f.flush()
 
     def close(self) -> None:
         if self._f:
+            self._write(wait=True)
             self._f.close()
             self._f = None
 
@@ -276,11 +309,22 @@ def sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
 def adamw(params, lr: float, weight_decay: float = 0.01) -> torch.optim.AdamW:
     """optax.adamw(lr, weight_decay, mask=_decay_mask) as torch's AdamW:
     two param groups, decay only on >=2-D tensors.  ``lr`` is the initial
-    value; a schedule sets each group's lr before every step."""
-    decay, no_decay = _decay_mask(list(params))
+    value; a schedule sets each group's lr before every step.
+
+    On the card the optimizer is capturable: its step counts live on the
+    card and each group's lr is a 0-d fp32 tensor there, which ``set_lr``
+    fills, so one captured update reads each step's lr (a float would be
+    baked into the graph).  On the CPU the lr is a float, as before."""
+    params = list(params)
+    decay, no_decay = _decay_mask(params)
+    on_card = bool(params) and params[0].is_cuda
     groups = [{"params": decay, "weight_decay": weight_decay},
               {"params": no_decay, "weight_decay": 0.0}]
-    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if on_card:
+        for g in groups:
+            g["lr"] = torch.tensor(float(lr), device=params[0].device)
+    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             capturable=on_card)
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -346,8 +390,22 @@ def make_lr_schedule(lr: float, kind: str, warmup_steps: int, total_steps: int
 
 
 def set_lr(optimizer: torch.optim.Optimizer, value: float) -> None:
+    """Every group's lr: a tensor lr is filled in place (on the card, a
+    launch and no wait), a float one rebound."""
     for group in optimizer.param_groups:
-        group["lr"] = value
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(value)
+        else:
+            group["lr"] = value
+
+
+def lr_on_params_device(optimizer: torch.optim.Optimizer) -> None:
+    """Put tensor lrs back beside the params: ``load_state_dict`` takes
+    the saved groups' lr as saved (a checkpoint restored on the CPU)."""
+    for group in optimizer.param_groups:
+        lr = group["lr"]
+        if isinstance(lr, torch.Tensor) and group["params"]:
+            group["lr"] = lr.to(group["params"][0].device)
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +431,12 @@ class GradAccum:
         self.gradient_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params]
 
-    def add(self) -> Optional[int]:
-        """Fold the params' ``.grad`` into the mean.  When this mini-step
-        ends a group, the mean is handed over as ``.grad`` (no copy: it is
-        overwritten when the next group starts) and the index of the update
-        it feeds is returned, for the schedule; else None."""
-        n = self.mini_step
+    def fold(self, n: int) -> bool:
+        """Fold the params' ``.grad`` into the mean as mini-step ``n`` of
+        a group (the device's work of a mini-step, and all that a captured
+        mini-step holds).  At the group's last mini-step the mean is handed
+        over as ``.grad`` (no copy: it is overwritten when the next group
+        starts) and True returned: the optimizer updates from it."""
         with torch.no_grad():
             for a, p in zip(self.acc, self.params):
                 if p.grad is None:
@@ -387,13 +445,25 @@ class GradAccum:
                     a.copy_(p.grad)
                 else:
                     a.add_((p.grad - a) / (n + 1))
-        self.mini_step = (n + 1) % self.every
-        if self.mini_step:
-            return None
+        if n + 1 < self.every:
+            return False
         for a, p in zip(self.acc, self.params):
             p.grad = a
+        return True
+
+    def advance(self) -> Optional[int]:
+        """Count one mini-step on the host: the index of the update it fed
+        when it ended a group (for the schedule), else None."""
+        self.mini_step = (self.mini_step + 1) % self.every
+        if self.mini_step:
+            return None
         self.gradient_step += 1
         return self.gradient_step - 1
+
+    def add(self) -> Optional[int]:
+        """``fold`` at the current position, then ``advance``."""
+        self.fold(self.mini_step)
+        return self.advance()
 
     def state_dict(self) -> Dict[str, Any]:
         return {"mini_step": self.mini_step,
@@ -467,10 +537,141 @@ def make_eval_step(metric_fn: Callable[[Any], Tuple[torch.Tensor, ...]]):
     return eval_step
 
 
+def step_mode(optimizer: torch.optim.Optimizer, capture: bool = True) -> str:
+    """How a train step runs: ``"graph"`` (captured once, replayed) when
+    the optimizer's parameters are on a CUDA card and no process group of
+    more than one rank exists, else ``"eager"``.  The one owner of that
+    rule.  The CPU has no graphs; across ranks DDP's all-reduce runs on
+    gloo's host copies (uncapturable) or NCCL, whose capture is not
+    measured yet.  ``capture=False`` forces the eager step on the card
+    (to hold the graph against it)."""
+    dev = optimizer.param_groups[0]["params"][0].device
+    if capture and dev.type == "cuda" and dist.group_size() == 1:
+        return "graph"
+    return "eager"
+
+
+def _eager_step(loss_fn, optimizer, lr_fn, accum, count: int, batch):
+    """One step as the JAX package's ``_step_body`` runs it: the loss
+    (detached) of ``batch`` after its backward and, unless ``accum``
+    holds the update back, one optimizer update at ``lr_fn(update)``;
+    and whether it updated."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(batch)
+    loss.backward()
+    update = count if accum is None else accum.add()
+    if update is not None:
+        set_lr(optimizer, lr_fn(update))
+        optimizer.step()
+    return loss.detach(), update is not None
+
+
+def check_baked_lr(optimizer: torch.optim.Optimizer, values) -> None:
+    """Raise unless every lr in ``values`` is the float lr the optimizer
+    holds: a captured step bakes a float lr in (SGD's; AdamW's lr on the
+    card is a tensor that each step fills)."""
+    floats = [g["lr"] for g in optimizer.param_groups
+              if not isinstance(g["lr"], torch.Tensor)]
+    if floats and any(v != floats[0] for v in values):
+        raise ValueError(
+            f"the optimizer's lr is a float, which a captured step bakes "
+            f"in ({floats[0]}), but the schedule moves it: "
+            f"{sorted(set(values))}")
+
+
+class _Graphs:
+    """CUDA graphs of one step function, and what replaying them needs.
+
+    Calls run eagerly on a side stream until one has updated: the first
+    call, or with gradient accumulation the first group.  The optimizer
+    then holds its state (AdamW's moments, SGD's momentum buffers; torch
+    makes them at the first update, which a capture would record as a
+    zero fill that every replay repeats), the libraries have picked their
+    algorithms and the flash kernels are built.  These are counted steps,
+    never extra ones (the JAX trainers' rule: no update outside the
+    counted loop).  A graph is captured on that stream the first time its
+    variant is needed, then replayed; every graph of one step function
+    shares one memory pool (they run one after another, in the order of
+    their captures).
+
+    Inputs are static buffers: each call copies its batch into them.  A
+    replay overwrites its outputs, so each call returns a copy.  An lr
+    that is a float is baked into a graph: a schedule that moves it
+    raises.  ``flash.LAUNCHES`` keeps counting the kernels the card ran:
+    what a capture records is taken back out (the card ran none of it)
+    and added again at each replay."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.device = optimizer.param_groups[0]["params"][0].device
+        self.stream = None  # made by the first (eager) call
+        self.graphs: Dict[Any, tuple] = {}
+        self.pool = None
+        self.inputs: Optional[tuple] = None
+        self.updated = False
+
+    def warm(self) -> bool:
+        """Whether a graph may be captured: the static inputs exist and
+        an eager update has made the optimizer's state."""
+        return self.inputs is not None and self.updated
+
+    def eager(self, fn):
+        """``fn() -> (out, updated)`` on the side stream, ordered after the
+        current stream's work and before what follows on it; ``out``."""
+        here = torch.cuda.current_stream(self.device)
+        self.stream = self.stream or torch.cuda.Stream(self.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            out, updated = fn()
+        here.wait_stream(self.stream)
+        out.record_stream(here)  # the caller reads (and frees) it there
+        self.updated = self.updated or updated
+        return out
+
+    def feed(self, batch) -> tuple:
+        """Copy ``batch`` into the static inputs (made at the first call)."""
+        batch = tuple(batch)
+        if self.inputs is None:
+            self.inputs = tuple(torch.empty_like(t) for t in batch)
+        if [(t.shape, t.dtype) for t in batch] != \
+                [(t.shape, t.dtype) for t in self.inputs]:
+            raise ValueError(
+                "a captured step takes one batch shape: got "
+                f"{[(tuple(t.shape), t.dtype) for t in batch]}, captured "
+                f"{[(tuple(t.shape), t.dtype) for t in self.inputs]}")
+        for dst, src in zip(self.inputs, batch):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        return self.inputs
+
+    def replay(self, key, capture: Callable[[], Any]):
+        """Replay the graph ``key``, capturing ``capture()`` (whose result
+        is the graph's output) first if it is new; a copy of the output."""
+        if key not in self.graphs:
+            if not self.warm():
+                raise RuntimeError("a capture before the first update would "
+                                   "replay the optimizer's state creation")
+            self.optimizer.zero_grad(set_to_none=True)
+            before = dict(flash.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = capture()
+            self.pool = self.pool or graph.pool()
+            recorded = {k: flash.LAUNCHES[k] - n for k, n in before.items()}
+            flash.LAUNCHES.update(before)
+            self.graphs[key] = (graph, out, recorded)
+        graph, out, recorded = self.graphs[key]
+        graph.replay()
+        for k, n in recorded.items():
+            flash.LAUNCHES[k] += n
+        return out.clone()
+
+
 def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
-                    accum: Optional[GradAccum] = None):
+                    accum: Optional[GradAccum] = None,
+                    capture: bool = True):
     """``step(state, batch) -> (state, loss)``: value and grad of
     ``loss_fn(batch)`` (which runs the model), one AdamW update at
     ``lr_fn(update count)``, and ``state['step'] + 1``.  The update is in
@@ -479,22 +680,156 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
     of the group's grads; ``state['step']`` counts mini-steps and the loss
     is each mini-step's own.
 
+    ``step.mode`` is ``step_mode(optimizer, capture)``.  In ``"graph"``
+    mode the first call (with ``accum``, the first group) is eager and
+    each later one replays a captured step (with ``accum``, one graph per
+    position in the group: all but the last fold the grads in, the last
+    folds and updates); the losses and parameters are those of the eager
+    step, bit for bit, since the same kernels run in the same order.
+
     Across processes ``loss_fn`` runs the DDP wrapper (``data_parallel``),
     so the grads are the ranks' mean before ``accum`` folds them in; the
     returned loss is the ranks' mean too (``global_mean``), the global
     batch's loss as the JAX package reports it."""
+    mode = step_mode(optimizer, capture)
 
-    def step(state: Dict[str, Any], batch) -> Tuple[Dict[str, Any], torch.Tensor]:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
+    if mode == "eager":
+        def step(state, batch):
+            loss, _ = _eager_step(loss_fn, optimizer, lr_fn, accum,
+                                  state["step"], batch)
+            return dict(state, step=state["step"] + 1), global_mean(loss)
+
+        step.mode = mode
+        return step
+
+    graphs = _Graphs(optimizer)
+
+    def captured(n: int):
+        loss = loss_fn(graphs.inputs)
         loss.backward()
-        update = state["step"] if accum is None else accum.add()
-        if update is not None:
-            set_lr(optimizer, lr_fn(update))
+        if accum is None or accum.fold(n):
             optimizer.step()
-        return dict(state, step=state["step"] + 1), global_mean(loss.detach())
+        return loss.detach()
 
+    def step(state, batch):
+        if not graphs.warm():
+            loss = graphs.eager(lambda: _eager_step(
+                loss_fn, optimizer, lr_fn, accum, state["step"], batch))
+            graphs.feed(batch)
+            return dict(state, step=state["step"] + 1), loss
+        n = 0 if accum is None else accum.mini_step
+        update = state["step"] if accum is None else (
+            accum.gradient_step if n + 1 == accum.every else None)
+        graphs.feed(batch)
+        if update is not None:
+            check_baked_lr(optimizer, [lr_fn(update)])
+            set_lr(optimizer, lr_fn(update))
+        loss = graphs.replay(n, lambda: captured(n))
+        if accum is not None:
+            accum.advance()
+        return dict(state, step=state["step"] + 1), loss
+
+    step.mode = mode
     return step
+
+
+def make_multi_step(loss_fn: Callable[[Any], torch.Tensor],
+                    optimizer: torch.optim.Optimizer, k: int, *,
+                    lr_fn: Optional[Callable[[int], float]] = None,
+                    stacked: bool = False, capture: bool = True):
+    """``step(state, batch) -> (state, losses [k])``: ``k`` optimizer
+    updates in one call, the counterpart of the JAX package's
+    ``make_multi_step`` (``lax.scan`` over ``_step_body``).  With
+    ``stacked=True`` every batch tensor carries a leading ``[k]`` dim of
+    per-step microbatches; otherwise one batch serves every step.  The lr
+    of update ``c`` is ``lr_fn(c)`` (the optimizer's own lr when None).
+
+    ``step.mode`` as in ``make_train_step``: in ``"graph"`` mode the first
+    call runs its k steps eagerly and each later one replays the k steps
+    captured in one graph, reading each step's lr from a ``[k]`` tensor
+    filled before the replay; elsewhere a loop of k eager steps."""
+    if k < 1:
+        raise ValueError(f"multi-step k must be >= 1, got {k}")
+    if lr_fn is None:
+        lr0 = float(optimizer.param_groups[0]["lr"])
+        lr_fn = lambda count: lr0  # noqa: E731
+    mode = step_mode(optimizer, capture)
+
+    def microbatch(batch, j):
+        return tuple(t[j] for t in batch) if stacked else tuple(batch)
+
+    def check(batch):
+        lead = batch[0].shape[0]
+        if stacked and lead != k:
+            raise ValueError(
+                f"stacked batch carries {lead} microbatches but the "
+                f"multi-step was built with k={k}")
+
+    def loop(count, batch):
+        return torch.stack([
+            _eager_step(loss_fn, optimizer, lr_fn, None, count + j,
+                        microbatch(batch, j))[0] for j in range(k)]), True
+
+    if mode == "eager":
+        def multi(state, batch):
+            check(batch)
+            losses, _ = loop(state["step"], batch)
+            return dict(state, step=state["step"] + k), losses
+
+        multi.mode = mode
+        return multi
+
+    graphs = _Graphs(optimizer)
+    lrs = torch.zeros(k, dtype=torch.float32, device=graphs.device)
+    filled: list = []
+
+    def captured():
+        losses = []
+        for j in range(k):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(microbatch(graphs.inputs, j))
+            loss.backward()
+            for group in optimizer.param_groups:
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].copy_(lrs[j])
+            optimizer.step()
+            losses.append(loss.detach())
+        return torch.stack(losses)
+
+    def multi(state, batch):
+        check(batch)
+        count = state["step"]
+        if not graphs.warm():
+            losses = graphs.eager(lambda: loop(count, batch))
+            graphs.feed(batch)
+            return dict(state, step=count + k), losses
+        graphs.feed(batch)
+        values = [lr_fn(count + j) for j in range(k)]
+        check_baked_lr(optimizer, values)
+        if values != filled:
+            for j, v in enumerate(values):
+                lrs[j].fill_(v)
+            filled[:] = values
+        losses = graphs.replay("multi", captured)
+        return dict(state, step=count + k), losses
+
+    multi.mode = mode
+    return multi
+
+
+def init_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               extra: Any = None) -> Dict[str, Any]:
+    """``{'model', 'opt', 'step'[, 'extra']}``, the JAX package's
+    ``init_state`` (``{'params', 'opt', 'step'[, 'extra']}``): the module
+    holds the params, the optimizer its state, which torch creates at the
+    first update (optax's init holds zeros of the same shapes), and the
+    step count starts at 0.  ``extra`` carries what the train step threads
+    besides the params (the JAX package's BatchNorm statistics; the
+    port's modules hold theirs as buffers)."""
+    state = {"model": model, "opt": optimizer, "step": 0}
+    if extra is not None:
+        state["extra"] = extra
+    return state
 
 
 def sync(device) -> None:
@@ -584,6 +919,8 @@ class Checkpointer:
         for k, v in like.items():
             if hasattr(v, "load_state_dict"):
                 v.load_state_dict(saved[k])
+                if isinstance(v, torch.optim.Optimizer):
+                    lr_on_params_device(v)
             else:
                 out[k] = saved[k]
         return out
