@@ -82,16 +82,34 @@ Phases, one JSON line each on stdout:
    step.  The batch each step copied to the card must equal the
    provider's for that step, losses must be finite, and each run must
    launch B1, B2 and B3 (GPT with the causal mask, BERT without).
-10. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
+10. ``moe``: the sparse MoE path (``--moe-experts 8 --moe-k 2
+   --moe-capacity-factor 1.25``, one card), one line a part.  ``gpt``:
+   GPT-2-medium at full width and depth with every FFN 8 experts of its
+   width, through ``gpt.run`` (flash, bf16, remat, batch 8, captured) for
+   2 + 8 + 2 steps as in ``train``: losses finite and falling, the load
+   balance, z-loss and dropped assignments of every step finite and
+   printed, exactly 48 / 24 / 24 launches a step; tokens/s, host ms a step
+   against the profiled busy ms, peak memory.  ``decode``: on that model,
+   batch 8, greedy: ``generate_cached`` returns ``generate``'s tokens (it
+   falls back to the full route, 48 x 24 forward launches), ms a new
+   token; a copy at capacity factor 0.5 (``MOE_DECODE_CF``) keeps the
+   realized positions' logits under the validity mask whatever the suffix
+   holds, and changes them without it.  ``graph``: 2 layers at full
+   width, eager and captured, bit-equal losses, aux terms and digests.
+   ``mlm``: ``bert.run`` at BERT-large width with the same experts, 8 of
+   its 24 layers, every launch without the mask.  ``dispatch``: one layer's
+   ``moe_ffn`` against its routing and dense one-hot dispatch/combine
+   alone, device ms forward and forward + backward.
+11. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
    10,000 images, batch 64, 1 epoch; cuDNN/cuBLAS, no hand-written
    kernel): accuracy above 0.9, samples/s over the run.
-11. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
+12. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
     256, bf16, channels-last), 2 warm-up and 10 timed steps: losses finite
     and falling, samples/s over the timed steps, peak device memory;
     ``resnet_profile``: a second run traces 4 steps after its warm-up
     through ``--profile-dir``, and the trace gives the kernels' ms a step
     by class and the device's busy share of the kernels' span.
-12. ``ddp``: the multi-process path, after the others and with the
+13. ``ddp``: the multi-process path, after the others and with the
     parent's models freed.  ``smoke_dist`` at world 1 over NCCL on
     ``cuda:0`` (the only NCCL group one card allows), then two ranks on
     the one card over gloo (NCCL refuses two ranks on one card; gloo
@@ -106,7 +124,7 @@ Phases, one JSON line each on stdout:
     once).  Each is held to the parent's own one-process run of the same
     seed; per-rank ms a step are a record of this layout (gloo's host
     copies included), not a DDP speed.
-13. ``bench``: ``python -m tpujob_torch.bench`` and ``python -m
+14. ``bench``: ``python -m tpujob_torch.bench`` and ``python -m
     tpujob_torch.bench_models --models resnet50,bert-large,gpt`` as child
     processes on the card; their JSON lines are printed as they are, and
     held to their contract: one headline line with the JAX line's keys,
@@ -225,6 +243,26 @@ GRAPH_RESUME_ARGV = ["--attention", "flash", "--batch-size", "8",
                      "--layers", "2", "--grad-accum", "2", "--log-interval",
                      "1", "--seed", "0"]
 GRAPH_RESUME_STEPS, GRAPH_RESUME_AT = 8, 3
+# moe: GPT-2-medium with every FFN 8 experts of its width, top-2 routing at
+# capacity factor 1.25 (the JAX package's defaults: GShard's top-2 gating,
+# the Switch Transformer's 1.25); 2 + 8 + 2 steps, as train's windows
+MOE_ARGV = ["--attention", "flash", "--batch-size", "8", "--moe-experts",
+            "8", "--moe-k", "2", "--moe-capacity-factor", "1.25",
+            "--log-interval", "1", "--seed", "0"]
+MOE_WARMUP, MOE_TIMED, MOE_PROFILED = 2, 8, 2
+# ...eager against captured at full width and 2 layers, bit for bit
+MOE_GRAPH_STEPS = 6
+MOE_GRAPH_ARGV = MOE_ARGV + ["--layers", "2", "--steps", str(MOE_GRAPH_STEPS)]
+# ...BERT-large MLM (seq 512, flash without the mask) with the same experts;
+# the depth cut from 24 to 8 layers to keep the phase short
+MOE_MLM_STEPS = 6
+MOE_MLM_ARGV = MOE_ARGV + ["--layers", "8", "--steps", str(MOE_MLM_STEPS)]
+# ...decode on the full route: the realized positions' logits under the
+# validity mask are invariant to the suffix at a tight capacity (the JAX
+# test's factor 0.5; exact here: the same kernels on the same rows) and
+# change without the mask by more than MOE_SUFFIX_MIN x rms(logits)
+MOE_DECODE_CF = 0.5
+MOE_SUFFIX_MAX, MOE_SUFFIX_MIN = 1e-3, 1e-2
 # the captured GPT step's host ms over its device busy ms (phases train and
 # profile) may be at most this: the host no longer sets the rate
 HOST_OVER_BUSY_MAX = 1.15
@@ -592,24 +630,19 @@ def trace_kernels(path: str, steps: int) -> dict:
             "top_kernels_ms_launches_per_step": top}
 
 
-def run_train() -> dict:
-    """The main path: GPT-2-medium through gpt.run, launches counted.
+def profiled_run(module, argv: list, warmup: int, timed: int,
+                 profiled: int) -> dict:
+    """``module.run`` through its flag surface for ``warmup + timed +
+    profiled`` steps, launches counted from 0.  A hook after each step
+    waits for the card and stamps the host clock.  The ``timed`` steps
+    after the warm-up, unprofiled, give the end-to-end rate (all tokens
+    over all the window's time); the last ``profiled`` steps run under
+    torch.profiler (CUDA activity) and give device time by kernel class
+    and the device's busy share of those same steps."""
+    from tpujob_torch.workloads import flash
 
-    One run of WARMUP + TIMED + PROFILED steps; a hook after each step
-    waits for the card and stamps the host clock.  Steps after the warm-up
-    form two windows: TIMED steps unprofiled give the end-to-end rate (all
-    tokens over all the window's time), then PROFILED steps under
-    torch.profiler give device time by kernel class and the device's busy
-    share of those same steps."""
-    from tpujob_torch.workloads import flash, gpt
-
-    steps = WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
-    logdir = os.path.join("build", "chip_smoke", "train")
-    shutil.rmtree(logdir, ignore_errors=True)
-    argv = ["--attention", "flash", "--batch-size", "8", "--steps",
-            str(steps), "--log-interval", "1", "--seed", "0", "--dir", logdir,
-            "--device", DEVICE]
-    args = gpt.build_parser().parse_args(argv)
+    steps = warmup + timed + profiled
+    args = module.build_parser().parse_args(argv + ["--steps", str(steps)])
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
     stamps, prof_t0 = [], []
@@ -617,7 +650,7 @@ def run_train() -> dict:
     def on_step(i: int) -> None:
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        if i == WARMUP_STEPS + TIMED_STEPS - 1:
+        if i == warmup + timed - 1:
             prof.start()
             prof_t0.append(time.perf_counter())
 
@@ -625,52 +658,80 @@ def run_train() -> dict:
     flash.reset_launches()
     t0 = time.perf_counter()
     try:
-        res = gpt.run(args, on_step=on_step)  # ends with the card synced
+        res = module.run(args, on_step=on_step)  # ends with the card synced
     finally:
         if prof_t0:
             prof.stop()
     wall = time.perf_counter() - t0
     launches = dict(flash.LAUNCHES)
-    losses = res["losses"]
-
     tokens = args.batch_size * args.seq_len
-    a0, a1 = stamps[WARMUP_STEPS - 1], stamps[WARMUP_STEPS + TIMED_STEPS - 1]
-    step_ms = [(y - x) * 1e3 for x, y in zip(stamps[WARMUP_STEPS - 1:],
-                                             stamps[WARMUP_STEPS:])]
-    timed_ms = step_ms[:TIMED_STEPS]
+    a0, a1 = stamps[warmup - 1], stamps[warmup + timed - 1]
+    step_ms = [(y - x) * 1e3 for x, y in zip(stamps[warmup - 1:],
+                                             stamps[warmup:])]
+    timed_ms = step_ms[:timed]
     quart = statistics.quantiles(timed_ms, n=4)
-    by_class, top = device_ms_by_class(prof, PROFILED_STEPS)
+    by_class, top = device_ms_by_class(prof, profiled)
     busy_ms = sum(by_class.values())
-    prof_step_ms = (stamps[-1] - prof_t0[0]) * 1e3 / PROFILED_STEPS
-    host_ms = (a1 - a0) * 1e3 / TIMED_STEPS
-    host_over_busy = host_ms / busy_ms if busy_ms > 0 else math.inf
+    host_ms = (a1 - a0) * 1e3 / timed
+    return {
+        "res": res, "args": args, "steps": steps, "launches": launches,
+        "wall_s": wall, "window_steps": timed,
+        "window_tokens_per_sec": timed * tokens / (a1 - a0),
+        "window_step_ms_mean": host_ms,
+        "window_step_ms_median": statistics.median(timed_ms),
+        "window_step_ms_q1_q3": [quart[0], quart[2]],
+        "step_ms_all": step_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "device_ms_per_step": by_class, "device_busy_ms_per_step": busy_ms,
+        "host_over_device_busy": host_ms / busy_ms if busy_ms > 0
+        else math.inf,
+        "profiled_host_step_ms": (stamps[-1] - prof_t0[0]) * 1e3 / profiled,
+        "top_kernels_ms_launches_per_step": top}
+
+
+def run_train() -> dict:
+    """The main path: GPT-2-medium through gpt.run, launches counted; the
+    rate over TIMED_STEPS, the profile over PROFILED_STEPS
+    (``profiled_run``)."""
+    from tpujob_torch.workloads import gpt
+
+    logdir = os.path.join("build", "chip_smoke", "train")
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = ["--attention", "flash", "--batch-size", "8", "--log-interval",
+            "1", "--seed", "0", "--dir", logdir, "--device", DEVICE]
+    r = profiled_run(gpt, argv, WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS)
+    res, steps, launches = r["res"], r["steps"], r["launches"]
+    losses = res["losses"]
+    busy_ms, host_over_busy = (r["device_busy_ms_per_step"],
+                               r["host_over_device_busy"])
     ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
           and busy_ms > 0 and res["step_mode"] == "graph"
           and host_over_busy <= HOST_OVER_BUSY_MAX)
     n_params = sum(p.numel() for p in res["state"]["model"].parameters())
-    emit({"phase": "train", "ok": ok, "argv": argv, "params": n_params,
-          "step_mode": res["step_mode"], "losses": losses,
-          "window_steps": TIMED_STEPS,
-          "window_tokens_per_sec": TIMED_STEPS * tokens / (a1 - a0),
-          "window_step_ms_mean": host_ms,
+    emit({"phase": "train", "ok": ok, "argv": argv + ["--steps", str(steps)],
+          "params": n_params, "step_mode": res["step_mode"],
+          "losses": losses, "window_steps": TIMED_STEPS,
+          "window_tokens_per_sec": r["window_tokens_per_sec"],
+          "window_step_ms_mean": r["window_step_ms_mean"],
           "device_busy_ms_per_step": busy_ms,
           "host_over_device_busy": host_over_busy,
           "host_over_device_busy_max": HOST_OVER_BUSY_MAX,
-          "window_step_ms_median": statistics.median(timed_ms),
-          "window_step_ms_q1_q3": [quart[0], quart[2]],
-          "step_ms_all": step_ms,
+          "window_step_ms_median": r["window_step_ms_median"],
+          "window_step_ms_q1_q3": r["window_step_ms_q1_q3"],
+          "step_ms_all": r["step_ms_all"],
           "trainer_tokens_per_sec_all_steps": res["tokens_per_sec"],
-          "wall_s": wall,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "wall_s": r["wall_s"], "peak_mem_gb": r["peak_mem_gb"],
           "launches": launches,
           "launches_per_step": {k: n / steps for k, n in launches.items()}})
     emit({"phase": "profile", "steps": PROFILED_STEPS,
-          "step_mode": res["step_mode"], "host_step_ms": prof_step_ms,
-          "device_ms_per_step": by_class,
+          "step_mode": res["step_mode"],
+          "host_step_ms": r["profiled_host_step_ms"],
+          "device_ms_per_step": r["device_ms_per_step"],
           "device_busy_ms_per_step": busy_ms,
-          "device_busy_share": busy_ms / prof_step_ms,
-          "top_kernels_ms_launches_per_step": top})
+          "device_busy_share": busy_ms / r["profiled_host_step_ms"],
+          "top_kernels_ms_launches_per_step":
+          r["top_kernels_ms_launches_per_step"]})
     if not ok:
         raise AssertionError(f"main path failed: losses {losses}, "
                              f"launches {launches}, busy {busy_ms} ms, "
@@ -855,6 +916,235 @@ def run_decode(p: int, new: int) -> dict:
         raise AssertionError(f"decode path failed: entry {entry}, launches "
                              f"{launches}, checks {checks}")
     return launches["full"]
+
+
+def moe_dispatch_cost(args) -> dict:
+    """One MoE layer at the phase's shapes on the card (bf16 x and expert
+    weights, fp32 router, random from a seed): ``moe_ffn`` forward, and
+    forward + backward (against a random cotangent), beside the routing
+    and the dense one-hot dispatch/combine tensors alone (``moe_route`` +
+    ``dispatch_combine``, the backward through combine's gates); device ms
+    from ``time_ms``, and the bytes of the fp32 [b, k*s, E, cap] one-hot
+    product that the dense form materialises."""
+    from tpujob_torch.workloads import parallel
+
+    b, s, d, f = (args.batch_size, args.seq_len, args.hidden,
+                  args.intermediate)
+    e, k, cf = args.moe_experts, args.moe_k, args.moe_capacity_factor
+    cap = parallel.moe_capacity(s, e, k, cf)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device=DEVICE, generator=gen) * scale
+                ).to(dtype).requires_grad_()
+
+    x, router = rnd(b, s, d), rnd(d, e, scale=0.02, dtype=torch.float32)
+    wi, wo = rnd(e, d, f, scale=d ** -0.5), rnd(e, f, d, scale=f ** -0.5)
+    dy = torch.randn(b, s, d, device=DEVICE, generator=gen).to(x.dtype)
+    dc = torch.randn(b, s, e, cap, device=DEVICE, generator=gen).to(x.dtype)
+
+    def ffn():
+        return parallel.moe_ffn(x, router, wi, wo, k=k, capacity_factor=cf)[0]
+
+    def route():
+        r = parallel.moe_route(x, router, k, cap)
+        return parallel.dispatch_combine(r, cap, x.dtype)[1]
+
+    with torch.no_grad():
+        ffn_fwd, route_fwd = time_ms(ffn, iters=10), time_ms(route, iters=10)
+    ffn_all = time_ms(lambda: torch.autograd.grad(
+        ffn(), (x, router, wi, wo), dy), iters=10)
+    route_all = time_ms(lambda: torch.autograd.grad(
+        route(), (x, router), dc, allow_unused=True), iters=10)
+    return {"shape": {"b": b, "s": s, "d": d, "f": f, "experts": e, "k": k,
+                      "capacity": cap},
+            "one_hot_product_bytes": b * k * s * e * cap * 4,
+            "ffn_fwd_ms": ffn_fwd, "ffn_fwd_bwd_ms": ffn_all,
+            "route_dispatch_fwd_ms": route_fwd,
+            "route_dispatch_fwd_bwd_ms": route_all,
+            "route_dispatch_share_fwd_bwd": route_all / ffn_all}
+
+
+def run_moe(p: int, new: int) -> dict:
+    """The sparse MoE path (``--moe-experts 8``, top-2, one card): (a)
+    GPT-2-medium at full width and depth through ``gpt.run``, captured,
+    with its rate, profile, aux terms and dropped assignments each step;
+    (d) decode on that model; (b) eager against captured at 2 layers; (c)
+    BERT-large MLM at 8 layers.  The flash launches of (a)."""
+    import gc
+
+    from tpujob_torch.workloads import bert as bertlib
+    from tpujob_torch.workloads import distributed, flash, gpt
+
+    logdir = os.path.join("build", "chip_smoke", "moe")
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = MOE_ARGV + ["--dir", os.path.join(logdir, "gpt"),
+                       "--device", DEVICE]
+    r = profiled_run(gpt, argv, MOE_WARMUP, MOE_TIMED, MOE_PROFILED)
+    res, args, steps = r["res"], r["args"], r["steps"]
+    model = res["state"]["model"]
+    layers, losses, aux = args.layers, res["losses"], res["moe_metrics"]
+    want = {"flash_fwd": 2 * layers * steps, "flash_dq": layers * steps,
+            "flash_dkv": layers * steps}
+    assignments = layers * args.batch_size * args.seq_len * args.moe_k
+    checks = {
+        "mode": res["step_mode"] == "graph",
+        "losses": len(losses) == steps
+        and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+        "aux": len(aux) == steps and all(
+            math.isfinite(v) for m in aux for v in m.values()),
+        "launches": r["launches"] == want,
+        "busy": r["device_busy_ms_per_step"] > 0,
+    }
+    emit({"phase": "moe", "part": "gpt", "ok": all(checks.values()),
+          "checks": checks, "argv": argv + ["--steps", str(steps)],
+          "params": sum(q.numel() for q in model.parameters()),
+          "step_mode": res["step_mode"], "losses": losses,
+          "aux_by_step": aux,
+          "dropped_share_by_step": [m["dropped"] / assignments for m in aux],
+          "assignments_per_step": assignments,
+          **{k: r[k] for k in (
+              "window_steps", "window_tokens_per_sec", "window_step_ms_mean",
+              "window_step_ms_median", "window_step_ms_q1_q3",
+              "device_busy_ms_per_step", "host_over_device_busy",
+              "device_ms_per_step", "profiled_host_step_ms",
+              "top_kernels_ms_launches_per_step", "step_ms_all", "wall_s",
+              "peak_mem_gb", "launches")},
+          "launches_per_step": {k: n / steps
+                                for k, n in r["launches"].items()}})
+    if not all(checks.values()):
+        raise AssertionError(f"moe gpt failed: {checks}")
+    launches = r["launches"]
+    res["state"].pop("opt")
+    del r, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) decode on the trained model, the full route (the cached one falls
+    # back to it); the mask's checks on a copy at a tight capacity
+    b, total = DECODE_BATCH, p + new
+    ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
+    prompt = bertlib.batch_to_device(ids[:b, :p], DEVICE)
+    gpt.generate(model, prompt[:, :16], 2)  # warm-up
+    torch.cuda.synchronize()
+    routes, route_launches = {}, {}
+    for name, fn in (("full", gpt.generate), ("cached", gpt.generate_cached)):
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        routes[name] = fn(model, prompt, new)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        route_launches[name] = dict(flash.LAUNCHES)
+        route_launches[name]["ms_per_new_token"] = sec * 1e3 / new
+    tight_args = argparse.Namespace(**{
+        **vars(args), "moe_capacity_factor": MOE_DECODE_CF})
+    with torch.device("meta"):  # the weights come from the trained model
+        tight = gpt.build_model(tight_args, "meta")
+    tight.to_empty(device=DEVICE).load_state_dict(model.state_dict())
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    pads = [torch.zeros(b, new, dtype=torch.long, device=DEVICE),
+            torch.randint(0, args.vocab, (b, new), device=DEVICE,
+                          generator=gen)]
+    bufs = [torch.cat([prompt, pad], 1) for pad in pads]
+    valid = (torch.arange(total, device=DEVICE) < p).float().expand(b, total)
+    with torch.no_grad():
+        masked = [tight(x, valid=valid)[:, :p].float() for x in bufs]
+        raw = [tight(x)[:, :p].float() for x in bufs]
+    rms = masked[0].square().mean().sqrt().item()
+    masked_diff = (masked[0] - masked[1]).abs().max().item()
+    raw_diff = (raw[0] - raw[1]).abs().max().item()
+    del tight, masked, raw
+    dchecks = {
+        # true by construction while generate_cached falls back to
+        # generate for a MoE model: it holds the fallback in place
+        "routes_equal": torch.equal(routes["full"], routes["cached"]),
+        "prompt_kept": torch.equal(routes["full"][:, :p], prompt),
+        "in_vocab": bool(((routes["full"] >= 0)
+                          & (routes["full"] < args.vocab)).all()),
+        "full_launches": {k: route_launches["full"][k] for k in want}
+        == {"flash_fwd": new * layers, "flash_dq": 0, "flash_dkv": 0},
+        "masked_suffix_invariant": masked_diff <= MOE_SUFFIX_MAX * rms,
+        "unmasked_suffix_sensitive": raw_diff > MOE_SUFFIX_MIN * rms,
+    }
+    emit({"phase": "moe", "part": "decode", "ok": all(dchecks.values()),
+          "checks": dchecks, "batch": b, "prompt": p, "new_tokens": new,
+          "layers": layers, "capacity_factor_tight": MOE_DECODE_CF,
+          "masked_max_abs_diff": masked_diff, "unmasked_max_abs_diff": raw_diff,
+          "logits_rms": rms, "routes": route_launches,
+          "generated_row0": routes["full"][0].tolist()})
+    if not all(dchecks.values()):
+        raise AssertionError(f"moe decode failed: {dchecks}")
+    del model, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) eager against captured, bit for bit
+    eager = graph_run("moe", gpt, MOE_GRAPH_ARGV, False, gpt_leaves)
+    graph = graph_run("moe", gpt, MOE_GRAPH_ARGV, True, gpt_leaves)
+    two = {"flash_fwd": 4 * MOE_GRAPH_STEPS, "flash_dq": 2 * MOE_GRAPH_STEPS,
+           "flash_dkv": 2 * MOE_GRAPH_STEPS}
+    gchecks = {
+        "modes": [eager["step_mode"], graph["step_mode"]] == ["eager", "graph"],
+        "bit_equal": bit_equal(eager, graph),
+        "launches": eager["launches"] == graph["launches"] == two,
+    }
+    emit({"phase": "moe", "part": "graph", "ok": all(gchecks.values()),
+          "checks": gchecks, "argv": MOE_GRAPH_ARGV,
+          "runs": {mode: {k: v for k, v in x.items()
+                          if k not in ("digest", "stats")}
+                   for mode, x in (("eager", eager), ("graph", graph))}})
+    if not all(gchecks.values()):
+        raise AssertionError(f"moe graph failed: {gchecks}")
+    del eager, graph
+
+    # (c) the MLM, every launch without the mask
+    margv = MOE_MLM_ARGV + ["--dir", os.path.join(logdir, "mlm"),
+                            "--device", DEVICE]
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    with causal_flags() as seen:
+        mres = bertlib.run(bertlib.build_parser().parse_args(margv),
+                           on_step=on_step)
+    mlaunches = dict(flash.LAUNCHES)
+    mlosses, maux = mres["losses"], mres["moe_metrics"]
+    mlayers = flag(MOE_MLM_ARGV, "--layers")
+    mchecks = {
+        "mode": mres["step_mode"] == "graph",
+        "losses": len(mlosses) == MOE_MLM_STEPS
+        and all(math.isfinite(x) for x in mlosses)
+        and mlosses[-1] < mlosses[0],
+        "aux": all(math.isfinite(v) for m in maux for v in m.values()),
+        "launches": mlaunches == {
+            "flash_fwd": 2 * mlayers * MOE_MLM_STEPS,
+            "flash_dq": mlayers * MOE_MLM_STEPS,
+            "flash_dkv": mlayers * MOE_MLM_STEPS},
+        "non_causal": all(v == {False} for v in seen.values()),
+    }
+    emit({"phase": "moe", "part": "mlm", "ok": all(mchecks.values()),
+          "checks": mchecks, "argv": margv, "layers": mlayers,
+          "params": sum(q.numel() for q in
+                        mres["state"]["model"].parameters()),
+          "step_mode": mres["step_mode"], "losses": mlosses,
+          "aux_by_step": maux,
+          "trainer_tokens_per_sec": mres["tokens_per_sec"],
+          "wall_s": mres["wall_s"], **step_stats(stamps, 2),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": mlaunches})
+    if not all(mchecks.values()):
+        raise AssertionError(f"moe mlm failed: {mchecks}")
+    del mres
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "part": "dispatch", **moe_dispatch_cost(args)})
+    return launches
 
 
 def write_corpus(directory: str) -> str:
@@ -1419,6 +1709,7 @@ def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
     torch.cuda.synchronize()
     model = res["state"]["model"]
     out = {"step_mode": res["step_mode"], "losses": res.get("losses"),
+           "moe_metrics": res.get("moe_metrics"),
            "final_loss": res["final_loss"], "accuracy": res.get("accuracy"),
            "launches": dict(flash.LAUNCHES), "wall_s": res["wall_s"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -1430,9 +1721,10 @@ def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
 
 
 def bit_equal(a: dict, b: dict) -> bool:
-    """Two runs' losses, final loss, accuracy, parameter digests and
-    running statistics equal bit for bit."""
+    """Two runs' losses, final loss, accuracy, MoE aux terms, parameter
+    digests and running statistics equal bit for bit."""
     return (a["losses"] == b["losses"] and a["final_loss"] == b["final_loss"]
+            and a["moe_metrics"] == b["moe_metrics"]
             and a["accuracy"] == b["accuracy"]
             and a["digest"]["abs_sums"] == b["digest"]["abs_sums"]
             and sorted(a["digest"]["leaves"]) == sorted(b["digest"]["leaves"])
@@ -1651,7 +1943,8 @@ def main(argv=None) -> int:
         by_path = {"graph": run_graph(), "train": run_train(),
                    "mlm": run_mlm(),
                    "decode": run_decode(args.decode_prompt, args.decode_new),
-                   "corpus": run_corpus()}
+                   "corpus": run_corpus(),
+                   "moe": run_moe(args.decode_prompt, args.decode_new)}
         run_mnist()
         run_resnet()
         by_path["ddp"] = run_ddp()

@@ -175,9 +175,10 @@ def test_run_flag_errors():
     with pytest.raises(ValueError, match="needs --data-file"):
         tbert.run(p.parse_args(ARGV + ["--device", "cpu",
                                        "--tokenizer", "bpe:x"]))
+    # MoE runs on one device; expert parallelism is not ported
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbert.run(p.parse_args(ARGV + ["--device", "cpu",
-                                       "--moe-experts", "4"]))
+        tbert.run(p.parse_args(ARGV + ["--device", "cpu", "--moe-experts",
+                                       "4", "--expert-parallel", "2"]))
 
 
 def test_module_entry_point_on_cpu(tmp_path):

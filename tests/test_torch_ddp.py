@@ -30,6 +30,8 @@ rounding only):
   param normwise 5e-4, running statistics rtol 1e-4 / atol 1e-5;
   ``resnet.run`` 1 + 2 steps against the port at one process: losses
   1e-4 (BatchNorm over 4 samples grows the difference about 5x a step).
+- The MoE GPT (``--moe-experts 4``): as the GPT; its load balance is
+  the global batch's;
 - The two ranks' states after a run: equal (one averaged gradient).
 - A checkpoint written at world 2 resumed at world 1: losses 1e-5 of the
   two-rank run's continuation.
@@ -43,8 +45,8 @@ import numpy as np
 import torch
 from jax.sharding import Mesh
 
-from test_torch_spawn import (checkpoint_ranks, mnist_ranks, resnet_ranks,
-                              spawn, trainer_ranks)
+from test_torch_spawn import (checkpoint_ranks, mnist_ranks, moe_ranks,
+                              resnet_ranks, spawn, trainer_ranks)
 from tpujob.workloads import bert as jbert
 from tpujob.workloads import data as jdata
 from tpujob.workloads import gpt as jgpt
@@ -145,6 +147,37 @@ def test_gpt_two_ranks_match_jax_on_the_global_batch(tmp_path, monkeypatch):
     _ranks_equal([out, out1])
     one = _port_run(tgpt, tbert, "build_model", init,
                     _port_argv(GPT_ARGV, tmp_path / "one"), monkeypatch)
+    np.testing.assert_allclose(out["losses"], one["losses"], rtol=1e-5)
+
+
+def _within(got, want, rtol=1e-5, atol=1e-4) -> bool:
+    return all(np.allclose(got[name], w.numpy(), rtol=rtol, atol=atol)
+               for name, w in want.items()
+               if not name.endswith("attn.key.bias"))
+
+
+def test_moe_gpt_two_ranks_match_jax_with_a_global_load_balance(
+        tmp_path, monkeypatch):
+    """A MoE GPT (4 experts, top-2) at two ranks against JAX at one
+    process: the load balance's top-1 counts and token count are summed
+    over the ranks, as the JAX package's data axis takes them over the
+    global batch.  A rank-local load balance misses the same tolerances
+    (observed: losses 2.3e-5 relative, params 6e-3 absolute, where the
+    global one reads 1.4e-6 and 3.6e-5)."""
+    argv = GPT_ARGV + ["--moe-experts", "4"]
+    jlosses, jparams = _jax_trunk_run(jgpt, argv, tmp_path / "j")
+    init = _trunk_init(jgpt, argv)
+    outs = spawn(moe_ranks, 2, tmp_path, _port_argv(argv, tmp_path / "t"),
+                 _port_argv(argv, tmp_path / "local"), init)
+    (out, local), (out1, _) = outs
+    assert len(out["losses"]) == 3
+    np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-5)
+    _params_close(out["state"], jparams, atol=1e-4)
+    _ranks_equal([out, out1])
+    assert not np.allclose(local["losses"], jlosses, rtol=1e-5)
+    assert not _within(local["state"], jparams)
+    one = _port_run(tgpt, tbert, "build_model", init,
+                    _port_argv(argv, tmp_path / "one"), monkeypatch)
     np.testing.assert_allclose(out["losses"], one["losses"], rtol=1e-5)
 
 

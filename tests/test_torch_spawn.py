@@ -164,6 +164,27 @@ def trainer_ranks(rank, module_name, runs, state):
     return out
 
 
+def moe_ranks(rank, argv, local_argv, state):
+    """``gpt.run`` of a MoE model from ``state`` (``trainer_ranks``), then
+    (``local_argv``) again with each rank's load balance its own rows'
+    (the layers' ``moe_ffn`` value, not summed over the ranks): the fault
+    the global one prevents.  Both results."""
+    from tpujob_torch.workloads import bert
+
+    [out] = trainer_ranks(rank, "gpt", [argv], state)
+    global_terms = bert.moe_terms
+
+    def local_terms(metrics):
+        terms = global_terms(metrics)
+        terms["load_balance"] = torch.stack(
+            [m["load_balance"] for m in metrics]).mean()
+        return terms
+
+    bert.moe_terms = local_terms
+    [local] = trainer_ranks(rank, "gpt", [local_argv], state)
+    return out, local
+
+
 def group_ranks(rank):
     """``initialize`` from a ``host:port`` coordinator: the group it makes,
     a second call (idempotent), calls with a conflicting env (refused),

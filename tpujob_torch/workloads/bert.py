@@ -3,10 +3,12 @@
 The BERT encoder and the GPT decoder are one machine here as in the JAX
 package: post-LN blocks, learned (or rotary) positions, a tied LM head,
 rematerialised blocks.  What is ported: ``rope``, ``Attention`` (training
-branch and the KV-cache branch of decode), ``Block`` with the dense FFN,
-``Bert`` (embed / head / forward, and decode one token at a time against
-an explicit ``KVCache``), the masked-LM objective (``mask_batch``,
-``mlm_loss``), the flag surface, ``tokenizer_from_args`` and
+branch and the KV-cache branch of decode), ``Block`` with the dense FFN or
+the sparse MoE one (``MoEConfig``, ``MoEMlp``, ``moe_config_from``; one
+device, no expert parallelism), ``Bert`` (embed / head / forward, and
+decode one token at a time against an explicit ``KVCache``), the
+masked-LM objective (``mask_batch``, ``mlm_loss``, with the MoE aux
+terms), the flag surface, ``tokenizer_from_args`` and
 ``token_batches`` (synthetic, or a real corpus with ``--data-file``, raw
 bytes or ``--tokenizer bpe:...`` tokens, a new batch every step), the flag
 checks, ``build_model`` (dense and flash attention), the ``train`` loop (a
@@ -24,8 +26,8 @@ Parity with flax, made explicit rather than left to autocast:
 - GELU is the tanh approximation;
 - submodules carry the flax names (``token_embed``, ``pos_embed``,
   ``ln_embed``, ``ln_f``, ``layer_{i}/{attn/{query,key,value,out},
-  ln_attn, ln_mlp, mlp_wi, mlp_wo}``) so ``convert.params_from_flax`` is a
-  mechanical rename.
+  ln_attn, ln_mlp, mlp_wi, mlp_wo}``, or ``moe/{router,wi,wo}`` in flax's
+  layout) so ``convert.params_from_flax`` is a mechanical rename.
 
 Entry points (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.bert --attention flash --batch-size 8 --steps 5
@@ -174,23 +176,74 @@ class Attention(nn.Module):
         return o.reshape(b, s, self.heads, self.d)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Static MoE hyperparameters (the JAX package's, without a mesh:
+    expert parallelism is not ported)."""
+
+    experts: int
+    k: int = 2
+    capacity_factor: float = 1.25
+
+
+class MoEMlp(nn.Module):
+    """Sparse MoE FFN (``parallel.moe_ffn``), with flax's param layout:
+    ``router`` [d, E] (fp32, normal(0.02)), ``wi`` [E, d, f] and ``wo``
+    [E, f, d] (flax's lecun_normal, whose fan-in counts the expert axis as
+    receptive field: d * E and f * E), cast to the compute dtype at each
+    use."""
+
+    def __init__(self, hidden: int, intermediate: int, cfg: MoEConfig,
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        e = cfg.experts
+        self.cfg, self.dtype = cfg, dtype
+        self.router = nn.Parameter(torch.empty(hidden, e))
+        self.wi = nn.Parameter(torch.empty(e, hidden, intermediate))
+        self.wo = nn.Parameter(torch.empty(e, intermediate, hidden))
+        with torch.no_grad():
+            self.router.normal_(0.0, 0.02, generator=gen)
+            train_lib.lecun_normal_(self.wi, hidden * e, gen)
+            train_lib.lecun_normal_(self.wo, intermediate * e, gen)
+
+    def forward(self, x, valid=None):
+        return parallel.moe_ffn(
+            x, self.router, self.wi.to(self.dtype), self.wo.to(self.dtype),
+            k=self.cfg.k, capacity_factor=self.cfg.capacity_factor,
+            valid=valid)
+
+
 class Block(nn.Module):
-    """Post-LN transformer block with the dense FFN."""
+    """Post-LN transformer block with the dense FFN, or with ``moe`` the
+    sparse one."""
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dtype: torch.dtype, attention_fn: Optional[Callable],
                  gen: torch.Generator, kv_heads: Optional[int] = None,
-                 use_rope: bool = False, window: int = 0):
+                 use_rope: bool = False, window: int = 0,
+                 moe: Optional[MoEConfig] = None):
         super().__init__()
         self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
                               kv_heads, use_rope, window)
         self.ln_attn = LayerNorm(hidden, dtype)
-        self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
-        self.mlp_wo = Dense(intermediate, hidden, dtype, gen)
+        if moe is not None:
+            self.moe = MoEMlp(hidden, intermediate, moe, dtype, gen)
+        else:
+            self.moe = None
+            self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
+            self.mlp_wo = Dense(intermediate, hidden, dtype, gen)
         self.ln_mlp = LayerNorm(hidden, dtype)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, valid=None):
+        """The block's output; a MoE block's is ``(x, metrics)``, its FFN's
+        metrics returned rather than kept aside, so that a rematerialised
+        block's recomputation writes nothing twice and a captured step
+        holds them as outputs.  ``valid`` ([b, s] 0/1) marks the positions
+        the MoE routes; a dense block ignores it."""
         x = self.ln_attn(x + self.attn(x, cache))
+        if self.moe is not None:
+            h, metrics = self.moe(x, valid)
+            return self.ln_mlp(x + h), metrics
         h = F.gelu(self.mlp_wi(x), approximate="tanh")
         return self.ln_mlp(x + self.mlp_wo(h))
 
@@ -222,11 +275,12 @@ class Bert(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attention_fn: Optional[Callable] = None, remat: bool = True,
                  final_ln: bool = False, kv_heads: Optional[int] = None,
-                 use_rope: bool = False, window: int = 0, seed: int = 0):
+                 use_rope: bool = False, window: int = 0, seed: int = 0,
+                 moe: Optional[MoEConfig] = None):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
-        self.use_rope = use_rope
+        self.use_rope, self.moe = use_rope, moe
         gen = torch.Generator().manual_seed(seed)
         # vocab padded to a multiple of 128 (the JAX package's Megatron
         # padding); logits are sliced back to the true vocab
@@ -244,7 +298,7 @@ class Bert(nn.Module):
         for i in range(layers):
             setattr(self, f"layer_{i}", Block(
                 hidden, heads, intermediate, dtype, attention_fn, gen,
-                kv_heads, use_rope, window))
+                kv_heads, use_rope, window, moe))
 
     def embed(self, ids, position: int = 0):
         """Token embedding plus the learned positions from ``position`` on
@@ -265,12 +319,19 @@ class Bert(nn.Module):
                               self.token_embed.weight.to(self.dtype).t())
         return logits[..., : self.vocab]
 
-    def forward(self, ids, cache: Optional[KVCache] = None):
+    def forward(self, ids, cache: Optional[KVCache] = None, valid=None,
+                with_metrics: bool = False):
         """Logits of ``ids`` [b, s]; with ``cache``, decode: ``ids`` is one
-        position [b, 1], and the result is ``(logits, next cache)``."""
+        position [b, 1], and the result is ``(logits, next cache)``.
+        ``valid`` ([b, s] 0/1) marks the real tokens: MoE routing skips the
+        rest, so a fixed decode buffer stays causal; dense models ignore
+        it.  ``with_metrics``: return ``(logits, metrics)``, one dict of
+        ``parallel.moe_ffn`` metrics a MoE layer (what the JAX package
+        sows into ``moe_metrics``)."""
         if cache is not None:
             return self._decode(ids, cache)
         x = self.embed(ids)
+        metrics = []
         for i in range(self.layers):
             blk = getattr(self, f"layer_{i}")
             if self.remat and torch.is_grad_enabled():
@@ -278,11 +339,15 @@ class Bert(nn.Module):
                 # the trunk draws no random numbers (no dropout, as in the
                 # JAX package), so no RNG state is saved: reading it is
                 # not allowed inside a CUDA graph capture
-                x = checkpoint(blk, x, use_reentrant=False,
+                x = checkpoint(blk, x, None, valid, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = blk(x)
-        return self.head(x)
+                x = blk(x, valid=valid)
+            if self.moe is not None:
+                x, m = x
+                metrics.append(m)
+        logits = self.head(x)
+        return (logits, metrics) if with_metrics else logits
 
     def _decode(self, ids, cache: KVCache):
         """One position through the trunk with every layer's attention on
@@ -291,6 +356,8 @@ class Bert(nn.Module):
         for i in range(self.layers):
             x = getattr(self, f"layer_{i}")(
                 x, (cache.k[i], cache.v[i], cache.index))
+            if self.moe is not None:
+                x = x[0]
         return self.head(x), dataclasses.replace(
             cache, index=cache.index + 1, position=cache.position + 1)
 
@@ -311,11 +378,65 @@ class Bert(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+# the losses' coefficients of the MoE aux terms (the JAX package's defaults)
+MOE_AUX_COEF, MOE_Z_COEF = 0.01, 1e-3
+# the loss's extra outputs (``train_lib.loss_extras``) after a MoE step,
+# in this order
+MOE_METRICS = ("load_balance", "router_z", "dropped")
+
+
+def moe_terms(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The aux terms of a MoE forward from its layers' ``moe_ffn`` metrics:
+    the mean over the layers of the load balance and of the router z-loss
+    (the JAX package's ``_mean_sown``), and this rank's dropped
+    assignments summed over the layers.
+
+    The load balance is the GLOBAL batch's, as the JAX package's data axis
+    computes it: the per-expert top-1 counts and the token count (no grad)
+    are summed over the ranks, and the rank's own sum of probabilities
+    (the differentiated factor) is scaled by the world, so the ranks' mean
+    of this term, and DDP's mean of its gradients, are the whole batch's.
+    The z-loss is a mean over equal local batches and needs nothing."""
+    world = dist.group_size()
+    counts = train_lib.global_sum(torch.stack(
+        [torch.cat([m["top1_count"], m["tokens"][None]]) for m in metrics]))
+    prob_sum = torch.stack([m["prob_sum"] for m in metrics]) * world
+    lb = parallel.load_balance(counts[:, :-1], prob_sum, counts[:, -1])
+    return {"load_balance": lb.mean(),
+            "router_z": torch.stack([m["router_z"] for m in metrics]).mean(),
+            "dropped": torch.stack([m["dropped"] for m in metrics]).sum()}
+
+
+def moe_forward(model: nn.Module, ids, loss_fn):
+    """``(logits, terms)`` of ``model`` (a ``Bert`` or its DDP wrapper) on
+    ``ids``: ``terms`` are ``moe_terms`` for a MoE model, None for a dense
+    one.  Their values (``MOE_METRICS``) are ``loss_fn``'s extra outputs
+    (``train_lib.set_loss_extras``), which ``train`` reads after each
+    step."""
+    if getattr(model, "module", model).moe is None:
+        return model(ids), None
+    logits, metrics = model(ids, with_metrics=True)
+    terms = moe_terms(metrics)
+    train_lib.set_loss_extras(
+        loss_fn, torch.stack([terms[k] for k in MOE_METRICS]))
+    return logits, terms
+
+
+def with_moe_aux(loss, terms):
+    """``loss`` plus the MoE aux terms (unchanged for a dense model)."""
+    if terms is None:
+        return loss
+    return (loss + MOE_AUX_COEF * terms["load_balance"]
+            + MOE_Z_COEF * terms["router_z"])
+
+
 def mlm_loss(model: nn.Module, mask_id: int = 103):
     """Masked LM: predict the original ids at the masked positions.
     ``mask_id`` is the [MASK] token (103, the WordPiece id, for synthetic
     vocabularies).  The log-softmax runs in the logits' dtype (bf16 under
-    --bf16) and the masked mean in fp32, as in the JAX package.
+    --bf16) and the masked mean in fp32, as in the JAX package.  A MoE
+    model adds the load-balance aux loss and the router z-loss
+    (``MOE_AUX_COEF``, ``MOE_Z_COEF``).
 
     The mean is over the GLOBAL batch's masked positions, which differ in
     number from rank to rank: each rank divides its sum by the global
@@ -325,10 +446,12 @@ def mlm_loss(model: nn.Module, mask_id: int = 103):
     def loss_fn(batch):
         ids, mask = batch  # mask: 1.0 where the position is predicted
         masked_ids = torch.where(mask > 0, mask_id, ids)
-        logp = torch.log_softmax(model(masked_ids), dim=-1)
+        logits, terms = moe_forward(model, masked_ids, loss_fn)
+        logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
         count = torch.clamp(train_lib.global_sum(mask.sum()), min=1.0)
-        return -(tok_ll * mask).sum() * dist.group_size() / count
+        loss = -(tok_ll * mask).sum() * dist.group_size() / count
+        return with_moe_aux(loss, terms)
 
     return loss_fn
 
@@ -395,9 +518,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "context); the flash kernels skip whole "
                         "out-of-window tiles. Causal (gpt) family only")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="(not yet ported; must be 0)")
-    p.add_argument("--moe-k", type=int, default=2)
-    p.add_argument("--moe-capacity-factor", type=float, default=1.25)
+                   help="replace each FFN with a sparse MoE of this many "
+                        "experts (0 = dense)")
+    p.add_argument("--moe-k", type=int, default=2,
+                   help="experts routed per token")
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25,
+                   help="per-expert buffer slack over perfect balance")
     p.add_argument("--expert-parallel", type=int, default=1,
                    help="(not yet ported; must be 1)")
     p.add_argument("--pipeline-parallel", type=int, default=1,
@@ -436,19 +562,39 @@ _UNPORTED_STRATEGIES = ("tensor_parallel", "sequence_parallel",
 
 
 def reject_unported(args) -> None:
-    """Raise for every requested feature this port does not have yet —
-    never drop a requested flag silently."""
+    """Raise for every requested strategy this port does not have yet —
+    never drop a requested flag silently.  (``--moe-experts`` is ported on
+    one device; ``--expert-parallel`` > 1 is not.)"""
     for name in _UNPORTED_STRATEGIES:
         if getattr(args, name, 1) > 1:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} > 1 is not yet ported to "
                 "tpujob_torch (data parallelism only)")
-    if getattr(args, "moe_experts", 0) > 0:
-        raise NotImplementedError("--moe-experts is not yet ported to "
-                                  "tpujob_torch")
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
+
+
+def moe_config_from(args) -> Optional[MoEConfig]:
+    """Validate the MoE flag surface and build the config (None = dense),
+    with the JAX package's rules.  (An ``--expert-parallel`` > 1 that
+    passes them is refused by ``reject_unported``, which the flag checks
+    run after this.)"""
+    n_experts = getattr(args, "moe_experts", 0)
+    ep = getattr(args, "expert_parallel", 1)
+    if n_experts <= 0:
+        if ep > 1:
+            raise ValueError("--expert-parallel needs --moe-experts > 0")
+        return None
+    if args.moe_k < 1:
+        # k=0 would silently zero every MoE FFN (all gates empty)
+        raise ValueError(f"--moe-k must be >= 1, got {args.moe_k}")
+    if ep > 1 and n_experts % ep != 0:
+        raise ValueError(
+            f"--moe-experts {n_experts} must divide evenly over "
+            f"--expert-parallel {ep}")
+    return MoEConfig(experts=n_experts, k=args.moe_k,
+                     capacity_factor=args.moe_capacity_factor)
 
 
 def validate_pipeline_flags(args) -> None:
@@ -463,7 +609,12 @@ def validate_pipeline_flags(args) -> None:
 
 def validate_parallel_flags(args) -> None:
     """The flag-coherence rules of the ported strategies (data
-    parallelism only)."""
+    parallelism, and MoE on one device).  The MoE flags' own rules come
+    first, so their errors are the JAX package's; then an unported
+    strategy is refused, expert parallelism included, and so is
+    ``--pipeline-parallel`` with ``--moe-experts`` (which the JAX package
+    refuses too)."""
+    moe_config_from(args)
     reject_unported(args)
     if getattr(args, "position", "learned") == "rope" \
             and (args.hidden // args.heads) % 2 != 0:
@@ -598,7 +749,7 @@ def build_model(args, device, *, causal: bool = False,
         attention_fn=attention_fn, remat=args.remat, final_ln=final_ln,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
-        window=window, seed=args.seed,
+        window=window, seed=args.seed, moe=moe_config_from(args),
     )
     return model.to(device)
 
@@ -632,7 +783,9 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     first step (with ``--grad-accum``, the first group) runs eagerly, after
     any restore, and the others replay its CUDA graph; ``step_mode`` in the result (and the first log line) says
     which ran.  ``capture=False`` keeps it eager, to hold the graph
-    against."""
+    against.  A MoE model's result holds ``moe_metrics``, each step's
+    ``MOE_METRICS`` (the aux terms its loss added, and the dropped
+    assignments) as a dict."""
     validate_parallel_flags(args)
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -696,7 +849,7 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     profiler = train_lib.profiler_from_args(args, pe, device)
     train_lib.sync(device)
     t0 = time.perf_counter()
-    losses = []
+    losses, moe_metrics = [], []
     loss = None
     try:
         for i in range(start_step, args.steps):
@@ -705,6 +858,9 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
                 batch = train_lib.put_batch(batch_provider(i), device)
             state, loss = train_step(state, batch)
             losses.append(loss)  # the step's own copy: no wait for the card
+            extras = train_lib.loss_extras(loss_fn)
+            if extras is not None:
+                moe_metrics.append(extras)
             if i % args.log_interval == 0:
                 writer.add_scalar("loss", loss, i)
             if ckpt and (i + 1) % args.checkpoint_interval == 0:
@@ -722,13 +878,17 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     losses = [float(x) for x in losses]
     final_loss = losses[-1]
     writer.close()
+    extra = {}
+    if moe_metrics:
+        extra["moe_metrics"] = [dict(zip(MOE_METRICS, m.tolist()))
+                                for m in moe_metrics]
     if pe.process_id == 0:
         print(f"{tag}(h{args.hidden}xl{args.layers}): {sps:.1f} samples/sec, "
               f"{tps:.0f} tokens/sec, loss={final_loss:.3f}")
     return {"samples_per_sec": sps, "tokens_per_sec": tps, "wall_s": wall,
             "final_loss": final_loss, "losses": losses, "state": state,
             "profile_overhead_s": profiler.overhead_s,
-            "step_mode": train_step.mode}
+            "step_mode": train_step.mode, **extra}
 
 
 def batch_to_device(ids: np.ndarray, device) -> torch.Tensor:

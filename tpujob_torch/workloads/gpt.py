@@ -9,9 +9,11 @@ heads, vocab 50257 padded to 50304, seq 1024).
 
 Decode, the serving path: ``sample_next`` (greedy, temperature, top-k,
 top-p), ``generate`` (the full forward over a fixed buffer at every step;
-with ``--attention flash`` on the card it runs the forward kernel) and
-``generate_cached`` (one token a step against a KV cache, dense attention
-as in the JAX package).  ``--generate N`` decodes N tokens after training.
+with ``--attention flash`` on the card it runs the forward kernel; a MoE
+model routes only the realized positions) and ``generate_cached`` (one
+token a step against a KV cache, dense attention as in the JAX package;
+a MoE model falls back to ``generate``).  ``--generate N`` decodes N
+tokens after training.
 
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
@@ -32,14 +34,15 @@ from tpujob_torch.workloads import distributed as dist
 
 def lm_loss(model):
     """Next-token cross-entropy (shift by one).  The log-softmax runs in
-    the logits' dtype (bf16 under --bf16), as in the JAX package."""
+    the logits' dtype (bf16 under --bf16), as in the JAX package.  A MoE
+    model adds the aux terms as ``bert.mlm_loss`` does."""
 
     def loss_fn(batch):
         (ids,) = batch  # [b, s] int64
-        logits = model(ids)
+        logits, terms = bertlib.moe_forward(model, ids, loss_fn)
         logp = torch.log_softmax(logits[:, :-1], dim=-1)
         tok_ll = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
-        return -tok_ll.mean()
+        return bertlib.with_moe_aux(-tok_ll.mean(), terms)
 
     return loss_fn
 
@@ -102,15 +105,24 @@ def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
              rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Autoregressive decode by the full forward over a fixed buffer at
     every step: the causal mask makes the positions past the cursor inert.
+    For a MoE model the attention mask is not enough (positions past the
+    cursor would compete for expert capacity and could evict a realized
+    token's assignment), so a validity mask stops routing there too.
     Under ``no_grad``, so with flash attention on the card each step is one
     forward-kernel launch a layer and no backward.  Returns [b, prompt +
     max_new_tokens] ids."""
     buf = _decode_buffer(model, prompt, max_new_tokens, temperature, rng)
+    b, total = buf.shape
     p = prompt.shape[1]
+    positions = torch.arange(total, device=buf.device)
     with torch.no_grad():
         for i in range(max_new_tokens):
+            valid = None
+            if model.moe is not None:
+                # positions [0, p+i) are realized; the rest must not route
+                valid = (positions < p + i).float().expand(b, total)
             # token i is written at position p+i, predicted from p+i-1
-            logit = model(buf)[:, p + i - 1]
+            logit = model(buf, valid=valid)[:, p + i - 1]
             buf[:, p + i] = sample_next(logit, rng, temperature=temperature,
                                         top_k=top_k, top_p=top_p)
     return buf
@@ -124,7 +136,15 @@ def generate_cached(model, prompt: torch.Tensor, max_new_tokens: int, *,
     decode (``Bert.new_cache``), attention dense whatever the training
     attention path.  One loop covers prefill and generation: prompt
     positions feed the known token, later ones the sampled one.  The cache
-    is made here and dropped at the end: nothing survives the call."""
+    is made here and dropped at the end: nothing survives the call.
+
+    A MoE model decodes by ``generate`` instead: capacity depends on the
+    sequence length (a one-token step never drops an assignment where the
+    whole forward may), so the cached route would be another function."""
+    if model.moe is not None:
+        return generate(model, prompt, max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        rng=rng)
     buf = _decode_buffer(model, prompt, max_new_tokens, temperature, rng)
     b, p = prompt.shape
     cache = model.new_cache(b, buf.shape[1])

@@ -279,10 +279,13 @@ _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's lecun_normal: truncated normal with variance 1/fan_in."""
+    """flax's lecun_normal: a normal truncated to 2 std with variance
+    1/fan_in, drawn as JAX draws it, one uniform pass through the inverse
+    normal CDF (no redraws, so a billion-parameter stack takes one pass)."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC
-    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                generator=gen)
+    edge = math.erf(2.0 / math.sqrt(2.0))
+    w.uniform_(-edge, edge, generator=gen).erfinv_()
+    w.mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +670,24 @@ class _Graphs:
         return out.clone()
 
 
+def set_loss_extras(loss_fn, values: torch.Tensor) -> None:
+    """Write ``values`` (a fixed-shape tensor) into ``loss_fn.extras``, the
+    loss's extra outputs (see ``make_train_step``): made at the first call,
+    filled in place at every later one, so a captured step holds it as a
+    static output."""
+    values = values.detach()
+    if getattr(loss_fn, "extras", None) is None:
+        loss_fn.extras = values.clone()
+    else:
+        loss_fn.extras.copy_(values)
+
+
+def loss_extras(loss_fn) -> Optional[torch.Tensor]:
+    """A copy of the extra outputs of ``loss_fn``'s latest call, or None."""
+    extras = getattr(loss_fn, "extras", None)
+    return None if extras is None else extras.clone()
+
+
 def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
@@ -690,7 +711,15 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
     Across processes ``loss_fn`` runs the DDP wrapper (``data_parallel``),
     so the grads are the ranks' mean before ``accum`` folds them in; the
     returned loss is the ranks' mean too (``global_mean``), the global
-    batch's loss as the JAX package reports it."""
+    batch's loss as the JAX package reports it.
+
+    Extra outputs of the loss: besides its value, ``loss_fn`` may write
+    values it computed on the way (a MoE model's aux terms) with
+    ``set_loss_extras``.  They live in one buffer, made at the first call
+    (eager, in either mode) and refilled by every later call, so a
+    captured step writes them as static outputs and each replay leaves its
+    own.  Read them with ``loss_extras(loss_fn)`` right after the step:
+    any other call of ``loss_fn`` (an eval) overwrites them."""
     mode = step_mode(optimizer, capture)
 
     if mode == "eager":
