@@ -18,11 +18,14 @@ Phases, one JSON line each on stdout:
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
    length (s=1000), with a sliding window (256), at the BERT-large
-   shapes without the mask (case ``bert_s512``: b=8, s=512, h=16), and at
+   shapes without the mask (case ``bert_s512``: b=8, s=512, h=16), at
    the decode buffer's shape (case ``decode_s64``: the full route's B1,
-   causal, s = prompt + new tokens): every element within RTOL x |plain|
+   causal, s = prompt + new tokens), and at head dim 32 (the kernels'
+   second instantiation: ``quick_d32``, ``bench_models --quick``'s GPT
+   shape b=4, s=128, h=8; ``gpt_d32`` and ``gpt_d32_noncausal``, b=8,
+   s=1024, h=16, timed): every element within RTOL x |plain|
    + ATOL x rms_row(plain) + FLOOR x rms(plain) of the plain version,
-   and at the GPT, BERT and decode shapes the
+   and at the GPT, BERT, decode and head-dim-32 GPT shapes the
    kernel's, the plain version's and the PyTorch library call's times
    (CUDA events, the launches queued behind a busy-wait kernel so that
    the device, not the host, is timed) beside the bound computed from the
@@ -124,15 +127,35 @@ Phases, one JSON line each on stdout:
     once).  Each is held to the parent's own one-process run of the same
     seed; per-rank ms a step are a record of this layout (gloo's host
     copies included), not a DDP speed.
-14. ``bench``: ``python -m tpujob_torch.bench`` and ``python -m
-    tpujob_torch.bench_models --models resnet50,bert-large,gpt`` as child
-    processes on the card; their JSON lines are printed as they are, and
-    held to their contract: one headline line with the JAX line's keys,
-    accuracy above 0.8; one line a row with ``mfu_vs_spec`` at most 1;
-    every line on the captured step, on this card.
+14. ``sp``: sequence parallelism, two ranks on the one card over gloo
+    (as ``ddp``; gloo's all-to-all takes the CUDA tensors, its send and
+    receive do not, so the ring's shift stages through the host), one
+    line a part, each against the parent's own one-process run of the
+    same seed and global batch (8): ``ulysses``, GPT-2-medium (full width
+    and depth) through ``gpt.run --sequence-parallel 2 --sp-mode ulysses
+    --attention flash``, 3 steps: losses within SP_LOSS_RTOL, the first
+    and last layers' and ``ln_f``'s params after step 1 within
+    SP_UPDATE_RTOL (``update_err``), and each rank launching B1/B2/B3 as
+    often as the one process (48 / 24 / 24 a step) on the re-sharded
+    [8, 1024, 8, 64] heads; ``ring``, the same model with ``--sp-mode
+    ring`` (dense per hop, zigzag layout) against one process on dense
+    attention; ``mlm``, BERT-large MLM under Ulysses on the non-causal
+    kernels at 8 of its 24 layers; ``local``, B1-B3 at Ulysses's local
+    shape against their plain versions, timed.  Each part prints each
+    rank's ms a step (steps 2-3) and the share of it in the exchanges
+    (the card synced around each): a record of gloo on one card, not a
+    speed of sequence parallelism.
+15. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
+    tpujob_torch.bench_models --models resnet50,bert-large,gpt`` and
+    ``python -m tpujob_torch.bench_models --quick --models gpt`` (head dim
+    32) as child processes on the card; their JSON lines are printed as
+    they are, and held to their contract: one headline line with the JAX
+    line's keys, accuracy above 0.8; one line a row with ``mfu_vs_spec`` at
+    most 1; every line on the captured step, on this card.
 
 Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
-launched it), the card's ``name, power.limit`` as nvidia-smi prints them,
+launched it; its ``cases``: every timed shape's numbers, the head-dim-32
+and Ulysses-local ones included), the card's ``name, power.limit`` as nvidia-smi prints them,
 and last ``{"ok": true, "device": {...}}``.  Any failure (no card, no
 package, a build error, a mismatch, a kernel a path never launched) exits
 non-zero before the last line.
@@ -224,6 +247,31 @@ DDP_GPT_UPDATE_RTOL = 0.25
 DDP_RESNET_RTOL = 1e-3  # ResNet's losses and running statistics
 DDP_MNIST_ATOL = 0.01  # accuracy: 20 of the 2,000 test images
 DDP_TIMEOUT_S = 600  # the whole spawn; the ranks' collectives get half
+# sp: two ranks on the one card (gloo), data 1 x sequence 2, global batch 8,
+# each part against one process on the same global batch from the seed
+SP_WORLD = 2
+SP_STEPS = 3
+SP_BASE_ARGV = ["--batch-size", "8", "--steps", str(SP_STEPS),
+                "--log-interval", "1", "--seed", "0"]
+SP_PARTS = {
+    # part: (module, the ranks' flags, the one process's flags)
+    "ulysses": ("gpt", ["--sequence-parallel", "2", "--sp-mode", "ulysses",
+                        "--attention", "flash"], ["--attention", "flash"]),
+    "ring": ("gpt", ["--sequence-parallel", "2", "--sp-mode", "ring"], []),
+    # BERT-large's depth cut from 24 to 8 layers to keep the phase short
+    "mlm": ("bert", ["--layers", "8", "--sequence-parallel", "2",
+                     "--sp-mode", "ulysses", "--attention", "flash"],
+            ["--layers", "8", "--attention", "flash"]),
+}
+# Losses against one process: bf16 scalars near 11 (one ulp 5.7e-3
+# relative); the ranks' loss is an fp32 sum over their shards and the one
+# process's a bf16 mean, and the projections run on half the rows (another
+# GEMM tiling): DDP's tolerance and reason.
+SP_LOSS_RTOL = 1e-2
+# The params after step 1 against one process's (``update_err``): DDP's
+# gate; AdamW's first update moves each weight by about lr * sign(g), and
+# the rounding that tells two layouts apart flips the near-zero ones.
+SP_UPDATE_RTOL = 0.25
 # graph: each trainer once eager (capture=False) and once captured, from
 # one seed; the two must agree bit for bit (the same kernels in the same
 # order): GPT-2-medium 8 steps, BERT-large MLM 8 mini-steps in groups of 2
@@ -271,6 +319,8 @@ BENCH_TIMEOUT_S = 300
 BENCH_MODELS = "resnet50,bert-large,gpt"
 BENCH_ARGV = ["tpujob_torch.bench"]
 BENCH_MODELS_ARGV = ["tpujob_torch.bench_models", "--models", BENCH_MODELS]
+# the GPT row at --quick's shapes: hidden 256, 8 heads of 32
+BENCH_QUICK_ARGV = ["tpujob_torch.bench_models", "--quick", "--models", "gpt"]
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "accuracy",
               "gate_dataset", "chips", "platform", "steps", "wall_s",
               "step_ms_mean", "step_ms_std", "step_ms_cv_pct"}
@@ -389,11 +439,11 @@ def ptxas_report(build) -> list:
 
 
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
-                  case: str = "", b: int = MAIN["b"]) -> dict:
+                  case: str = "", b: int = MAIN["b"], h: int = MAIN["h"],
+                  d: int = MAIN["d"]) -> dict:
     """B1-B3 against their plain versions on one shape."""
     from tpujob_torch.workloads import flash
 
-    h, d = MAIN["h"], MAIN["d"]
     gen = torch.Generator(device=DEVICE).manual_seed(1234 + s + window)
 
     def rnd():
@@ -1394,10 +1444,14 @@ def flag(argv: list, name: str) -> int:
     return int(argv[argv.index(name) + 1])
 
 
-def entry(module, argv: list, device: str, logdir: str) -> dict:
-    """``module.run`` through its flag surface."""
-    return module.run(module.build_parser().parse_args(
-        argv + ["--device", device, "--dir", logdir]))
+def entry(module, argv: list, device: str, logdir: str,
+          on_step=None) -> dict:
+    """``module.run`` through its flag surface (``on_step`` after each
+    step, where given)."""
+    args = module.build_parser().parse_args(
+        argv + ["--device", device, "--dir", logdir])
+    return module.run(args) if on_step is None else module.run(
+        args, on_step=on_step)
 
 
 def gpt_step_ms(argv: list, device: str, logdir: str) -> tuple:
@@ -1439,7 +1493,7 @@ def param_digest(model, whole: tuple = ()) -> dict:
         for name, p in model.named_parameters():
             sums[name] = p.float().abs().sum().item()
             if name.startswith(whole):
-                leaves[name] = p.detach().float().cpu()
+                leaves[name] = p.detach().to("cpu", torch.float32, copy=True)
     return {"abs_sums": sums, "leaves": leaves}
 
 
@@ -1517,8 +1571,9 @@ def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def spawn_ranks(world: int, out_dir: str) -> list:
-    """``ddp_rank`` in ``world`` spawned processes with the operator's env
+def spawn_ranks(world: int, out_dir: str, fn, plan: dict) -> list:
+    """``fn(rank, envs, out_dir, plan)`` (``ddp_rank``, ``sp_rank``) in
+    ``world`` spawned processes with the operator's env
     (``TPUJOB_*`` and the torch.distributed spelling, as it writes them
     for a job with no ``tpu`` field); a rank that fails or a spawn that
     outlives ``DDP_TIMEOUT_S`` raises, and no process outlives this."""
@@ -1530,8 +1585,8 @@ def spawn_ranks(world: int, out_dir: str) -> list:
              "TPUJOB_PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
              "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
              "RANK": str(rank)} for rank in range(world)]
-    ctx = tmp.start_processes(ddp_rank, args=(envs, out_dir, ddp_plan()),
-                              nprocs=world, join=False, start_method="spawn")
+    ctx = tmp.start_processes(fn, args=(envs, out_dir, plan), nprocs=world,
+                              join=False, start_method="spawn")
     deadline = time.monotonic() + DDP_TIMEOUT_S
     try:
         while not ctx.join(timeout=1.0):  # raises if a rank failed
@@ -1583,7 +1638,7 @@ def run_ddp() -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn_ranks(DDP_WORLD, out_dir)
+    ranks = spawn_ranks(DDP_WORLD, out_dir, ddp_rank, ddp_plan())
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     steps = flag(DDP_GPT_ARGV, "--steps")
@@ -1675,6 +1730,167 @@ def run_ddp() -> dict:
     if not ok:
         raise AssertionError(f"ddp path failed: {checks}")
     return r0["gpt"]["launches"]
+
+
+def sp_plan() -> dict:
+    """What each rank of the ``sp`` phase runs, passed to it whole."""
+    return {"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+            "base": SP_BASE_ARGV, "parts": SP_PARTS}
+
+
+def sp_run(module, argv: list, device: str, logdir: str) -> dict:
+    """``module.run`` through its flag surface, with launches counted from
+    0, the card synced and the host clock stamped after each step, the
+    exchanges counted and timed from the end of step 1 on
+    (``parallel.EXCHANGE_TIMING``), and the leaves ``update_err`` reads
+    (``gpt_leaves``) at the build and after step 1."""
+    from tpujob_torch.workloads import bert, flash, parallel, train_lib
+
+    build, models, leaves = bert.build_model, [], {}
+
+    def keep(*a, **kw):
+        model = build(*a, **kw)
+        models.append(model)
+        leaves["init"] = param_digest(model, gpt_leaves(model))["leaves"]
+        return model
+
+    stamps = []
+
+    def on_step(i: int) -> None:
+        train_lib.sync(device)
+        stamps.append(time.perf_counter())
+        if i == 0:
+            leaves["step1"] = param_digest(
+                models[0], gpt_leaves(models[0]))["leaves"]
+            parallel.reset_exchanges()
+
+    bert.build_model = keep
+    flash.reset_launches()
+    parallel.EXCHANGE_TIMING = True
+    try:
+        res = entry(module, argv, device, logdir, on_step)
+    finally:
+        bert.build_model = build
+        parallel.EXCHANGE_TIMING = False
+    ms = [(y - x) * 1e3 for x, y in zip(stamps, stamps[1:])]
+    return {"losses": res["losses"], "step_ms": ms,
+            "launches": dict(flash.LAUNCHES), "leaves": leaves,
+            "exchanges": dict(parallel.EXCHANGES),
+            "exchange_share": parallel.EXCHANGES["seconds"] * 1e3 / sum(ms),
+            "step_mode": res["step_mode"]}
+
+
+def sp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
+    """One rank of the ``sp`` phase: the group over gloo on the card, then
+    each part's run (``sp_run``); what the parent checks goes to
+    ``out_dir``."""
+    import datetime
+    import importlib
+
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import distributed as dist
+
+    os.environ.update(envs[rank])
+    device = plan["device"]
+    pe = dist.initialize(device=torch.device(device), backend="gloo",
+                         timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S // 2))
+    out = {"rank": rank, "pe": [pe.process_id, pe.num_processes],
+           "backend": tdist.get_backend()}
+    for part, (name, flags, _) in plan["parts"].items():
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        out[part] = sp_run(module, plan["base"] + flags, device,
+                           os.path.join(out_dir, f"rank{rank}", part))
+    dist.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_sp() -> dict:
+    """``local`` in the parent, then each part's one-process run, then two
+    gloo ranks on the card running every part; one line a part."""
+    import gc
+    import importlib
+
+    from tpujob_torch.workloads import flash
+
+    # Ulysses's local attention: [b, S, h / 2, d] after the all-to-all
+    local = check_kernels(s=MAIN["s"], window=0, timed=True,
+                          h=MAIN["h"] // SP_WORLD, case="sp_local_h8")
+    emit({"phase": "sp", "part": "local", "ok": True,
+          "shape": [MAIN["b"], MAIN["s"], MAIN["h"] // SP_WORLD, MAIN["d"]],
+          "kernels": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms", "max_abs_err")}
+                      for k, v in local.items()}})
+    out_dir = os.path.join("build", "chip_smoke", "sp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    plan = sp_plan()
+    one = {}
+    for part, (name, _, flags) in SP_PARTS.items():
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        one[part] = sp_run(module, SP_BASE_ARGV + flags, plan["device"],
+                           os.path.join(out_dir, "one", part))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SP_WORLD, out_dir, sp_rank, plan)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    failed = []
+    for part, (name, flags, one_flags) in SP_PARTS.items():
+        ref = one[part]
+        runs = [r[part] for r in ranks]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(runs[0]["losses"], ref["losses"]))
+        errs = [update_err(r["leaves"]["step1"], ref["leaves"]["step1"],
+                           ref["leaves"]["init"]) for r in runs]
+        # B1 twice a layer a step (the forward and its remat replay), B2
+        # and B3 once; none on the ring (dense per hop)
+        n = (flag(flags, "--layers") if "--layers" in flags else 24) \
+            * SP_STEPS * ("flash" in flags)
+        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        checks = {
+            "gloo_groups": all(r["backend"] == "gloo"
+                               and r["pe"] == [i, SP_WORLD]
+                               for i, r in enumerate(ranks)),
+            "losses": all(len(r["losses"]) == SP_STEPS
+                          and all(math.isfinite(x) for x in r["losses"])
+                          for r in runs)
+            and runs[0]["losses"] == runs[1]["losses"]
+            and rel <= SP_LOSS_RTOL,
+            "params_after_step1": max(errs) <= SP_UPDATE_RTOL,
+            "launches": all(r["launches"] == ref["launches"] == want
+                            for r in runs),
+            "exchanged": all(r["exchanges"]["calls"] > 0 for r in runs),
+        }
+        ok = all(checks.values())
+        launches[part] = runs[0]["launches"]
+        emit({"phase": "sp", "part": part, "ok": ok, "checks": checks,
+              "argv": SP_BASE_ARGV + flags, "one_process_argv":
+              SP_BASE_ARGV + one_flags, "world": SP_WORLD,
+              "backend": "gloo (two ranks on one card; NCCL refuses)",
+              "losses_rank0": runs[0]["losses"],
+              "losses_one_process": ref["losses"], "max_rel_diff": rel,
+              "loss_rtol": SP_LOSS_RTOL, "update_err_by_rank": errs,
+              "update_rtol": SP_UPDATE_RTOL,
+              "launches_by_rank": [r["launches"] for r in runs],
+              "launches_one_process": ref["launches"],
+              "step_ms_by_rank": [r["step_ms"] for r in runs],
+              "step_ms_one_process": ref["step_ms"],
+              "step_mode_one_process": ref["step_mode"],
+              "exchanges_by_rank": [r["exchanges"] for r in runs],
+              "exchange_share_by_rank": [r["exchange_share"] for r in runs],
+              "spawn_s": spawn_s,
+              "times_note": "per-rank ms a step (steps 2-3) of two ranks "
+                            "sharing one card over gloo, the card synced "
+                            "around each exchange: a record, not a speed "
+                            "of sequence parallelism"})
+        if not ok:
+            failed.append((part, checks))
+    if failed:
+        raise AssertionError(f"sp path failed: {failed}")
+    return ({k: launches["ulysses"][k] + launches["mlm"][k]
+             for k in flash.LAUNCHES}, local)
 
 
 def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
@@ -1844,6 +2060,7 @@ def run_bench() -> dict:
     t0 = time.perf_counter()
     headline = bench_child(BENCH_ARGV)
     models = bench_child(BENCH_MODELS_ARGV)
+    quick = bench_child(BENCH_QUICK_ARGV)
     seconds = time.perf_counter() - t0
     line = headline[0] if len(headline) == 1 else {}
     names = BENCH_MODELS.split(",")
@@ -1854,6 +2071,7 @@ def run_bench() -> dict:
         and 0 < r.get("mfu_vs_spec", 0.5) <= 1.0
         and r["step_ms_std"] >= 0 for r in models)
     gpt_row = models[-1] if models else {}
+    quick_row = quick[0] if len(quick) == 1 else {}
     checks = {
         "headline_one_line": len(headline) == 1,
         "headline_keys": BENCH_KEYS <= set(line),
@@ -1863,14 +2081,20 @@ def run_bench() -> dict:
         "rows": rows_ok,
         "gpt_row_kernels": all(
             n > 0 for n in gpt_row.get("kernel_launches", {"": 0}).values()),
+        "quick_gpt_row": len(quick) == 1 and quick_row.get("value", 0) > 0
+        and quick_row.get("platform") == card
+        and quick_row.get("step_mode") == "graph"
+        and all(n > 0 for n in
+                quick_row.get("kernel_launches", {"": 0}).values()),
     }
     ok = all(checks.values())
     emit({"phase": "bench", "ok": ok, "checks": checks, "seconds": seconds,
           "headline_metric": line.get("metric"),
-          "rows": [r.get("metric") for r in models]})
+          "rows": [r.get("metric") for r in models],
+          "quick_gpt_row_argv": BENCH_QUICK_ARGV})
     if not ok:
         raise AssertionError(f"bench phase failed: {checks}")
-    return gpt_row["kernel_launches"]
+    return gpt_row["kernel_launches"], quick_row["kernel_launches"]
 
 
 KERNELS = {
@@ -1927,17 +2151,26 @@ def main(argv=None) -> int:
                                  f"warpgroup waits (C7517) in {serialized}")
 
         main_case = check_kernels(s=MAIN["s"], window=0, timed=True)
+        timed = {"gpt_s1024": main_case}
         check_kernels(s=1000, window=0, timed=False)
         check_kernels(s=MAIN["s"], window=256, timed=False)
         # the shape each ddp rank gives them: its half of the global batch
         b_rank = flag(DDP_GPT_ARGV, "--batch-size") // DDP_WORLD
         check_kernels(s=MAIN["s"], window=0, timed=False, b=b_rank,
                       case=f"ddp_b{b_rank}")
-        check_kernels(s=512, window=0, timed=True, causal=False,
-                      case="bert_s512")
+        timed["bert_s512"] = check_kernels(s=512, window=0, timed=True,
+                                           causal=False, case="bert_s512")
         # B1 at the decode buffer's shape, as the full route launches it
         s_dec = args.decode_prompt + args.decode_new
-        check_kernels(s=s_dec, window=0, timed=True, case=f"decode_s{s_dec}")
+        timed[f"decode_s{s_dec}"] = check_kernels(
+            s=s_dec, window=0, timed=True, case=f"decode_s{s_dec}")
+        # head dim 32: bench_models --quick's GPT shape, then GPT's
+        check_kernels(s=128, window=0, timed=False, b=4, h=8, d=32,
+                      case="quick_d32")
+        for causal in (True, False):
+            case = "gpt_d32" + ("" if causal else "_noncausal")
+            timed[case] = check_kernels(s=MAIN["s"], window=0, timed=True,
+                                        causal=causal, d=32, case=case)
         check_model()
         check_model_bert()
         by_path = {"graph": run_graph(), "train": run_train(),
@@ -1948,7 +2181,8 @@ def main(argv=None) -> int:
         run_mnist()
         run_resnet()
         by_path["ddp"] = run_ddp()
-        by_path["bench"] = run_bench()
+        by_path["sp"], timed["sp_local_h8"] = run_sp()
+        by_path["bench"], by_path["bench_quick_d32"] = run_bench()
         launches = by_path["train"]
 
         rows = []
@@ -1961,6 +2195,10 @@ def main(argv=None) -> int:
                          "bound_by": m["bound_by"], "tflops": m["tflops"],
                          "bound_share": m["bound_share"],
                          "library_ms": m["library_ms"],
+                         "cases": {case: {k: c[name][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err")}
+                             for case, c in timed.items()},
                          "paths": [path for path, n in by_path.items()
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n

@@ -178,10 +178,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
 
 @pytest.mark.parametrize("dtype,head_dim,supported", [
     (torch.bfloat16, 64, True), (torch.float32, 64, False),
-    (torch.float16, 64, False), (torch.bfloat16, 128, False)])
+    (torch.float16, 64, False), (torch.bfloat16, 128, False),
+    (torch.bfloat16, 32, True)])
 def test_check_supported_owns_the_kernel_limits(dtype, head_dim, supported):
-    """The kernels take bf16 at head dim 64; anything else raises "not yet
-    ported" from the one check that model builders and launches share."""
+    """The kernels take bf16 at head dim 32 or 64; anything else raises
+    "not yet ported" from the one check that model builders and launches
+    share."""
     if supported:
         flash.check_supported(dtype, head_dim)
     else:

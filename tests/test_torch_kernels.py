@@ -55,10 +55,27 @@ def cuda():
 def test_kernels_match_plain_versions(cuda, seq, causal, window):
     """B1-B3 on the card against flash_forward_ref / flash_dq_ref /
     flash_dkv_ref on the same bf16 inputs, element by element."""
-    gen = torch.Generator(device=cuda).manual_seed(seq + window)
-    q, k, v, do = (torch.randn(2, seq, 4, 64, device=cuda, generator=gen,
-                               dtype=torch.bfloat16) for _ in range(4))
-    kw = dict(causal=causal, scale=0.125, window=window)
+    check_kernels(cuda, seq, causal, window, head_dim=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq,causal,window", [
+    # bench_models --quick's GPT row (b 4, s 128, h 8), the GPT length with
+    # and without the mask, the tiles' edges and a window, at head dim 32
+    (128, True, 0), (1024, True, 0), (1024, False, 0), (200, True, 0),
+    (40, True, 0), (96, True, 0), (320, True, 96), (64, True, 0)])
+def test_kernels_match_plain_versions_head_dim_32(cuda, seq, causal, window):
+    """The head-dim-32 instantiation of B1-B3 (64-byte rows, the 64-byte
+    swizzle, m64n32 accumulators) against the plain versions."""
+    check_kernels(cuda, seq, causal, window, head_dim=32)
+
+
+def check_kernels(cuda, seq, causal, window, head_dim):
+    gen = torch.Generator(device=cuda).manual_seed(seq + window + head_dim)
+    q, k, v, do = (torch.randn(2, seq, 4, head_dim, device=cuda,
+                               generator=gen, dtype=torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=causal, scale=head_dim ** -0.5, window=window)
 
     o, lse = flash.flash_fwd_cuda(q, k, v, **kw)
     o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)

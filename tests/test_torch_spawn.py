@@ -338,6 +338,71 @@ def shrink_ranks(rank, argv, state, resume_argv, draining, committed):
     return out
 
 
+def sp_attention_ranks(rank, cases):
+    """Each case of ``cases`` (name -> dict of global numpy ``q, k, v, ct``
+    and ``mode``, ``causal``, ``flash``) on this rank's shard of the
+    sequence, the whole world one sequence group: the shard's global
+    positions (the ring's layout), its output and the grads of
+    ``sum(out * ct)`` over every rank for its q, k and v, and the
+    exchanges of the forward.  Then, at world 4, the process groups of a
+    data 2 x sequence 2 mesh, as ``get_process_group_ranks`` reads them."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import flash, parallel
+
+    join()
+    n = tdist.get_world_size()
+    group = dist.make_mesh({"sequence": n}).group("sequence")
+    out = {}
+    for name, c in cases.items():
+        seq = c["q"].shape[1]
+        if c["mode"] == "ring" and parallel.ring_layout_zigzag(
+                seq, n, c["causal"]):
+            idx = parallel.zigzag_index(seq, n, rank)
+        else:
+            idx = np.arange(rank * seq // n, (rank + 1) * seq // n)
+        xs = [torch.tensor(c[x][:, idx], requires_grad=True)
+              for x in ("q", "k", "v")]
+        parallel.reset_exchanges()
+        if c["mode"] == "ring":
+            o = parallel.ring_attention(*xs, group, causal=c["causal"])
+        else:
+            o = parallel.ulysses_attention(
+                *xs, group, causal=c["causal"],
+                attention_impl=flash.flash_attention if c["flash"] else None)
+        calls = parallel.EXCHANGES["calls"]
+        (o * torch.from_numpy(c["ct"][:, idx])).sum().backward()
+        out[name] = {"idx": idx, "o": o.detach().numpy(),
+                     "grads": [x.grad.numpy() for x in xs],
+                     "forward_exchanges": calls}
+    groups = None
+    if n == 4:
+        mesh = dist.make_mesh({"data": -1, "sequence": 2})
+        groups = {a: tdist.get_process_group_ranks(mesh.group(a))
+                  for a in mesh.axis_names}
+    return out, groups
+
+
+def sp_trainer_ranks(rank, runs):
+    """``module.run`` for each ``(module name, argv, state)`` of ``runs``,
+    from the weights ``state``: each run's losses, final step and state."""
+    import importlib
+
+    from tpujob_torch.workloads import bert
+
+    join()
+    build = bert.build_model
+    out = []
+    for name, argv, state in runs:
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        bert.build_model = loading(build, state)
+        res = module.run(module.build_parser().parse_args(argv))
+        out.append({"losses": res["losses"], "step": res["state"]["step"],
+                    "state": numpy_state(res["state"]["model"])})
+    bert.build_model = build
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the harness's own contract
 # ---------------------------------------------------------------------------

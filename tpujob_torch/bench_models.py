@@ -18,8 +18,8 @@ FLOPs are analytic, as the JAX rows' fallbacks: 3 x 4.09 GFLOP a 224px
 image for ResNet-50, 8 x params x tokens for the transformers (remat runs
 the forward twice).  ``mfu_vs_spec`` is their rate over the card's dense
 bf16 peak, reported only where it is at most 1.  The ``--quick`` GPT row
-has head dim 32, which the flash kernels do not take yet: it raises.  The
-JAX package's DP-scaling row (8 virtual CPU devices) is not ported.
+has head dim 32 (the kernels' second instantiation).  The JAX package's
+DP-scaling row (8 virtual CPU devices) is not ported.
 """
 from __future__ import annotations
 
@@ -220,9 +220,8 @@ def bench_gpt_medium(quick: bool, device: str = "cuda",
                      overrides: tuple = ()) -> dict:
     """GPT-2-medium causal LM at batch 8, seq 1024, through the flash
     kernels.  ``--quick`` shrinks it to a small decoder (hidden 256, 8
-    heads: head dim 32) and keeps ``--attention flash``: on the card that
-    raises in ``flash.check_supported`` until the kernels take head dim
-    32."""
+    heads: head dim 32) and keeps ``--attention flash``: the kernels'
+    head-dim-32 instantiation."""
     from tpujob_torch.workloads import bert as bertlib
     from tpujob_torch.workloads import data as datalib
     from tpujob_torch.workloads import distributed as dist

@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu, all wgmma kernels on hopper.cuh): the layout, the head dim,
-// the quad reductions of the accumulator layout and the loop bounds that
-// skip dead tiles.
+// flash_dkv.cu, all wgmma kernels on hopper.cuh): the layout, the head dims
+// they are built for, the quad reductions of the accumulator layout and the
+// loop bounds that skip dead tiles.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are contiguous [B, S, H, D] bf16 (the
 // JAX package's [batch, seq, heads, head_dim]); the kernels index it
@@ -14,7 +14,10 @@
 
 namespace tpujob_flash {
 
-constexpr int kD = 64;           // head dim this build supports
+// Each kernel is a template on the head dim D, instantiated for 32 and 64
+// (hopper.cuh's Rows<D>); each C entry point takes D and launches that
+// instantiation, or returns cudaErrorInvalidValue for any other D.
+
 constexpr float kNegInf = -1e30f;  // finite, as in the reference: a fully
                                    // masked tile must not NaN the running max
 

@@ -27,13 +27,18 @@
 //     K-major in shared memory), P^T = exp(scale S^T - lse) and
 //     dS^T = P^T o (dP^T - D) scale in registers, then dV += P^T dO and
 //     dK += dS^T Q (A from registers, B = dO / Q MN-major in shared
-//     memory).  dK and dV accumulate in fp32 registers (32 a thread each).
+//     memory).  dK and dV accumulate in fp32 registers (D / 2 a thread
+//     each).
 //     The loop is software-pipelined: tile n-1's dK product is still on the
 //     tensor cores when tile n's S^T and dP^T are issued, and tile n's dS^T
 //     arithmetic runs while its dV product does; the stage of tile n-1 is
 //     released one tile late, so the ring is 3 deep.
 // Only q-tiles crossing the diagonal, the window edge or the ragged edge
 // are masked; q-tiles dead for all of a warpgroup's keys are not computed.
+//
+// Head dim D = 64 or 32, one template: at 32 the tiles' rows are 64 bytes
+// (the 64-byte swizzle), S^T and dP^T take two k16 steps instead of four,
+// and dK and dV are m64n32 accumulators (16 floats a thread each).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -51,21 +56,24 @@ constexpr int kConsumerRegs = 232;  // 232 x 256 of the SM's 65,536
 constexpr int kConsumerThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <int D>
 struct Smem {
-  bf16 k[kBN * kD];
-  bf16 v[kBN * kD];
-  bf16 q[kStages][kBM * kD];
-  bf16 dout[kStages][kBM * kD];
+  bf16 k[kBN * D];
+  bf16 v[kBN * D];
+  bf16 q[kStages][kBM * D];
+  bf16 dout[kStages][kBM * D];
   float lse[kStages][kBM];  // lse * log2(e): P = 2^(scale log2(e) S - this)
   float delta[kStages][kBM];
   uint64_t kv_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + kAtomBytes;  // + alignment slack
+template <int D>
+constexpr int kSmemBytes = sizeof(Smem<D>) + kAlignBytes;  // + alignment slack
 
 }  // namespace
 
+template <int D>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
                  const __grid_constant__ CUtensorMap tmK,
@@ -76,7 +84,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
                  int Sk, float scale, float scale_log2, int causal,
                  int window) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_atom(smem_raw));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(align_atom(smem_raw));
+  constexpr int kRowBytes = Rows<D>::kBytes;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kBN;  // under causal the first k-tiles see most
@@ -152,9 +161,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
                            ? min(qt_end, (kr0 + 63 + window - 1) / kBM + 1)
                            : qt_end;
 
-    float dk[32], dv[32];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
     float st[32], dpt[32];         // S^T then P^T; dP^T then dS^T
     uint32_t pa[kBM / 16][4];      // P^T of the tile whose dV is in flight
     uint32_t da[kBM / 16][4];      // dS^T of the tile whose dK is in flight
@@ -169,8 +178,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
     };
 
     mbar_wait(&sm.kv_full, 0);
-    const uint64_t desc_k = smem_desc(sm.k + 64 * cw * kD);
-    const uint64_t desc_v = smem_desc(sm.v + 64 * cw * kD);
+    const uint64_t desc_k = smem_desc<D>(sm.k + 64 * cw * D);
+    const uint64_t desc_v = smem_desc<D>(sm.v + 64 * cw * D);
     for (int qt = qt_begin; qt < min(live_b, qt_end); ++qt) pass_over(qt);
     // software pipeline: the dK product of q-tile n-1 runs on the tensor
     // cores ahead of S^T and dP^T of tile n, and the dS^T arithmetic of
@@ -181,15 +190,15 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
       wait_full(qt);
 
       // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, fp32)
-      const uint64_t desc_q = smem_desc(sm.q[s]);
-      const uint64_t desc_do = smem_desc(sm.dout[s]);
+      const uint64_t desc_q = smem_desc<D>(sm.q[s]);
+      const uint64_t desc_do = smem_desc<D>(sm.dout[s]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_m64n64_ss(st, desc_k + kmajor_step(kk),
                         desc_q + kmajor_step(kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_m64n64_ss(dpt, desc_v + kmajor_step(kk),
                         desc_do + kmajor_step(kk), kk > 0);
       wgmma_commit();
@@ -219,7 +228,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBM / 16; ++kk)
-        wgmma_m64n64_rs_t(dv, pa[kk], desc_do + mnmajor_step(kk));
+        wgmma_m64nN_rs_t(dv, pa[kk], desc_do + mnmajor_step<D>(kk));
       wgmma_commit();
 
       // dS^T = P^T o (dP^T - D) scale, then dK += dS^T Q (B = Q MN-major)
@@ -236,7 +245,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBM / 16; ++kk)
-        wgmma_m64n64_rs_t(dk, da[kk], desc_q + mnmajor_step(kk));
+        wgmma_m64nN_rs_t(dk, da[kk], desc_q + mnmajor_step<D>(kk));
       wgmma_commit();
     }
     wgmma_wait<0>();  // on every path, so ptxas injects no wait of its own
@@ -245,32 +254,49 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tmQ,
     if (live_b < live_e) mbar_arrive(&sm.empty[stage(live_e - 1)]);
     for (int qt = max(live_b, live_e); qt < qt_end; ++qt) pass_over(qt);
 
-    const long off = ((long)b * Sk * H + h) * kD, stride = (long)H * kD;
-    store_acc64(dK + off, stride, dk, kr0, Sk);
-    store_acc64(dV + off, stride, dv, kr0, Sk);
+    const long off = ((long)b * Sk * H + h) * D, stride = (long)H * D;
+    store_acc_rows(dK + off, stride, dk, kr0, Sk);
+    store_acc_rows(dV + off, stride, dv, kr0, Sk);
   }
+}
+
+template <int D>
+static int launch_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int B, int H, int Sq, int Sk,
+                      float scale, int causal, int window, void* stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = encode_bshd<D>(&mq, q, B, Sq, H, kBM)) ||
+      (rc = encode_bshd<D>(&mk, k, B, Sk, H, kBN)) ||
+      (rc = encode_bshd<D>(&mv, v, B, Sk, H, kBN)) ||
+      (rc = encode_bshd<D>(&mdo, dout, B, Sq, H, kBM)))
+    return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<D>);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (Sk + kBN - 1) / kBN);
+  flash_dkv_kernel<D><<<grid, kDkvThreads, kSmemBytes<D>,
+                        (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, H, Sq, Sk, scale, scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tpujob_flash_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int B,
-                                int H, int Sq, int Sk, float scale, int causal,
-                                int window, void* stream) {
+                                int H, int D, int Sq, int Sk, float scale,
+                                int causal, int window, void* stream) {
   if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mdo;
-  int rc;
-  if ((rc = encode_bshd(&mq, q, B, Sq, H, kBM)) ||
-      (rc = encode_bshd(&mk, k, B, Sk, H, kBN)) ||
-      (rc = encode_bshd(&mv, v, B, Sk, H, kBN)) ||
-      (rc = encode_bshd(&mdo, dout, B, Sq, H, kBM)))
-    return rc;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (Sk + kBN - 1) / kBN);
-  flash_dkv_kernel<<<grid, kDkvThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, H, Sq, Sk, scale, scale * kLog2e, causal, window);
-  return (int)cudaGetLastError();
+  switch (D) {
+    case 32:
+      return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                            scale, causal, window, stream);
+    case 64:
+      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                            scale, causal, window, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -36,6 +36,10 @@
 // Only k-tiles crossing the diagonal, the window edge or the ragged edge
 // are masked; k-tiles dead for all of a warpgroup's rows are not computed,
 // and those dead for the whole block are not loaded.
+//
+// Head dim D = 64 or 32, one template: at 32 the tiles' rows are 64 bytes
+// (the 64-byte swizzle), S and dP take two k16 steps instead of four, and
+// dQ is an m64n32 accumulator (dQ += dS K is m64n32k16).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -53,21 +57,24 @@ constexpr int kConsumerRegs = 232;  // 232 x 256 of the SM's 65,536
 constexpr int kConsumerThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <int D>
 struct Smem {
-  bf16 q[kBM * kD];
-  bf16 dout[kBM * kD];
-  bf16 k[kStages][kBN * kD];
-  bf16 v[kStages][kBN * kD];
+  bf16 q[kBM * D];
+  bf16 dout[kBM * D];
+  bf16 k[kStages][kBN * D];
+  bf16 v[kStages][kBN * D];
   float lse[kBM];  // lse * log2(e): P = 2^(scale log2(e) S - this)
   float delta[kBM];
   uint64_t q_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + kAtomBytes;  // + alignment slack
+template <int D>
+constexpr int kSmemBytes = sizeof(Smem<D>) + kAlignBytes;  // + alignment slack
 
 }  // namespace
 
+template <int D>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
                 const __grid_constant__ CUtensorMap tmK,
@@ -77,7 +84,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
                 bf16* __restrict__ dQ, int H, int Sq, int Sk, float scale,
                 float scale_log2, int causal, int window) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_atom(smem_raw));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(align_atom(smem_raw));
+  constexpr int kRowBytes = Rows<D>::kBytes;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest rows first
@@ -151,9 +159,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
         r0 >= Sq ? live_b
                  : (causal ? min(kt_end, (r0 + 63) / kBN + 1) : kt_end);
 
-    float dq[32];
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     float sc[32], dp[32];        // S then P; dP then dS
     uint32_t da[kBN / 16][4];    // dS of the tile whose dQ is in flight
 
@@ -169,8 +177,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
     mbar_wait(&sm.q_full, 0);
     const float lse2[2] = {sm.lse[lrow], sm.lse[lrow + 8]};
     const float dlt[2] = {sm.delta[lrow], sm.delta[lrow + 8]};
-    const uint64_t desc_q = smem_desc(sm.q + 64 * cw * kD);
-    const uint64_t desc_do = smem_desc(sm.dout + 64 * cw * kD);
+    const uint64_t desc_q = smem_desc<D>(sm.q + 64 * cw * D);
+    const uint64_t desc_do = smem_desc<D>(sm.dout + 64 * cw * D);
     for (int kt = kt_begin; kt < min(live_b, kt_end); ++kt) pass_over(kt);
     // software pipeline: the dQ product of k-tile n-1 runs on the tensor
     // cores ahead of S and dP of tile n, and P of tile n is computed while
@@ -181,16 +189,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
       wait_full(kt);
 
       // S = Q K^T and dP = dO V^T (64 queries x 64 keys, fp32)
-      const uint64_t desc_k = smem_desc(sm.k[s]);
-      const uint64_t desc_v = smem_desc(sm.v[s]);
+      const uint64_t desc_k = smem_desc<D>(sm.k[s]);
+      const uint64_t desc_v = smem_desc<D>(sm.v[s]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_m64n64_ss(sc, desc_q + kmajor_step(kk),
                         desc_k + kmajor_step(kk), kk > 0);
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_m64n64_ss(dp, desc_do + kmajor_step(kk),
                         desc_v + kmajor_step(kk), kk > 0);
       wgmma_commit();
@@ -227,7 +235,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_m64n64_rs_t(dq, da[kk], desc_k + mnmajor_step(kk));
+        wgmma_m64nN_rs_t(dq, da[kk], desc_k + mnmajor_step<D>(kk));
       wgmma_commit();
     }
     wgmma_wait<0>();  // on every path, so ptxas injects no wait of its own
@@ -236,31 +244,48 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tmQ,
     for (int kt = max(live_b, live_e); kt < kt_end; ++kt) pass_over(kt);
 
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq[i] *= scale;
-    store_acc64(dQ + ((long)b * Sq * H + h) * kD, (long)H * kD, dq, r0, Sq);
+    for (int i = 0; i < D / 2; ++i) dq[i] *= scale;
+    store_acc_rows(dQ + ((long)b * Sq * H + h) * D, (long)H * D, dq, r0, Sq);
   }
+}
+
+template <int D>
+static int launch_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int B, int H, int Sq, int Sk, float scale,
+                     int causal, int window, void* stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = encode_bshd<D>(&mq, q, B, Sq, H, kBM)) ||
+      (rc = encode_bshd<D>(&mk, k, B, Sk, H, kBN)) ||
+      (rc = encode_bshd<D>(&mv, v, B, Sk, H, kBN)) ||
+      (rc = encode_bshd<D>(&mdo, dout, B, Sq, H, kBM)))
+    return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<D>);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (Sq + kBM - 1) / kBM);
+  flash_dq_kernel<D><<<grid, kDqThreads, kSmemBytes<D>,
+                       (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, H,
+      Sq, Sk, scale, scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tpujob_flash_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int H,
-                               int Sq, int Sk, float scale, int causal,
+                               int D, int Sq, int Sk, float scale, int causal,
                                int window, void* stream) {
   if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mdo;
-  int rc;
-  if ((rc = encode_bshd(&mq, q, B, Sq, H, kBM)) ||
-      (rc = encode_bshd(&mk, k, B, Sk, H, kBN)) ||
-      (rc = encode_bshd(&mv, v, B, Sk, H, kBN)) ||
-      (rc = encode_bshd(&mdo, dout, B, Sq, H, kBM)))
-    return rc;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_dq_kernel<<<grid, kDqThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, H,
-      Sq, Sk, scale, scale * kLog2e, causal, window);
-  return (int)cudaGetLastError();
+  switch (D) {
+    case 32:
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale,
+                           causal, window, stream);
+    case 64:
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale,
+                           causal, window, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

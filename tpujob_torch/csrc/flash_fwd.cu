@@ -25,7 +25,7 @@
 //   two consumers, 64 q rows each: S = Q K^T is wgmma m64n128k16 (A = Q,
 //     B = K, both K-major in shared memory); the online softmax runs on the
 //     accumulator layout in registers (quad shuffles, in base 2); P goes to
-//     bf16 in registers and O += P V is wgmma m64n64k16 with A from
+//     bf16 in registers and O += P V is wgmma m64nDk16 with A from
 //     registers and B = V, MN-major (transposed) in shared memory.  The
 //     loop is software-pipelined: S of k-tile n and P V of tile n-1 are
 //     issued together, and the softmax of tile n runs while P V of tile n-1
@@ -33,6 +33,12 @@
 // Only tiles crossing the diagonal, the window edge or the ragged edge are
 // masked; tiles dead for all of a warpgroup's rows are not computed, and
 // tiles dead for the whole block are not loaded.
+//
+// Head dim D = 64 or 32, one template: at 32 the tiles' rows are 64 bytes
+// (the 64-byte swizzle), S = Q K^T takes two k16 steps instead of four, and
+// O is an m64n32 accumulator of 16 floats a thread.  At b=8, s=1024,
+// h=16, d=32, causal it moves 33.6 MB (10 us) for 8.6 GFLOP (8.7 us):
+// bound by memory at about 10 us.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -50,15 +56,17 @@ constexpr int kConsumerRegs = 232;  // 232 x 256 of the SM's 65,536
 constexpr int kConsumerThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <int D>
 struct Smem {
-  bf16 q[kBM * kD];
-  bf16 k[kStages][kBN * kD];
-  bf16 v[kStages][kBN * kD];
+  bf16 q[kBM * D];
+  bf16 k[kStages][kBN * D];
+  bf16 v[kStages][kBN * D];
   uint64_t q_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + kAtomBytes;  // + alignment slack
+template <int D>
+constexpr int kSmemBytes = sizeof(Smem<D>) + kAlignBytes;  // + alignment slack
 
 // v[0] = op(v[0], ..., v[15]) in four levels
 template <class Op>
@@ -73,6 +81,7 @@ __device__ __forceinline__ float tree16(float (&v)[16], Op op) {
 
 }  // namespace
 
+template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
                  const __grid_constant__ CUtensorMap tmK,
@@ -80,7 +89,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
                  float* __restrict__ LSE, int H, int Sq, int Sk,
                  float scale_log2, int causal, int window) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_atom(smem_raw));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(align_atom(smem_raw));
+  constexpr int kRowBytes = Rows<D>::kBytes;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest rows first
@@ -140,9 +150,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
                            : kt_begin;
     const int live_e = causal ? min(kt_end, (r0 + 63) / kBN + 1) : kt_end;
 
-    float o[32];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float sc[64];                 // S of the newest tile, then its P
     uint32_t pa[kBN / 16][4];     // P of the tile whose P V is in flight
@@ -154,21 +164,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
     // S = Q K^T (64 x 128, fp32), issued and committed, not waited for
     auto issue_s = [&](int kt) {
       wait_full(kt);
-      const uint64_t desc_q = smem_desc(sm.q + 64 * cw * kD);
-      const uint64_t desc_k = smem_desc(sm.k[stage(kt)]);
+      const uint64_t desc_q = smem_desc<D>(sm.q + 64 * cw * D);
+      const uint64_t desc_k = smem_desc<D>(sm.k[stage(kt)]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_m64n128_ss(sc, desc_q + kmajor_step(kk),
                          desc_k + kmajor_step(kk), kk > 0);
       wgmma_commit();
     };
     // O += P V from `pa`, V MN-major, issued and committed
     auto issue_pv = [&](int kt) {
-      const uint64_t desc_v = smem_desc(sm.v[stage(kt)]);
+      const uint64_t desc_v = smem_desc<D>(sm.v[stage(kt)]);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_m64n64_rs_t(o, pa[kk], desc_v + mnmajor_step(kk));
+        wgmma_m64nN_rs_t(o, pa[kk], desc_v + mnmajor_step<D>(kk));
       wgmma_commit();
     };
     // online softmax of sc in place (edge tiles masked to -inf; max of the
@@ -268,7 +278,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
         fence_regs(o);
         mbar_arrive(&sm.empty[stage(kt - 1)]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < D / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
 #pragma unroll
@@ -290,10 +300,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
 
     const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * j + e] *= inv[e >> 1];
-    store_acc64(O + ((long)b * Sq * H + h) * kD, (long)H * kD, o, r0, Sq);
+    store_acc_rows(O + ((long)b * Sq * H + h) * D, (long)H * D, o, r0, Sq);
     if (t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -303,24 +313,40 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmQ,
   }
 }
 
-extern "C" int tpujob_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int B, int H, int Sq,
-                                int Sk, float scale, int causal, int window,
-                                void* stream) {
-  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+template <int D>
+static int launch_fwd(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int H, int Sq, int Sk, float scale,
+                      int causal, int window, void* stream) {
   CUtensorMap mq, mk, mv;
   int rc;
-  if ((rc = encode_bshd(&mq, q, B, Sq, H, kBM)) ||
-      (rc = encode_bshd(&mk, k, B, Sk, H, kBN)) ||
-      (rc = encode_bshd(&mv, v, B, Sk, H, kBN)))
+  if ((rc = encode_bshd<D>(&mq, q, B, Sq, H, kBM)) ||
+      (rc = encode_bshd<D>(&mk, k, B, Sk, H, kBN)) ||
+      (rc = encode_bshd<D>(&mv, v, B, Sk, H, kBN)))
     return rc;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<D>);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_fwd_kernel<<<grid, kFwdThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<D><<<grid, kFwdThreads, kSmemBytes<D>,
+                        (cudaStream_t)stream>>>(
       mq, mk, mv, (bf16*)o, (float*)lse, H, Sq, Sk, scale * kLog2e, causal,
       window);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tpujob_flash_fwd(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int B, int H, int D,
+                                int Sq, int Sk, float scale, int causal,
+                                int window, void* stream) {
+  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return launch_fwd<32>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal,
+                            window, stream);
+    case 64:
+      return launch_fwd<64>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal,
+                            window, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,16 +2,20 @@
 // flash_dq.cu and flash_dkv.cu: TMA tensor maps and loads, mbarriers, wgmma
 // descriptors and instructions, setmaxnreg.
 //
-// Tiles in shared memory are [rows][64] bf16, one 128-byte row per tile
-// row, written by TMA with the 128-byte swizzle (16-byte chunk c of row r
-// lands at chunk c ^ (r % 8)).  A tile starts on a 1024-byte boundary, so
-// every 8-row group is one swizzle atom.  wgmma reads such a tile two ways:
-//   K-major  (the 64 columns are the reduction axis): an m64 A operand or
+// Tiles in shared memory are [rows][D] bf16, one D*2-byte row per tile
+// row, written by TMA with the swizzle of that row width (Rows<D>): at
+// D = 64 a row is 128 bytes and the 128-byte swizzle puts 16-byte chunk c
+// of row r at chunk c ^ (r % 8); at D = 32 a row is 64 bytes and the
+// 64-byte swizzle puts it at c ^ ((r / 2) % 4).  Either way an 8-row group
+// is one swizzle atom (8 * D * 2 bytes), and a tile starts on a 1024-byte
+// boundary, which every atom size divides.  wgmma reads such a tile two
+// ways:
+//   K-major  (the D columns are the reduction axis): an m64 A operand or
 //            an N-row B operand; one k16 step is +32 bytes along the row.
-//   MN-major (the rows are the reduction axis, the 64 columns are N): a
-//            transposed B operand; one k16 step is +16 rows = +2048 bytes.
-// In both, the stride between 8-row groups (SBO) is 1024 bytes; with
-// N = 64 the MN-major operand is one swizzle atom wide, so LBO is unused.
+//   MN-major (the rows are the reduction axis, the D columns are N): a
+//            transposed B operand; one k16 step is +16 rows.
+// In both, the stride between 8-row groups (SBO) is one atom; N = D is one
+// swizzle atom wide, so LBO is unused.
 //
 // Accumulator (fp32, m64nN) of thread `tid` of a warpgroup, w = tid / 32,
 // g = (tid % 32) / 4, t = tid % 4: element d[4j + e] holds row
@@ -28,8 +32,27 @@
 
 namespace tpujob_hopper {
 
-constexpr int kRowBytes = 128;         // one 64-wide bf16 tile row
-constexpr int kAtomBytes = 8 * kRowBytes;  // one swizzle atom, 8 rows
+constexpr int kAlignBytes = 1024;  // a tile's start: the largest atom
+
+// The layout of a [rows][D] bf16 tile, for the head dims the kernels are
+// built for: its row bytes, its swizzle atom (8 rows), the TMA swizzle and
+// the wgmma descriptor's layout type of that row width.
+template <int D>
+struct Rows;
+template <>
+struct Rows<64> {
+  static constexpr int kBytes = 128;
+  static constexpr int kAtom = 8 * kBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  static constexpr uint64_t kLayout = 1;  // 128-byte swizzle
+};
+template <>
+struct Rows<32> {
+  static constexpr int kBytes = 64;
+  static constexpr int kAtom = 8 * kBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr uint64_t kLayout = 2;  // 64-byte swizzle
+};
 
 // ---------------------------------------------------------------------------
 // host: TMA tensor maps
@@ -64,23 +87,24 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D map over a contiguous [B, S, H, 64] bf16 tensor (dims innermost
-// first: 64, H, S, B), box 64 x 1 x `rows` x 1: one head's `rows` sequence
-// rows as a [rows][64] tile, 128-byte swizzled.  Rows past S read as zero,
-// which masks the ragged edge of every load.  Returns 0 on success.
+// A 4-D map over a contiguous [B, S, H, D] bf16 tensor (dims innermost
+// first: D, H, S, B), box D x 1 x `rows` x 1: one head's `rows` sequence
+// rows as a [rows][D] tile, swizzled as Rows<D> says.  Rows past S read as
+// zero, which masks the ragged edge of every load.  Returns 0 on success.
+template <int D>
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H,
                        int rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return (int)cudaErrorInitializationError;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {kRowBytes, (cuuint64_t)H * kRowBytes,
-                                 (cuuint64_t)S * H * kRowBytes};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  constexpr cuuint64_t row = Rows<D>::kBytes;
+  const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, (cuuint64_t)H * row,
+                                 (cuuint64_t)S * H * row};
+  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, Rows<D>::kSwizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -97,8 +121,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // the first 1024-byte boundary (of the shared address) at or after p; a
 // kernel asks for 1024 bytes more dynamic shared memory than it uses
 __device__ __forceinline__ uint8_t* align_atom(uint8_t* p) {
-  const uint32_t rem = smem_addr(p) & (kAtomBytes - 1);
-  return p + ((kAtomBytes - rem) & (kAtomBytes - 1));
+  const uint32_t rem = smem_addr(p) & (kAlignBytes - 1);
+  return p + ((kAlignBytes - rem) & (kAlignBytes - 1));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -134,7 +158,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// one [rows][64] tile of a [B, S, H, 64] map: sequence row `row`, head h,
+// one [rows][D] tile of a [B, S, H, D] map: sequence row `row`, head h,
 // batch b, completing on `bar`
 __device__ __forceinline__ void tma_load_bshd(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int row, int h,
@@ -174,18 +198,20 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // device: wgmma
 // ---------------------------------------------------------------------------
 
-// shared-memory matrix descriptor of a 128-byte-swizzled tile at `p`
-// (see the top of this file): start >> 4, LBO 16 B (unused), SBO 1024 B,
-// layout type 1 = 128-byte swizzle
+// shared-memory matrix descriptor of a swizzled [rows][D] tile at `p`
+// (see the top of this file): start >> 4, LBO 16 B (unused), SBO one
+// atom, layout type of Rows<D>
+template <int D>
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(kAtomBytes >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(Rows<D>::kAtom >> 4) << 32) | (Rows<D>::kLayout << 62);
 }
 
 // descriptor offsets of k16 step kk (in 16-byte units, added to the start)
 __device__ __forceinline__ uint64_t kmajor_step(int kk) { return 2 * kk; }
+template <int D>
 __device__ __forceinline__ uint64_t mnmajor_step(int kk) {
-  return (16 * kRowBytes >> 4) * kk;
+  return (16 * Rows<D>::kBytes >> 4) * kk;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -256,11 +282,12 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (a_from_acc
-// layout), B MN-major (transposed) in shared memory
-__device__ __forceinline__ void wgmma_m64n64_rs_t(float (&d)[32],
-                                                  const uint32_t a[4],
-                                                  uint64_t db) {
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers (a_from_acc
+// layout), B MN-major (transposed) in shared memory; N = 64 or 32, as the
+// accumulator's size (N / 2 floats a thread) says
+__device__ __forceinline__ void wgmma_m64nN_rs_t(float (&d)[32],
+                                                 const uint32_t a[4],
+                                                 uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -268,6 +295,18 @@ __device__ __forceinline__ void wgmma_m64n64_rs_t(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : TPJ_D8(0), TPJ_D8(8), TPJ_D8(16), TPJ_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64nN_rs_t(float (&d)[16],
+                                                 const uint32_t a[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : TPJ_D8(0), TPJ_D8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -284,12 +323,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// a warpgroup's m64n64 fp32 accumulator, cast to bf16, into rows
-// row0 .. row0+63 of `base` (rows `stride` elements apart); rows at or past
-// `rows` are skipped
-__device__ __forceinline__ void store_acc64(__nv_bfloat16* base, long stride,
-                                            const float (&d)[32], int row0,
-                                            int rows) {
+// a warpgroup's m64nN fp32 accumulator (R = N / 2 floats a thread), cast
+// to bf16, into rows row0 .. row0+63 of `base` (rows `stride` elements
+// apart); rows at or past `rows` are skipped
+template <int R>
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base,
+                                               long stride,
+                                               const float (&d)[R], int row0,
+                                               int rows) {
   const int tid = threadIdx.x % 128;
   const int g = (tid % 32) / 4, t = tid % 4;
 #pragma unroll
@@ -297,7 +338,7 @@ __device__ __forceinline__ void store_acc64(__nv_bfloat16* base, long stride,
     const int r = row0 + 16 * (tid / 32) + g + 8 * half;
     if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < R / 4; ++j)
       *reinterpret_cast<uint32_t*>(base + (long)r * stride + 8 * j + 2 * t) =
           pack_bf16x2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
   }

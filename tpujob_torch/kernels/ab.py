@@ -49,7 +49,7 @@ def _launcher(lib, stem: str, args: dict):
     q, k, v, do, lse, delta = (args[n] for n in
                                ("q", "k", "v", "do", "lse", "delta"))
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (B, H, S, S, D ** -0.5, 1, 0, stream)
+    tail = (B, H, D, S, S, D ** -0.5, 1, 0, stream)
     if stem == "flash_fwd":
         outs = (torch.empty_like(q), torch.empty_like(lse))
         ptrs = (q, k, v, *outs)

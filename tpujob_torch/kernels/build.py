@@ -4,7 +4,10 @@ Each source is one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in
 ``<repo>/build/tpujob_torch_kernels/<hash>/``, where the hash covers every
 source and header and the compiler flags, so an edited kernel is rebuilt
-and an unchanged one is reused.  All sources compile at once, one ``nvcc``
+and an unchanged one is reused.  Each flash source instantiates its
+kernel template for every head dim it takes (32 and 64, the C entry
+point's ``switch`` on ``D``), so the hash of the sources covers the
+instantiations too.  All sources compile at once, one ``nvcc``
 process each.
 
     from tpujob_torch.kernels import build
@@ -36,19 +39,21 @@ _f = ctypes.c_float
 # C signature of every entry point: source stem -> {symbol: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_fwd": {
-        # q, k, v, o, lse, B, H, Sq, Sk, scale, causal, window, stream
-        "tpujob_flash_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
+        # q, k, v, o, lse, B, H, D, Sq, Sk, scale, causal, window, stream
+        "tpujob_flash_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i,
+                             _i, _p],
     },
     "flash_dq": {
-        # q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, scale, causal, window, stream
-        "tpujob_flash_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f,
-                            _i, _i, _p],
+        # q, k, v, dO, lse, delta, dq, B, H, D, Sq, Sk, scale, causal,
+        # window, stream
+        "tpujob_flash_dq": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                            _f, _i, _i, _p],
     },
     "flash_dkv": {
-        # q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal,
+        # q, k, v, dO, lse, delta, dk, dv, B, H, D, Sq, Sk, scale, causal,
         # window, stream
         "tpujob_flash_dkv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-                             _f, _i, _i, _p],
+                             _i, _f, _i, _i, _p],
     },
 }
 

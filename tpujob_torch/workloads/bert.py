@@ -11,10 +11,19 @@ masked-LM objective (``mask_batch``, ``mlm_loss``, with the MoE aux
 terms), the flag surface, ``tokenizer_from_args`` and
 ``token_batches`` (synthetic, or a real corpus with ``--data-file``, raw
 bytes or ``--tokenizer bpe:...`` tokens, a new batch every step), the flag
-checks, ``build_model`` (dense and flash attention), the ``train`` loop (a
-per-step batch provider, gradient accumulation, ``--profile-dir``, data
-parallelism across processes through DDP) and ``run``/``main``.  Of the
-parallel strategies only data parallelism is ported.
+checks, ``make_mesh_for`` and ``build_model`` (dense, flash, and under
+``--sequence-parallel`` the ring or Ulysses attention, flash as Ulysses's
+local kernel), the ``train`` loop (a per-step batch provider, gradient
+accumulation, ``--profile-dir``, data parallelism across processes
+through DDP) and ``run``/``main``.  Of the parallel strategies, data and
+sequence parallelism are ported (and the two together).
+
+Under sequence parallelism each rank holds its rows of the batch and its
+columns of the sequence (``seq_positions``: a contiguous block, or for
+the causal ring the zigzag pair of chunks) from the embedding on: the
+learned positions and rotary phases are each token's global position,
+and the losses take their targets and counts from the global rows, so
+each rank's loss, scaled by the world, averages to the global batch's.
 
 Parity with flax, made explicit rather than left to autocast:
 
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
@@ -129,8 +138,10 @@ class Attention(nn.Module):
         self.value = Dense(hidden, self.hkv * self.d, dtype, gen)
         self.out = Dense(hidden, hidden, dtype, gen)
 
-    def forward(self, x, cache=None):
-        """``cache``: ``(k, v, index)`` of this layer in decode, else None."""
+    def forward(self, x, cache=None, positions=None):
+        """``cache``: ``(k, v, index)`` of this layer in decode, else None.
+        ``positions``: the global positions of ``x``'s tokens (a sequence
+        shard's), else ``arange(s)``."""
         b, s, _ = x.shape
         q = self.query(x).reshape(b, s, self.heads, self.d)
         k = self.key(x).reshape(b, s, self.hkv, self.d)
@@ -139,7 +150,8 @@ class Attention(nn.Module):
             o = self._attend_cache(q, k, v, *cache)
         else:
             if self.use_rope:
-                pos = torch.arange(s, device=x.device)
+                pos = (torch.arange(s, device=x.device) if positions is None
+                       else positions)
                 q, k = rope(q, pos), rope(k, pos)
             o = self.attention_fn(q, k, v)  # [b, s, h, d]
         return self.out(o.reshape(b, s, self.hidden))
@@ -234,13 +246,14 @@ class Block(nn.Module):
             self.mlp_wo = Dense(intermediate, hidden, dtype, gen)
         self.ln_mlp = LayerNorm(hidden, dtype)
 
-    def forward(self, x, cache=None, valid=None):
+    def forward(self, x, cache=None, valid=None, positions=None):
         """The block's output; a MoE block's is ``(x, metrics)``, its FFN's
         metrics returned rather than kept aside, so that a rematerialised
         block's recomputation writes nothing twice and a captured step
         holds them as outputs.  ``valid`` ([b, s] 0/1) marks the positions
-        the MoE routes; a dense block ignores it."""
-        x = self.ln_attn(x + self.attn(x, cache))
+        the MoE routes; a dense block ignores it.  ``positions``: as
+        ``Attention.forward`` takes them."""
+        x = self.ln_attn(x + self.attn(x, cache, positions))
         if self.moe is not None:
             h, metrics = self.moe(x, valid)
             return self.ln_mlp(x + h), metrics
@@ -276,11 +289,15 @@ class Bert(nn.Module):
                  attention_fn: Optional[Callable] = None, remat: bool = True,
                  final_ln: bool = False, kv_heads: Optional[int] = None,
                  use_rope: bool = False, window: int = 0, seed: int = 0,
-                 moe: Optional[MoEConfig] = None):
+                 moe: Optional[MoEConfig] = None,
+                 seq_parallel: bool = False):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
         self.use_rope, self.moe = use_rope, moe
+        # the attention exchanges activations with the other ranks of its
+        # sequence group (see ``forward``'s remat)
+        self.seq_parallel = seq_parallel
         gen = torch.Generator().manual_seed(seed)
         # vocab padded to a multiple of 128 (the JAX package's Megatron
         # padding); logits are sliced back to the true vocab
@@ -300,12 +317,14 @@ class Bert(nn.Module):
                 hidden, heads, intermediate, dtype, attention_fn, gen,
                 kv_heads, use_rope, window, moe))
 
-    def embed(self, ids, position: int = 0):
+    def embed(self, ids, position: int = 0, positions=None):
         """Token embedding plus the learned positions from ``position`` on
-        (the decode cursor; 0 for a whole sequence)."""
+        (the decode cursor; 0 for a whole sequence), or at ``positions``
+        (a sequence shard's global positions)."""
         x = F.embedding(ids, self.token_embed.weight.to(self.dtype))
         if not self.use_rope:
-            pos = self.pos_embed[position : position + ids.shape[1]]
+            pos = (self.pos_embed[position : position + ids.shape[1]]
+                   if positions is None else self.pos_embed[positions])
             x = x + pos[None].to(self.dtype)
         return self.ln_embed(x)
 
@@ -320,17 +339,18 @@ class Bert(nn.Module):
         return logits[..., : self.vocab]
 
     def forward(self, ids, cache: Optional[KVCache] = None, valid=None,
-                with_metrics: bool = False):
+                with_metrics: bool = False, positions=None):
         """Logits of ``ids`` [b, s]; with ``cache``, decode: ``ids`` is one
         position [b, 1], and the result is ``(logits, next cache)``.
         ``valid`` ([b, s] 0/1) marks the real tokens: MoE routing skips the
         rest, so a fixed decode buffer stays causal; dense models ignore
         it.  ``with_metrics``: return ``(logits, metrics)``, one dict of
         ``parallel.moe_ffn`` metrics a MoE layer (what the JAX package
-        sows into ``moe_metrics``)."""
+        sows into ``moe_metrics``).  ``positions`` [s]: the global
+        positions of a sequence shard's tokens (``seq_positions``)."""
         if cache is not None:
             return self._decode(ids, cache)
-        x = self.embed(ids)
+        x = self.embed(ids, positions=positions)
         metrics = []
         for i in range(self.layers):
             blk = getattr(self, f"layer_{i}")
@@ -338,11 +358,16 @@ class Bert(nn.Module):
                 # rematerialise each block on backward (jax.checkpoint);
                 # the trunk draws no random numbers (no dropout, as in the
                 # JAX package), so no RNG state is saved: reading it is
-                # not allowed inside a CUDA graph capture
-                x = checkpoint(blk, x, None, valid, use_reentrant=False,
-                               preserve_rng_state=False)
+                # not allowed inside a CUDA graph capture.  Under sequence
+                # parallelism the recomputation runs the whole block: one
+                # that stopped at its last saved tensor would skip an
+                # exchange on one rank that another rank waits for
+                with set_checkpoint_early_stop(not self.seq_parallel):
+                    x = checkpoint(blk, x, None, valid, positions,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
             else:
-                x = blk(x, valid=valid)
+                x = blk(x, valid=valid, positions=positions)
             if self.moe is not None:
                 x, m = x
                 metrics.append(m)
@@ -407,14 +432,15 @@ def moe_terms(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]
             "dropped": torch.stack([m["dropped"] for m in metrics]).sum()}
 
 
-def moe_forward(model: nn.Module, ids, loss_fn):
+def moe_forward(model: nn.Module, ids, loss_fn, positions=None):
     """``(logits, terms)`` of ``model`` (a ``Bert`` or its DDP wrapper) on
-    ``ids``: ``terms`` are ``moe_terms`` for a MoE model, None for a dense
-    one.  Their values (``MOE_METRICS``) are ``loss_fn``'s extra outputs
+    ``ids`` (at ``positions``, a sequence shard's): ``terms`` are
+    ``moe_terms`` for a MoE model, None for a dense one.  Their values
+    (``MOE_METRICS``) are ``loss_fn``'s extra outputs
     (``train_lib.set_loss_extras``), which ``train`` reads after each
     step."""
     if getattr(model, "module", model).moe is None:
-        return model(ids), None
+        return model(ids, positions=positions), None
     logits, metrics = model(ids, with_metrics=True)
     terms = moe_terms(metrics)
     train_lib.set_loss_extras(
@@ -430,7 +456,7 @@ def with_moe_aux(loss, terms):
             + MOE_Z_COEF * terms["router_z"])
 
 
-def mlm_loss(model: nn.Module, mask_id: int = 103):
+def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None):
     """Masked LM: predict the original ids at the masked positions.
     ``mask_id`` is the [MASK] token (103, the WordPiece id, for synthetic
     vocabularies).  The log-softmax runs in the logits' dtype (bf16 under
@@ -441,12 +467,14 @@ def mlm_loss(model: nn.Module, mask_id: int = 103):
     The mean is over the GLOBAL batch's masked positions, which differ in
     number from rank to rank: each rank divides its sum by the global
     count over the world, so the ranks' mean (DDP's mean of the grads, and
-    the reported loss) is the JAX package's loss of the whole batch."""
+    the reported loss) is the JAX package's loss of the whole batch.  A
+    rank of a sequence group holds its columns of ids and mask, at
+    ``positions``: the same sums cover them."""
 
     def loss_fn(batch):
         ids, mask = batch  # mask: 1.0 where the position is predicted
         masked_ids = torch.where(mask > 0, mask_id, ids)
-        logits, terms = moe_forward(model, masked_ids, loss_fn)
+        logits, terms = moe_forward(model, masked_ids, loss_fn, positions)
         logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
         count = torch.clamp(train_lib.global_sum(mask.sum()), min=1.0)
@@ -506,9 +534,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="(not yet ported; must be 1)")
     p.add_argument("--sequence-parallel", type=int, default=1,
-                   help="(not yet ported; must be 1)")
+                   help="size of the sequence-parallel axis (ranks that "
+                        "split each sequence)")
     p.add_argument("--sp-mode", choices=["ring", "ulysses"], default="ring",
-                   help="(not yet ported)")
+                   help="sequence-parallel attention: ring (K/V blocks "
+                        "passed around the group, the zigzag schedule "
+                        "for causal attention) or ulysses (all-to-all "
+                        "sequence -> heads; --attention flash runs the "
+                        "kernels on the re-sharded heads)")
     p.add_argument("--attention", choices=["dense", "flash"], default="dense",
                    help="attention: dense (torch) or flash (the "
                         "hand-written Hopper kernels)")
@@ -557,19 +590,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED_STRATEGIES = ("tensor_parallel", "sequence_parallel",
-                        "expert_parallel", "pipeline_parallel", "fsdp")
+_UNPORTED_STRATEGIES = ("tensor_parallel", "expert_parallel",
+                        "pipeline_parallel", "fsdp")
 
 
 def reject_unported(args) -> None:
     """Raise for every requested strategy this port does not have yet —
-    never drop a requested flag silently.  (``--moe-experts`` is ported on
-    one device; ``--expert-parallel`` > 1 is not.)"""
+    never drop a requested flag silently.  (Data and sequence parallelism
+    are ported; ``--moe-experts`` on one sequence shard, so MoE with
+    ``--sequence-parallel`` > 1 is not: its capacity and slot order run
+    over each whole sequence, of which a rank holds a shard.)"""
     for name in _UNPORTED_STRATEGIES:
         if getattr(args, name, 1) > 1:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} > 1 is not yet ported to "
-                "tpujob_torch (data parallelism only)")
+                "tpujob_torch (data and sequence parallelism only)")
+    if getattr(args, "moe_experts", 0) > 0 \
+            and getattr(args, "sequence_parallel", 1) > 1:
+        raise NotImplementedError(
+            "--moe-experts with --sequence-parallel > 1 is not yet ported "
+            "to tpujob_torch (a rank routes its shard of each sequence; "
+            "the capacity and slot order are per whole sequence)")
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
@@ -607,14 +648,73 @@ def validate_pipeline_flags(args) -> None:
         raise ValueError("--pipeline-schedule needs --pipeline-parallel > 1")
 
 
-def validate_parallel_flags(args) -> None:
-    """The flag-coherence rules of the ported strategies (data
-    parallelism, and MoE on one device).  The MoE flags' own rules come
-    first, so their errors are the JAX package's; then an unported
-    strategy is refused, expert parallelism included, and so is
+def validate_sp_flags(args, causal: Optional[bool] = None) -> None:
+    """The JAX package's ValueErrors for the attention flags and for every
+    combination with ``--sequence-parallel``, from the flags alone: its
+    ``validate_pipeline_flags``'s pipeline-with-SP rule, then
+    ``build_model``'s window, Ulysses and flash rules (which it checks
+    against the mesh, and the heads at the first Ulysses call).  The
+    window's causal-only rule needs ``causal`` (skipped when None)."""
+    window = getattr(args, "attention_window", 0)
+    sp = getattr(args, "sequence_parallel", 1)
+    if sp > 1 and getattr(args, "pipeline_parallel", 1) > 1:
+        raise ValueError(
+            "--pipeline-parallel composes with data and tensor "
+            "parallelism (the Megatron TP x PP layout) and with "
+            "--attention=flash; not with --sequence-parallel in this "
+            "release (two nested manual regions over sequence and "
+            "pipeline)")
+    if window:
+        if window < 0:
+            raise ValueError(
+                f"--attention-window must be >= 1, got {window}")
+        if causal is False:
+            raise ValueError(
+                "--attention-window (causal sliding window) applies to "
+                "the causal family (gpt), not the bidirectional MLM")
+        if sp > 1:
+            raise ValueError(
+                "--attention-window does not compose with "
+                "--sequence-parallel in this release (the ring/Ulysses "
+                "schedules assume full causal visibility)")
+    if sp <= 1:
+        return
+    if getattr(args, "sp_mode", "ring") == "ulysses":
+        if getattr(args, "tensor_parallel", 1) > 1:
+            raise ValueError(
+                "--sp-mode=ulysses does not compose with "
+                "--tensor-parallel (the all_to_all consumes the head "
+                "dim); use --sp-mode=ring for SP x TP")
+        heads = args.heads
+        hkv = getattr(args, "kv_heads", 0) or heads
+        if heads % sp != 0:
+            raise ValueError(
+                f"ulysses attention needs heads ({heads}) divisible by the "
+                f"'sequence' axis size ({sp}); use ring_attention otherwise")
+        if hkv != heads and hkv % sp != 0:
+            raise ValueError(
+                f"ulysses attention needs KV heads ({hkv}) divisible by the "
+                f"'sequence' axis size ({sp}); use ring_attention otherwise")
+    elif getattr(args, "attention", "dense") == "flash":
+        # never drop a requested kernel silently: the ring's per-hop
+        # block update is its own flash-style loop
+        raise ValueError(
+            "--attention=flash pairs with --sp-mode=ulysses or no "
+            "sequence parallelism; the ring path already runs a "
+            "fused flash-style block loop")
+
+
+def validate_parallel_flags(args, causal: Optional[bool] = None) -> None:
+    """The flag-coherence rules of the ported strategies (data and
+    sequence parallelism, and MoE on one device).  The MoE flags' own
+    rules come first, then the attention and sequence-parallel rules
+    (``validate_sp_flags``), so their errors are the JAX package's
+    ValueErrors; then an unported strategy is refused, expert parallelism
+    and MoE with sequence parallelism included, and so is
     ``--pipeline-parallel`` with ``--moe-experts`` (which the JAX package
     refuses too)."""
     moe_config_from(args)
+    validate_sp_flags(args, causal)
     reject_unported(args)
     if getattr(args, "position", "learned") == "rope" \
             and (args.hidden // args.heads) % 2 != 0:
@@ -630,6 +730,43 @@ def validate_parallel_flags(args) -> None:
             raise ValueError(
                 f"--kv-heads {kvh} must divide --heads {args.heads}")
     validate_pipeline_flags(args)
+
+
+def make_mesh_for(args, pe=None) -> "dist.Mesh":
+    """The job's mesh from the flags (after the flag checks, so a wrong
+    world reports the actionable error): data soaks up the ranks the
+    other axes leave.  Every process calls it together (one process group
+    an axis)."""
+    validate_parallel_flags(args)
+    axes = {"data": -1}
+    if getattr(args, "fsdp", 1) > 1:
+        axes["fsdp"] = args.fsdp
+    if args.tensor_parallel > 1:
+        axes["tensor"] = args.tensor_parallel
+    if args.sequence_parallel > 1:
+        axes["sequence"] = args.sequence_parallel
+    if getattr(args, "expert_parallel", 1) > 1:
+        axes["expert"] = args.expert_parallel
+    if getattr(args, "pipeline_parallel", 1) > 1:
+        axes["pipeline"] = args.pipeline_parallel
+    return dist.make_mesh(axes, env=pe)
+
+
+def seq_positions(args, mesh, causal: bool) -> Optional[np.ndarray]:
+    """The global positions of this rank's tokens along the sequence (None
+    without sequence parallelism): the zigzag pair of chunks for the
+    causal ring when the sequence tiles into 2n chunks
+    (``parallel.ring_layout_zigzag``), else the contiguous block
+    (``distributed.local_seq_slice``; Ulysses gathers whole sequences in
+    that order)."""
+    n = mesh.size("sequence") if mesh is not None else 1
+    if n == 1:
+        return None
+    start, size = dist.local_seq_slice(args.seq_len, mesh)
+    if getattr(args, "sp_mode", "ring") == "ring" \
+            and parallel.ring_layout_zigzag(args.seq_len, n, causal):
+        return parallel.zigzag_index(args.seq_len, n, mesh.index("sequence"))
+    return np.arange(start, start + size)
 
 
 def tokenizer_from_args(args, reserve: int = 0):
@@ -677,7 +814,7 @@ def tokenizer_from_args(args, reserve: int = 0):
     return tok
 
 
-def token_batches(args, pe, tokenizer=None):
+def token_batches(args, pe, tokenizer=None, mesh=None):
     """(this process's rows of the first batch, ``provider(step) -> rows``
     or None, global row 0).
 
@@ -685,8 +822,11 @@ def token_batches(args, pe, tokenizer=None):
     ``--data-file`` the corpus in [n, seq_len] chunks, raw bytes or BPE
     tokens when ``tokenizer`` is set (both memory-mapped), and a provider
     that cycles them deterministically by step, so a resume replays the
-    same stream.  Row 0 is the global one, the same in every process."""
-    lo, sz = dist.local_batch_slice(args.batch_size, pe)
+    same stream.  Row 0 is the global one, the same in every process.
+    With ``mesh`` the rows are split over its data axes only: the ranks of
+    a sequence group get the same whole rows, each trainer then takes its
+    columns (``seq_positions``)."""
+    lo, sz = dist.local_batch_slice(args.batch_size, pe, mesh)
     if not getattr(args, "data_file", None):
         ids = datalib.synthetic_token_batch(args.batch_size, args.seq_len,
                                             args.vocab)
@@ -711,31 +851,53 @@ def token_batches(args, pe, tokenizer=None):
 
 
 def build_model(args, device, *, causal: bool = False,
-                final_ln: bool = False) -> Bert:
+                final_ln: bool = False, mesh=None) -> Bert:
     """The transformer from the flag surface, on ``device``.  ``causal``
-    threads a causal mask through the attention path (dense or flash)."""
+    threads a causal mask through the attention path the flags pick:
+    dense, flash, or under ``--sequence-parallel`` the ring
+    (``parallel.ring_attention``, dense per hop) or Ulysses
+    (``parallel.ulysses_attention``, with ``--attention flash`` the
+    kernels as its local attention) over ``mesh``'s sequence group
+    (``make_mesh_for``'s when None)."""
     from tpujob_torch.workloads import flash
 
-    validate_parallel_flags(args)
+    validate_parallel_flags(args, causal)
     window = getattr(args, "attention_window", 0)
-    if window:
-        if window < 0:
-            raise ValueError(
-                f"--attention-window must be >= 1, got {window}")
-        if not causal:
-            raise ValueError(
-                "--attention-window (causal sliding window) applies to "
-                "the causal family (gpt), not the bidirectional MLM")
-    if getattr(args, "attention", "dense") == "flash":
-        if torch.device(device).type == "cuda":
-            # fail at build, not at the first step
-            flash.check_supported(
-                torch.bfloat16 if args.bf16 else torch.float32,
-                args.hidden // args.heads)
+    use_flash = getattr(args, "attention", "dense") == "flash"
+    sp = getattr(args, "sequence_parallel", 1)
+    if use_flash and torch.device(device).type == "cuda":
+        # fail at build, not at the first step
+        flash.check_supported(torch.bfloat16 if args.bf16 else torch.float32,
+                              args.hidden // args.heads)
+
+    def flash_fn(q, k, v, causal=causal, scale=None):
+        return flash.flash_attention(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+
+    if sp > 1:
+        if mesh is None:
+            mesh = make_mesh_for(args)
+        group = mesh.group("sequence")
+        local = args.seq_len // sp
+        if args.sp_mode == "ulysses":
+            def exchange(q, k, v):
+                return parallel.ulysses_attention(
+                    q, k, v, group, causal=causal,
+                    attention_impl=flash_fn if use_flash else None)
+        else:
+            def exchange(q, k, v):
+                return parallel.ring_attention(q, k, v, group, causal=causal)
 
         def attention_fn(q, k, v):
-            return flash.flash_attention(q, k, v, causal=causal,
-                                         window=window)
+            if q.shape[1] != local:
+                raise ValueError(
+                    f"sequence-parallel attention takes this rank's {local} "
+                    f"of the {args.seq_len} positions, got {q.shape[1]}: a "
+                    "sequence-parallel model decodes with "
+                    "gpt.generate_cached")
+            return exchange(q, k, v)
+    elif use_flash:
+        attention_fn = flash_fn
     elif causal:
         def attention_fn(q, k, v):
             return parallel.full_attention(q, k, v, causal=True,
@@ -750,6 +912,7 @@ def build_model(args, device, *, causal: bool = False,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
         window=window, seed=args.seed, moe=moe_config_from(args),
+        seq_parallel=sp > 1,
     )
     return model.to(device)
 
@@ -923,22 +1086,28 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
     pe = dist.initialize(device=device)
     tok = tokenizer_from_args(args, reserve=1)
     mask_id = mask_id_from_args(args, tok)
-    model = build_model(args, device)
-    ids0, provider, _ = token_batches(args, pe, tokenizer=tok)
-    lo, sz = dist.local_batch_slice(args.batch_size, pe)
+    mesh = make_mesh_for(args, pe) if args.sequence_parallel > 1 else None
+    model = build_model(args, device, mesh=mesh)
+    ids0, provider, _ = token_batches(args, pe, tokenizer=tok, mesh=mesh)
+    lo, sz = dist.local_batch_slice(args.batch_size, pe, mesh)
+    pos = seq_positions(args, mesh, causal=False)
+    cols = slice(None) if pos is None else pos
 
     def masked(ids_local, seed):
         # the GLOBAL mask (one seed in every process), sliced to this
-        # process's rows: masking the local rows directly would repeat one
-        # pattern in every process
+        # process's rows (and sequence columns): masking the local rows
+        # directly would repeat one pattern in every process
         _, mask = mask_batch(
             np.zeros((args.batch_size, args.seq_len), np.int32), seed)
-        return ids_local, mask[lo : lo + sz]
+        return ids_local[:, cols], mask[lo : lo + sz, cols]
 
     bp = None
     if provider is not None:
         bp = lambda step: masked(provider(step), args.seed + step)
-    return train(args, pe, model, lambda net: mlm_loss(net, mask_id=mask_id),
+    positions = None if pos is None else torch.from_numpy(pos).to(device)
+    return train(args, pe, model,
+                 lambda net: mlm_loss(net, mask_id=mask_id,
+                                      positions=positions),
                  train_lib.put_batch(masked(ids0, args.seed), device),
                  batch_provider=bp, on_step=on_step, capture=capture)
 

@@ -16,6 +16,20 @@ for a multi-process job, none for a single process.  The trainers wrap
 their model in ``DistributedDataParallel`` when a group exists
 (``train_lib.data_parallel``).
 
+The mesh (``AXIS_ORDER``, ``make_mesh``, ``Mesh``): named axes over the
+ranks, one process group an axis, and each rank's share of the batch
+(``local_batch_slice`` over the data axes) and of the sequence
+(``local_seq_slice``).  Five of the JAX package's mesh helpers have no
+body here: under explicit ranks every activation already lies as batch
+over the data axes and sequence over the sequence axis, because each
+rank feeds and keeps only its own rows and columns, so
+``batch_sharding`` and ``replicated`` (GSPMD placements of whole
+arrays), ``constrain_activation`` (a GSPMD layout pin) and
+``shard_map`` (a manual region over global arrays) have nothing to
+place, and ``devices_have_slice_index`` (a TPU device attribute) has
+nothing to probe: a node is a "slice", and the row-major rank layout
+keeps every axis but data inside one.
+
 Elastic resize, the workload half of the drain/join protocol
 (``WorldSignal``, ``parse_world_signal``, ``plan_resize``, ``shutdown``,
 ``reinitialize``): the controller publishes the live world on job
@@ -38,8 +52,9 @@ import os
 import ssl
 import time
 import urllib.request
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
@@ -226,8 +241,20 @@ def initialize(env: Optional[ProcessEnv] = None, *, device=None,
     return pe
 
 
-def local_batch_slice(global_batch: int, env: Optional[ProcessEnv] = None) -> Tuple[int, int]:
-    """(start, size) of this process's rows of the global batch."""
+def local_batch_slice(global_batch: int, env: Optional[ProcessEnv] = None,
+                      mesh: Optional["Mesh"] = None) -> Tuple[int, int]:
+    """(start, size) of this process's rows of the global batch: split
+    over the processes, or with ``mesh`` over its batch axes only (the
+    ranks of one sequence group feed the same rows)."""
+    if mesh is not None:
+        axes = batch_axes(mesh)
+        shards = batch_divisor(mesh, *axes)
+        if global_batch % shards != 0:
+            raise ValueError(
+                f"global batch {global_batch} not divisible by the "
+                f"{shards} batch shards of mesh axes {axes}")
+        per = global_batch // shards
+        return mesh.flat_index(axes) * per, per
     pe = env or process_env()
     if global_batch % pe.num_processes != 0:
         raise ValueError(
@@ -235,6 +262,200 @@ def local_batch_slice(global_batch: int, env: Optional[ProcessEnv] = None) -> Tu
         )
     per = global_batch // pe.num_processes
     return pe.process_id * per, per
+
+
+def local_seq_slice(seq_len: int, mesh: "Mesh") -> Tuple[int, int]:
+    """(start, size) of this rank's columns along the ``sequence`` axis
+    (the contiguous layout; the whole sequence without one)."""
+    n = mesh.size("sequence")
+    if seq_len % n != 0:
+        raise ValueError(
+            f"sequence length {seq_len} not divisible by the sequence axis "
+            f"size {n}")
+    per = seq_len // n
+    return mesh.index("sequence") * per, per
+
+
+# ---------------------------------------------------------------------------
+# the mesh: named axes over the ranks
+# ---------------------------------------------------------------------------
+#
+# The JAX package's mesh places devices; here each rank is one device, and
+# an axis is a process group (the module docstring says which of its
+# helpers have no body here).
+
+# Canonical logical axis order, slowest-varying first (the JAX package's):
+# data tolerates the slowest links, so it varies slowest and alone crosses
+# nodes; sequence and tensor communicate every layer and vary fastest.
+AXIS_ORDER: Tuple[str, ...] = ("data", "fsdp", "expert", "pipeline",
+                               "sequence", "tensor")
+
+
+def _factor_axes(n_devices: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """Resolve at most one -1 axis to soak up the remaining devices."""
+    sizes = dict(axes)
+    wild = [k for k, v in sizes.items() if v == -1]
+    if len(wild) > 1:
+        raise ValueError(f"at most one axis may be -1, got {wild}")
+    fixed = 1
+    for k, v in sizes.items():
+        if v != -1:
+            if v <= 0:
+                raise ValueError(f"axis {k!r} must be positive or -1, got {v}")
+            fixed *= v
+    if wild:
+        if n_devices % fixed != 0:
+            raise ValueError(
+                f"{n_devices} devices not divisible by fixed axes product {fixed}"
+            )
+        sizes[wild[0]] = n_devices // fixed
+        fixed = n_devices
+    if fixed != n_devices:
+        raise ValueError(
+            f"mesh axes {sizes} multiply to {fixed}, but {n_devices} devices present"
+        )
+    return sizes
+
+
+def hybrid_mesh_shapes(
+    names: Tuple[str, ...], shape: Tuple[int, ...], num_slices: int
+) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The split of a multi-node mesh: the slowest axis absorbs the node
+    boundary so only it crosses between nodes.  Returns ``(ici_shape,
+    dcn_shape)`` (within a node, across nodes) with elementwise ``ici *
+    dcn == shape``; raises if the slowest axis cannot be split."""
+    if num_slices <= 1:
+        raise ValueError(f"hybrid mesh needs num_slices > 1, got {num_slices}")
+    first = shape[0]
+    if first % num_slices != 0:
+        raise ValueError(
+            f"multislice mesh: slowest axis {names[0]!r}={first} must be "
+            f"divisible by num_slices={num_slices}, or per-layer "
+            f"collectives would cross the DCN"
+        )
+    dcn = [1] * len(shape)
+    dcn[0] = num_slices
+    ici = list(shape)
+    ici[0] = first // num_slices
+    return tuple(ici), tuple(dcn)
+
+
+def mesh_shape(axes: Optional[Dict[str, int]], world: int
+               ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """The axis names (in ``AXIS_ORDER``, any others after them, sorted)
+    and sizes of a mesh of ``world`` ranks (``axes`` as ``make_mesh``
+    takes them)."""
+    sizes = _factor_axes(world, dict(axes or {"data": -1}))
+    names = [a for a in AXIS_ORDER if a in sizes]
+    names += sorted(a for a in sizes if a not in AXIS_ORDER)
+    return tuple(names), tuple(sizes[a] for a in names)
+
+
+@dataclasses.dataclass
+class Mesh:
+    """Named axes over the ranks of the job, laid out row-major (data
+    slowest): rank ``r`` sits at ``np.unravel_index(r, shape)``.  ``groups``
+    holds, for each axis longer than 1, the process group of the ranks
+    that differ from this one along that axis only (None without a
+    process group, at world 1)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    rank: int = 0
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        return tuple(int(i) for i in np.unravel_index(self.rank, self.shape))
+
+    def size(self, axis: str) -> int:
+        """The axis' length; 1 for an axis the mesh does not carry."""
+        return (self.shape[self.axis_names.index(axis)]
+                if axis in self.axis_names else 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (0 off the mesh)."""
+        return (self.coords[self.axis_names.index(axis)]
+                if axis in self.axis_names else 0)
+
+    def flat_index(self, axes: Tuple[str, ...]) -> int:
+        """This rank's row-major index over ``axes`` together."""
+        out = 0
+        for a in axes:
+            out = out * self.size(a) + self.index(a)
+        return out
+
+    def axis_ranks(self, axis: str, rank: Optional[int] = None) -> List[int]:
+        """The ranks that differ from ``rank`` (default this one) along
+        ``axis`` only, in the axis' order."""
+        coords = list(np.unravel_index(self.rank if rank is None else rank,
+                                       self.shape))
+        i = self.axis_names.index(axis)
+        out = []
+        for j in range(self.shape[i]):
+            coords[i] = j
+            out.append(int(np.ravel_multi_index(coords, self.shape)))
+        return out
+
+    def group(self, axis: str):
+        """The process group along ``axis``: None when the axis is 1 long
+        (no exchange needed)."""
+        return self.groups.get(axis)
+
+
+def make_mesh(axes: Optional[Dict[str, int]] = None, *,
+              env: Optional[ProcessEnv] = None) -> Mesh:
+    """The mesh of this job's ranks (``axes`` maps axis name -> size, one
+    ``-1`` wildcard; default ``{"data": -1}``, pure data parallelism).
+
+    The world and this rank come from the live process group, or from
+    ``env`` without one.  Every process must call this together: each
+    axis' process groups are made with ``new_group`` on every rank, in one
+    order.  A multi-node job (``num_slices`` > 1) must be able to split
+    its data axis over the nodes (``hybrid_mesh_shapes``); the row-major
+    layout then puts each node's ranks on one stretch of the data axis."""
+    pe = env or process_env()
+    world = group_size() if tdist.is_initialized() else pe.num_processes
+    rank = tdist.get_rank() if tdist.is_initialized() else pe.process_id
+    names, shape = mesh_shape(axes, world)
+    if pe.num_slices > 1 and world % pe.num_slices == 0:
+        hybrid_mesh_shapes(names, shape, pe.num_slices)
+    mesh = Mesh(names, shape, rank)
+    if world > 1:
+        if not tdist.is_initialized():
+            raise RuntimeError(
+                f"a mesh of {world} ranks needs the process group "
+                "(distributed.initialize) first")
+        for axis, n in zip(names, shape):
+            if n == 1:
+                continue
+            seen = set()
+            for r in range(world):  # every group, in one order, everywhere
+                ranks = tuple(mesh.axis_ranks(axis, r))
+                if ranks in seen:
+                    continue
+                seen.add(ranks)
+                g = tdist.new_group(list(ranks))
+                if rank in ranks:
+                    mesh.groups[axis] = g
+    return mesh
+
+
+def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The batch-parallel axes this mesh carries: data and fsdp split the
+    batch; every model axis replicates it."""
+    return tuple(a for a in ("data", "fsdp") if a in mesh.axis_names)
+
+
+def batch_divisor(mesh: Mesh, *axes: str) -> int:
+    """Global batch dim 0 must be a multiple of this (the number of batch
+    shards the mesh produces)."""
+    if not axes:
+        axes = batch_axes(mesh)
+    out = 1
+    for a in axes:
+        out *= mesh.size(a)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -39,18 +39,21 @@ NEG_INF = -1e30  # finite, as in the reference kernels
 # kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
-KERNEL_HEAD_DIM = 64  # the head dim the CUDA kernels are built for
+# the head dims the CUDA kernels are instantiated for (each source's
+# template on D, launched by its C entry point's switch)
+KERNEL_HEAD_DIMS = (64, 32)
 
 
 def check_supported(dtype: torch.dtype, head_dim: int) -> None:
     """Raise unless the CUDA kernels take this dtype and head dim (bf16 at
-    64 only; other variants are not ported yet).  The one owner of that
+    64 or 32; other variants are not ported yet).  The one owner of that
     limit: model builders call it before touching the card, and every
     kernel launch calls it again."""
-    if dtype != torch.bfloat16 or head_dim != KERNEL_HEAD_DIM:
+    if dtype != torch.bfloat16 or head_dim not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"the flash kernels take bf16 at head dim {KERNEL_HEAD_DIM}, got "
-            f"{dtype} at head dim {head_dim}: not yet ported")
+            f"the flash kernels take bf16 at head dim "
+            f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {dtype} at "
+            f"head dim {head_dim}: not yet ported")
 
 
 def reset_launches() -> None:
@@ -173,7 +176,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_fwd", q, k, v)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -181,7 +184,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
     with torch.cuda.device(q.device):
         rc = lib.tpujob_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, sq, sk, float(scale), int(causal),
+            lse.data_ptr(), b, h, d, sq, sk, float(scale), int(causal),
             int(window), _stream(q))
     build.check(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
@@ -194,14 +197,14 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_dq", q, k, v, do, lse, delta)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty_like(q)
     lib = build.load("flash_dq")
     with torch.cuda.device(q.device):
         rc = lib.tpujob_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, d, sq, sk,
             float(scale), int(causal), int(window), _stream(q))
     build.check(rc, "flash_dq")
     LAUNCHES["flash_dq"] += 1
@@ -214,7 +217,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_dkv", q, k, v, do, lse, delta)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -223,7 +226,8 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
         rc = lib.tpujob_flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, sk, float(scale), int(causal), int(window), _stream(q))
+            b, h, d, sq, sk, float(scale), int(causal), int(window),
+            _stream(q))
     build.check(rc, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv

@@ -15,8 +15,16 @@ token a step against a KV cache, dense attention as in the JAX package;
 a MoE model falls back to ``generate``).  ``--generate N`` decodes N
 tokens after training.
 
+Under ``--sequence-parallel N`` each rank trains on its shard of every
+sequence (``bert.seq_positions``) with the targets of the global rows
+(``next_token_shard``, ``lm_loss``); decode runs the KV-cached route on
+every rank's whole model, as the JAX package's does (the cached route
+never runs the sequence-parallel attention).
+
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
+    torchrun --nproc-per-node 2 -m tpujob_torch.workloads.gpt --device cpu \
+        --sequence-parallel 2 --sp-mode ulysses --attention flash ...
     python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
     python -m tpujob_torch.workloads.gpt --attention flash \
         --data-file corpus.txt --tokenizer bpe:tok.json:512
@@ -26,25 +34,53 @@ from __future__ import annotations
 import argparse
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from tpujob_torch.workloads import bert as bertlib
 from tpujob_torch.workloads import distributed as dist
+from tpujob_torch.workloads import train_lib
 
 
-def lm_loss(model):
+def lm_loss(model, positions=None):
     """Next-token cross-entropy (shift by one).  The log-softmax runs in
     the logits' dtype (bf16 under --bf16), as in the JAX package.  A MoE
-    model adds the aux terms as ``bert.mlm_loss`` does."""
+    model adds the aux terms as ``bert.mlm_loss`` does.
+
+    With ``positions`` (a sequence shard's, ``bert.seq_positions``) the
+    batch is ``next_token_shard``'s ``(ids, targets, valid)``: the targets
+    come from the global row, so the pair that straddles two shards is
+    kept, and the global sequence's last position (no target) is left out.
+    The sum is over the shard and the count is the global batch's, scaled
+    by the world, so the ranks' mean is the global mean, as in
+    ``bert.mlm_loss``."""
 
     def loss_fn(batch):
-        (ids,) = batch  # [b, s] int64
-        logits, terms = bertlib.moe_forward(model, ids, loss_fn)
-        logp = torch.log_softmax(logits[:, :-1], dim=-1)
-        tok_ll = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
-        return bertlib.with_moe_aux(-tok_ll.mean(), terms)
+        if positions is None:
+            (ids,) = batch  # [b, s] int64
+            logits, terms = bertlib.moe_forward(model, ids, loss_fn)
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            tok_ll = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
+            return bertlib.with_moe_aux(-tok_ll.mean(), terms)
+        ids, targets, valid = batch
+        logits, terms = bertlib.moe_forward(model, ids, loss_fn, positions)
+        logp = torch.log_softmax(logits, dim=-1)
+        tok_ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+        count = train_lib.global_sum(valid.sum())
+        loss = -(tok_ll * valid).sum() * dist.group_size() / count
+        return bertlib.with_moe_aux(loss, terms)
 
     return loss_fn
+
+
+def next_token_shard(rows: np.ndarray, pos: np.ndarray) -> tuple:
+    """``(ids, targets, valid)`` of a sequence shard of ``rows`` [b, S] at
+    the global positions ``pos``: each token, the global row's next token
+    (its own at the last position), and 1.0 where a target exists."""
+    last = rows.shape[1] - 1
+    valid = np.broadcast_to((pos < last).astype(np.float32),
+                            (rows.shape[0], len(pos)))
+    return rows[:, pos], rows[:, np.minimum(pos + 1, last)], valid
 
 
 def sample_next(logit: torch.Tensor, rng: Optional[torch.Generator], *,
@@ -177,8 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_model(args, device):
-    return bertlib.build_model(args, device, causal=True, final_ln=True)
+def build_model(args, device, mesh=None):
+    return bertlib.build_model(args, device, causal=True, final_ln=True,
+                               mesh=mesh)
 
 
 def run(args, *, on_step: Optional[Callable[[int], None]] = None,
@@ -206,12 +243,22 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
             "--generate-top-k/--generate-top-p need "
             "--generate-temperature > 0 (greedy decode samples nothing)")
     tok = bertlib.tokenizer_from_args(args)
-    model = build_model(args, device)
-    ids0, provider, sample = bertlib.token_batches(args, pe, tokenizer=tok)
-    bp = None if provider is None else (lambda step: (provider(step),))
-    batch = (bertlib.batch_to_device(ids0, device),)
-    result = bertlib.train(args, pe, model, lm_loss, batch, tag="gpt",
-                           batch_provider=bp, on_step=on_step,
+    mesh = (bertlib.make_mesh_for(args, pe) if args.sequence_parallel > 1
+            else None)
+    model = build_model(args, device, mesh=mesh)
+    ids0, provider, sample = bertlib.token_batches(args, pe, tokenizer=tok,
+                                                   mesh=mesh)
+    pos = bertlib.seq_positions(args, mesh, causal=True)
+
+    def shard(rows):
+        return (rows,) if pos is None else next_token_shard(rows, pos)
+
+    bp = None if provider is None else (lambda step: shard(provider(step)))
+    positions = None if pos is None else torch.from_numpy(pos).to(device)
+    result = bertlib.train(args, pe, model,
+                           lambda net: lm_loss(net, positions=positions),
+                           train_lib.put_batch(shard(ids0), device),
+                           tag="gpt", batch_provider=bp, on_step=on_step,
                            capture=capture)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(

@@ -1,17 +1,31 @@
 """Dense attention, the reference every attention path is held against,
-and the sparse MoE feed-forward: the port of ``tpujob/workloads/parallel.py``.
+sequence parallelism, and the sparse MoE feed-forward: the port of
+``tpujob/workloads/parallel.py``.
 
-Layout is the JAX package's ``[batch, seq, heads, head_dim]``.  Only the
-unsharded pieces are ported so far (grouped-query repeat, full attention,
-and ``moe_capacity``/``moe_ffn`` on one device); the sequence, tensor,
-expert and pipeline strategies are not.
+Layout is the JAX package's ``[batch, seq, heads, head_dim]``.  Ported:
+grouped-query repeat, full attention, the two sequence-parallel
+attentions over a process group (``ring_attention``, with its zigzag
+causal schedule, and ``ulysses_attention``) with their exchanges
+(``shift``, ``all_to_all``: autograd functions whose backward is the
+inverse exchange, counted in ``EXCHANGES``), and
+``moe_capacity``/``moe_ffn`` on one device.  The
+tensor, expert and pipeline strategies are not ported.
+
+Where the JAX package's attentions take global arrays and cut them with
+``shard_map``, these take this rank's shard: its rows of the batch and
+its columns of the sequence, in the layout ``ring_layout_zigzag`` names
+(the model keeps its tokens in that layout from the embedding on).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 
@@ -52,6 +66,335 @@ def full_attention(q, k, v, *, causal: bool = False,
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the exchanges
+# ---------------------------------------------------------------------------
+
+
+# the exchanges since the last ``reset_exchanges()``: calls, bytes sent,
+# and with ``EXCHANGE_TIMING`` set the host seconds spent in them, the
+# card synced on both sides of each (a measurement, not the training path)
+EXCHANGES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+EXCHANGE_TIMING = False
+
+
+def reset_exchanges() -> None:
+    EXCHANGES.update(calls=0, bytes=0, seconds=0.0)
+
+
+@contextlib.contextmanager
+def _counted(x: torch.Tensor):
+    EXCHANGES["calls"] += 1
+    EXCHANGES["bytes"] += x.numel() * x.element_size()
+    if not EXCHANGE_TIMING:
+        yield
+        return
+    cuda = x.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    yield
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    EXCHANGES["seconds"] += time.perf_counter() - t0
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else tdist.get_world_size(group)
+
+
+def _group_rank(group) -> int:
+    return 0 if group is None else tdist.get_rank(group)
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``x`` of the rank ``step`` places ahead in ``group`` (this rank's
+    goes to the rank ``step`` places behind): one send and one receive.
+    gloo's send and receive take host memory only (it reads a CUDA
+    tensor's address as a host one), so a CUDA tensor in a gloo group is
+    copied to the host, exchanged and copied back; NCCL exchanges the
+    device tensors.  The backend decides, never a caught failure."""
+    n, i = _group_size(group), _group_rank(group)
+    dst = tdist.get_global_rank(group, (i - step) % n)
+    src = tdist.get_global_rank(group, (i + step) % n)
+    staged = (x.device.type == "cuda"
+              and tdist.get_backend(group) == tdist.Backend.GLOO)
+    with _counted(x):
+        send = x.detach().contiguous()
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        ops = [tdist.P2POp(tdist.isend, send, dst, group),
+               tdist.P2POp(tdist.irecv, recv, src, group)]
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(x.device) if staged else recv
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.step), None, None
+
+
+def shift(x: torch.Tensor, group) -> torch.Tensor:
+    """The ring's neighbour exchange (``jax.lax.ppermute`` with
+    ``perm = [(j, (j - 1) % n)]``): returns the ``x`` of the next rank.
+    Differentiable: the backward shifts the gradient the other way."""
+    if _group_size(group) == 1:
+        return x
+    return _Shift.apply(x, group, 1)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, split_axis, concat_axis, tiled=True)`` over
+    ``group``: chunk j of ``split_axis`` goes to group rank j, and the
+    chunks received are concatenated along ``concat_axis`` in the order of
+    the ranks they came from.  One ``all_to_all_single`` on the tensors
+    where they lie: gloo takes CUDA tensors in it (it stages them through
+    the host itself), NCCL exchanges them on the card."""
+    n = _group_size(group)
+    send = x.unflatten(split_axis, (n, x.shape[split_axis] // n))
+    send = send.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    with _counted(send):
+        tdist.all_to_all_single(recv, send, group=group)
+    return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        # the transpose of a tiled all-to-all swaps its two axes
+        return (_all_to_all(g, ctx.group, concat_axis, split_axis), None,
+                None, None)
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` unchanged, with ``others`` as inputs whose gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(shape, dtype=dtype, device=device)
+                     for shape, dtype, device in ctx.others))
+
+
+def tie(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """``x``, made to depend on ``others`` with a zero gradient: an
+    exchange whose result a rank does not use (a ring hop wholly in its
+    future) still runs its backward exchange, which the other ranks of its
+    group wait for."""
+    return _Tie.apply(x, *others) if others else x
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Differentiable tiled all-to-all (see ``_all_to_all``); its backward
+    is the all-to-all with the axes swapped."""
+    if _group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: ring attention (contiguous and zigzag) and Ulysses
+# ---------------------------------------------------------------------------
+
+
+def _block_attention(q, k, v, bias, m_prev, l_prev, o_prev, scale):
+    """One flash-style block update: the softmax statistics (m, l) and the
+    output accumulator o [b, h, sq, d] folded over an incoming K/V block,
+    in fp32 whatever the inputs' dtype."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    # renormalise the previous accumulator to the new max
+    alpha = torch.exp(m_prev - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l_prev * alpha + p.sum(dim=-1)
+    o_new = o_prev * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                     v.float())
+    return m_new, l_new, o_new
+
+
+def _acc0(q, sq: int):
+    """The empty running (m, l, o) of ``sq`` query rows of ``q``."""
+    b, _, h, d = q.shape
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    return m, torch.zeros_like(m), torch.zeros((b, h, sq, d), device=q.device)
+
+
+def _finish(o, l, dtype):
+    return (o / l[..., None]).permute(0, 2, 1, 3).to(dtype)  # [b, sq, h, d]
+
+
+def _causal_bias(sq: int, sk: int, device) -> torch.Tensor:
+    """The within-block diagonal: 0 where key <= query, a finite -1e30
+    elsewhere (a fully masked row must not poison the running max)."""
+    vis = torch.arange(sq, device=device)[:, None] >= torch.arange(
+        sk, device=device)[None, :]
+    return torch.where(vis, 0.0, -1e30)[None, None]
+
+
+def ring_layout_zigzag(seq_len: int, n: int, causal: bool) -> bool:
+    """Whether the ring holds the sequence in the zigzag layout: causal
+    attention whose sequence tiles into 2n chunks (``ring_attention``'s
+    rule in the JAX package)."""
+    return causal and n > 1 and seq_len % (2 * n) == 0
+
+
+def zigzag_index(seq_len: int, n: int, rank: int) -> np.ndarray:
+    """The global positions of rank ``rank``'s tokens in the zigzag layout:
+    chunks ``rank`` and ``2n - 1 - rank`` of the sequence cut into 2n, one
+    early and one late."""
+    c = seq_len // (2 * n)
+    return np.r_[np.arange(rank * c, (rank + 1) * c),
+                 np.arange((2 * n - 1 - rank) * c, (2 * n - rank) * c)]
+
+
+def ring_attention(q, k, v, group, *, causal: bool = False,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Exact attention over a sequence split over the ranks of ``group``
+    (the sequence axis): the JAX package's ``ring_attention``.
+
+    q, k, v are this rank's shard ``[b, s/n, h, d]`` (K/V may carry fewer,
+    grouped-query heads); the result is its shard of the output.  The
+    layout is ``ring_layout_zigzag``'s: causal attention over a sequence
+    that tiles into 2n chunks runs the zigzag schedule
+    (``_zigzag_ring_attention``) on shards that hold chunks (j, 2n-1-j) of
+    the sequence; otherwise a rank holds the contiguous block j.  At each
+    of the n hops the rank attends its Q block to the K/V block it holds,
+    then takes its neighbour's (``shift``, K and V stacked in one
+    message); the softmax stays exact through running (m, l) statistics
+    in fp32.  Under the causal mask a K/V block wholly in the Q block's
+    future is passed on without being computed (``tie`` keeps its
+    backward exchange in step with the group's).  GQA: the ring moves the
+    KV-head tensors and repeats the heads only at compute.  Each hop is a
+    dense einsum, as in the JAX package (no kernel runs per hop)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    n, idx = _group_size(group), _group_rank(group)
+    sq = q.shape[1]
+    if ring_layout_zigzag(n * sq, n, causal) and k.shape[1] == sq:
+        return _zigzag_ring_attention(q, k, v, group, scale)
+    m, l, o = _acc0(q, sq)
+    kv = torch.stack((k, v))
+    passed = []
+    for i in range(n):
+        if i:
+            kv = shift(kv, group)  # the block of rank idx + i now
+        src = (idx + i) % n
+        if causal and src > idx:
+            passed.append(kv)  # wholly in this block's future: no compute
+            continue
+        bias = (_causal_bias(sq, kv.shape[2], q.device)
+                if causal and src == idx else None)
+        kr, vr = _gqa_repeat(q, kv[0], kv[1])
+        m, l, o = _block_attention(q, kr, vr, bias, m, l, o, scale)
+    return tie(_finish(o, l, q.dtype), *passed)
+
+
+def _zigzag_ring_attention(q, k, v, group, scale):
+    """Causal ring attention on the zigzag layout: this rank j holds the
+    pair (chunk j, chunk 2n-1-j), one early and one late, which balances
+    the causal work.  At hop 0 (its own pair) it attends early x early and
+    late x late under the diagonal mask and late x early in full; at each
+    later hop, with the pair of rank s:
+      - late Q x early K is live and fully visible for every s != j;
+      - the other live pair is early x early when s < j, late x late when
+        s > j (the JAX package selects the pair with ``jnp.where``; here
+        the branch is on the rank, a Python int).
+    3 + 2(n-1) chunk attentions against 4n.  The shards stay in zigzag
+    order from the embedding on (positions and targets permuted to match),
+    so no layer permutes anything; the JAX package permutes natural-order
+    inputs in and out at each call instead."""
+    n, idx = _group_size(group), _group_rank(group)
+    c = q.shape[1] // 2
+    qa, qb = q[:, :c], q[:, c:]  # early chunk j, late chunk 2n-1-j
+    tri = _causal_bias(c, c, q.device)
+
+    def attend(qc, kc, vc, bias, acc):
+        kr, vr = _gqa_repeat(qc, kc, vc)
+        return _block_attention(qc, kr, vr, bias, *acc, scale)
+
+    kv = torch.stack((k, v))
+    acc_a = attend(qa, k[:, :c], v[:, :c], tri, _acc0(q, c))
+    acc_b = attend(qb, k[:, :c], v[:, :c], None, _acc0(q, c))
+    acc_b = attend(qb, k[:, c:], v[:, c:], tri, acc_b)
+    for i in range(1, n):
+        kv = shift(kv, group)
+        s = (idx + i) % n  # owner of the pair now held
+        ka, kb = kv[0][:, :c], kv[0][:, c:]
+        va, vb = kv[1][:, :c], kv[1][:, c:]
+        acc_b = attend(qb, ka, va, None, acc_b)
+        if s < idx:
+            acc_a = attend(qa, ka, va, None, acc_a)
+        else:
+            acc_b = attend(qb, kb, vb, None, acc_b)
+    (ma, la, oa), (mb, lb, ob) = acc_a, acc_b
+    return torch.cat([_finish(oa, la, q.dtype), _finish(ob, lb, q.dtype)],
+                     dim=1)
+
+
+def ulysses_attention(q, k, v, group, *, causal: bool = False,
+                      scale: Optional[float] = None, attention_impl=None,
+                      axis: str = "sequence") -> torch.Tensor:
+    """All-to-all sequence parallelism (DeepSpeed-Ulysses), the JAX
+    package's ``ulysses_attention``, on this rank's contiguous shard
+    ``[b, s/n, h, d]``.
+
+    One ``all_to_all`` re-shards sequence -> heads (q, k and v stacked
+    into one exchange when the heads are equal; under GQA q alone and K/V
+    stacked), so each rank holds the whole sequence for h/n heads;
+    ``attention_impl`` (default ``full_attention``; ``flash.flash_attention``
+    runs B1-B3 there) attends over ``[b, S, h/n, d]`` with the ordinary
+    causal mask, and a second all-to-all brings the output back to
+    ``[b, s/n, h, d]``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    n = _group_size(group)
+    heads, hkv = q.shape[2], k.shape[2]
+    if heads % n != 0:
+        raise ValueError(
+            f"ulysses attention needs heads ({heads}) divisible by the "
+            f"{axis!r} axis size ({n}); use ring_attention otherwise")
+    if hkv != heads and hkv % n != 0:
+        raise ValueError(
+            f"ulysses attention needs KV heads ({hkv}) divisible by the "
+            f"{axis!r} axis size ({n}); use ring_attention otherwise")
+    if hkv == heads:
+        qkv = all_to_all(torch.stack((q, k, v)), group, split_axis=3,
+                         concat_axis=2)  # [3, b, s, h/n, d]
+        q_, k_, v_ = qkv[0], qkv[1], qkv[2]
+    else:
+        q_ = all_to_all(q, group, split_axis=2, concat_axis=1)
+        kv = all_to_all(torch.stack((k, v)), group, split_axis=3,
+                        concat_axis=2)
+        k_, v_ = kv[0], kv[1]
+    impl = attention_impl or full_attention
+    out = impl(q_, k_, v_, causal=causal, scale=scale)
+    # [b, s, h/n, d] -> [b, s/n, h, d]
+    return all_to_all(out, group, split_axis=1, concat_axis=2)
 
 
 # ---------------------------------------------------------------------------
