@@ -145,7 +145,24 @@ Phases, one JSON line each on stdout:
     rank's ms a step (steps 2-3) and the share of it in the exchanges
     (the card synced around each): a record of gloo on one card, not a
     speed of sequence parallelism.
-15. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
+15. ``shard``: FSDP and tensor parallelism, two ranks on the one card
+   over gloo (as ``sp``; gloo takes the CUDA tensors in every collective
+   FSDP2 and the Megatron exchanges make), one line a part, each against
+   the parent's own one-process captured run of the same seed and global
+   batch (8), GPT-2-medium at full width and depth through ``gpt.run``, 3
+   steps: ``fsdp``, ``--fsdp 2 --attention flash`` (each rank 4 rows into
+   B1-B3, 48 / 24 / 24 launches a rank-step, and half of every parameter
+   and AdamW moment); ``tp``, ``--tensor-parallel 2`` with dense
+   attention (the JAX package refuses flash with TP; each rank 8 heads,
+   half the FFN and vocab, all 8 rows).  Losses within SHARD_LOSS_RTOL
+   (or one bf16 ulp), ``update_err`` after step 1 within
+   SHARD_UPDATE_RTOL, each rank's parameter and moment bytes against one
+   process's, the parameters TP holds whole bit-equal on both ranks, peak
+   memory, and the exchanges' calls, bytes and share of a rank-step
+   (FSDP's all-gathers and reduce-scatters counted around
+   ``torch.distributed``'s calls, ``counted_collectives``): a record of
+   correctness and memory, not a speed of FSDP or TP.
+16. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
     tpujob_torch.bench_models --models resnet50,bert-large,gpt`` and
     ``python -m tpujob_torch.bench_models --quick --models gpt`` (head dim
     32) as child processes on the card; their JSON lines are printed as
@@ -176,7 +193,7 @@ import sys
 import tempfile
 import time
 import traceback
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -272,6 +289,28 @@ SP_LOSS_RTOL = 1e-2
 # gate; AdamW's first update moves each weight by about lr * sign(g), and
 # the rounding that tells two layouts apart flips the near-zero ones.
 SP_UPDATE_RTOL = 0.25
+# shard: FSDP and tensor parallelism, two ranks on the one card (gloo),
+# GPT-2-medium at full width and depth, global batch 8, 3 steps, each part
+# against one process's captured step on the same batch from the seed
+SHARD_WORLD = 2
+SHARD_STEPS = 3
+SHARD_BASE_ARGV = ["--batch-size", "8", "--steps", str(SHARD_STEPS),
+                   "--log-interval", "1", "--seed", "0"]
+SHARD_PARTS = {
+    # part: (module, the ranks' flags, the one process's flags)
+    "fsdp": ("gpt", ["--fsdp", "2", "--attention", "flash"],
+             ["--attention", "flash"]),
+    "tp": ("gpt", ["--tensor-parallel", "2"], []),
+}
+# Losses against one process: 5e-3 relative, or one bf16 ulp of the loss
+# where that is more (a bf16 scalar near 11: 0.0625, 5.7e-3 relative).
+# Under FSDP the reported loss averages two ranks' bf16 means of 4 rows
+# each, which rounds differently from one mean of 8; under TP the logits
+# come from partial products summed in bf16 (another rounding).
+SHARD_LOSS_RTOL = 5e-3
+# The params after step 1 against one process's (``update_err``): the
+# gate of ``ddp`` and ``sp``, and their reason.
+SHARD_UPDATE_RTOL = 0.25
 # graph: each trainer once eager (capture=False) and once captured, from
 # one seed; the two must agree bit for bit (the same kernels in the same
 # order): GPT-2-medium 8 steps, BERT-large MLM 8 mini-steps in groups of 2
@@ -1572,7 +1611,7 @@ def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
 
 
 def spawn_ranks(world: int, out_dir: str, fn, plan: dict) -> list:
-    """``fn(rank, envs, out_dir, plan)`` (``ddp_rank``, ``sp_rank``) in
+    """``fn(rank, envs, out_dir, plan)`` (``ddp_rank``, ``mesh_rank``) in
     ``world`` spawned processes with the operator's env
     (``TPUJOB_*`` and the torch.distributed spelling, as it writes them
     for a job with no ``tpu`` field); a rank that fails or a spawn that
@@ -1732,26 +1771,91 @@ def run_ddp() -> dict:
     return r0["gpt"]["launches"]
 
 
-def sp_plan() -> dict:
-    """What each rank of the ``sp`` phase runs, passed to it whole."""
-    return {"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
-            "base": SP_BASE_ARGV, "parts": SP_PARTS}
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
-def sp_run(module, argv: list, device: str, logdir: str) -> dict:
+@contextmanager
+def counted_collectives():
+    """Count each collective made through ``torch.distributed`` inside the
+    block into ``parallel.EXCHANGES`` (the bytes of its input), and under
+    ``parallel.EXCHANGE_TIMING`` time it to its end with the card synced
+    around it: what FSDP2's all-gathers and reduce-scatters cost a
+    rank-step, which its own code does not count.  A collective one of
+    these makes inside itself counts once."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import parallel
+
+    names = [n for n in ("all_gather_into_tensor", "all_gather_single",
+                         "reduce_scatter_tensor", "reduce_scatter_single",
+                         "all_reduce") if hasattr(tdist, n)]
+    saved = {n: getattr(tdist, n) for n in names}
+    inside = []
+
+    def wrap(fn):
+        def call(*a, **kw):
+            if inside:
+                return fn(*a, **kw)
+            tensors = [v for v in (*a, *kw.values()) if torch.is_tensor(v)]
+            inside.append(True)
+            try:
+                with parallel.counted(tensors[-1]):
+                    work = fn(*a, **kw)
+                    if work is not None and parallel.EXCHANGE_TIMING:
+                        work.wait()
+            finally:
+                inside.pop()
+            return work
+        return call
+
+    for n in names:
+        setattr(tdist, n, wrap(saved[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(tdist, n, saved[n])
+
+
+def whole_leaves(model, mesh) -> dict:
+    """The leaves ``update_err`` reads (``gpt_leaves``), gathered whole
+    from this rank's shards (fp32, on the host); every rank of the mesh
+    calls it together."""
+    from tpujob_torch.workloads import parallel
+
+    shards = parallel.ParamShards(mesh.group("tensor"))
+    prefixes = gpt_leaves(model)
+    return {n: shards.full(n, p).float() for n, p in model.named_parameters()
+            if n.startswith(prefixes)}
+
+
+def local_bytes(tensors) -> int:
+    """The bytes this rank holds of ``tensors`` (a DTensor's local
+    shard)."""
+    return sum((t.to_local() if hasattr(t, "to_local") else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
     """``module.run`` through its flag surface, with launches counted from
     0, the card synced and the host clock stamped after each step, the
     exchanges counted and timed from the end of step 1 on
-    (``parallel.EXCHANGE_TIMING``), and the leaves ``update_err`` reads
-    (``gpt_leaves``) at the build and after step 1."""
+    (``parallel.EXCHANGE_TIMING``; under ``--fsdp`` FSDP's collectives
+    too, ``counted_collectives``), and the leaves ``update_err`` reads
+    (``gpt_leaves``, gathered whole) at the build and after step 1; and
+    the bytes this rank holds of the parameters and of AdamW's moments,
+    its peak memory, and the parameters it holds whole that a tensor
+    group would split none of, as it holds them."""
     from tpujob_torch.workloads import bert, flash, parallel, train_lib
 
-    build, models, leaves = bert.build_model, [], {}
+    build, built, leaves = bert.build_model, [], {}
 
     def keep(*a, **kw):
         model = build(*a, **kw)
-        models.append(model)
-        leaves["init"] = param_digest(model, gpt_leaves(model))["leaves"]
+        built.append((model, kw["mesh"]))
+        leaves["init"] = whole_leaves(model, kw["mesh"])
         return model
 
     stamps = []
@@ -1760,37 +1864,58 @@ def sp_run(module, argv: list, device: str, logdir: str) -> dict:
         train_lib.sync(device)
         stamps.append(time.perf_counter())
         if i == 0:
-            leaves["step1"] = param_digest(
-                models[0], gpt_leaves(models[0]))["leaves"]
+            leaves["step1"] = whole_leaves(*built[0])
             parallel.reset_exchanges()
 
     bert.build_model = keep
     flash.reset_launches()
+    torch.zeros(1, device=device)  # the allocator's statistics exist now
+    torch.cuda.reset_peak_memory_stats()
     parallel.EXCHANGE_TIMING = True
     try:
-        res = entry(module, argv, device, logdir, on_step)
+        with counted_collectives() if "--fsdp" in argv else nullcontext():
+            res = entry(module, argv, device, logdir, on_step)
     finally:
         bert.build_model = build
         parallel.EXCHANGE_TIMING = False
     ms = [(y - x) * 1e3 for x, y in zip(stamps, stamps[1:])]
+    model, opt = res["state"]["model"], res["state"]["opt"]
     return {"losses": res["losses"], "step_ms": ms,
             "launches": dict(flash.LAUNCHES), "leaves": leaves,
             "exchanges": dict(parallel.EXCHANGES),
             "exchange_share": parallel.EXCHANGES["seconds"] * 1e3 / sum(ms),
-            "step_mode": res["step_mode"]}
+            "step_mode": res["step_mode"],
+            "param_bytes": local_bytes(model.parameters()),
+            "moment_bytes": local_bytes(
+                st[k] for st in opt.state.values()
+                for k in ("exp_avg", "exp_avg_sq")),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "replicated": {n: p.detach().float().cpu()
+                           for n, p in model.named_parameters()
+                           if parallel.tp_dim(n) is None
+                           and not hasattr(p, "to_local")}}
 
 
-def sp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
-    """One rank of the ``sp`` phase: the group over gloo on the card, then
-    each part's run (``sp_run``); what the parent checks goes to
-    ``out_dir``."""
+def mesh_plan(base: list, parts: dict) -> dict:
+    """What each rank of the ``sp`` or ``shard`` phase runs, passed to it
+    whole (a spawned rank imports this file anew)."""
+    return {"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+            "base": base, "parts": parts}
+
+
+def mesh_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
+    """One rank of the ``sp`` or ``shard`` phase: the group over gloo on
+    the card, then each part's run (``mesh_run``); what the parent checks
+    goes to ``out_dir``."""
     import datetime
+    import faulthandler
     import importlib
 
     import torch.distributed as tdist
 
     from tpujob_torch.workloads import distributed as dist
 
+    faulthandler.enable()  # a crash inside a collective prints its stack
     os.environ.update(envs[rank])
     device = plan["device"]
     pe = dist.initialize(device=torch.device(device), backend="gloo",
@@ -1799,8 +1924,8 @@ def sp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
            "backend": tdist.get_backend()}
     for part, (name, flags, _) in plan["parts"].items():
         module = importlib.import_module(f"tpujob_torch.workloads.{name}")
-        out[part] = sp_run(module, plan["base"] + flags, device,
-                           os.path.join(out_dir, f"rank{rank}", part))
+        out[part] = mesh_run(module, plan["base"] + flags, device,
+                             os.path.join(out_dir, f"rank{rank}", part))
     dist.shutdown()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
@@ -1824,16 +1949,16 @@ def run_sp() -> dict:
     out_dir = os.path.join("build", "chip_smoke", "sp")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    plan = sp_plan()
+    plan = mesh_plan(SP_BASE_ARGV, SP_PARTS)
     one = {}
     for part, (name, _, flags) in SP_PARTS.items():
         module = importlib.import_module(f"tpujob_torch.workloads.{name}")
-        one[part] = sp_run(module, SP_BASE_ARGV + flags, plan["device"],
-                           os.path.join(out_dir, "one", part))
+        one[part] = mesh_run(module, SP_BASE_ARGV + flags, plan["device"],
+                             os.path.join(out_dir, "one", part))
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(SP_WORLD, out_dir, sp_rank, plan)
+    ranks = spawn_ranks(SP_WORLD, out_dir, mesh_rank, plan)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -1891,6 +2016,103 @@ def run_sp() -> dict:
         raise AssertionError(f"sp path failed: {failed}")
     return ({k: launches["ulysses"][k] + launches["mlm"][k]
              for k in flash.LAUNCHES}, local)
+
+
+def run_shard() -> dict:
+    """Each part's one-process run, then two gloo ranks on the card
+    running every part; one line a part."""
+    import gc
+    import importlib
+
+    from tpujob_torch.workloads import flash
+
+    out_dir = os.path.join("build", "chip_smoke", "shard")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    plan = mesh_plan(SHARD_BASE_ARGV, SHARD_PARTS)
+    one = {}
+    for part, (name, _, flags) in SHARD_PARTS.items():
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        one[part] = mesh_run(module, SHARD_BASE_ARGV + flags, plan["device"],
+                             os.path.join(out_dir, "one", part))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SHARD_WORLD, out_dir, mesh_rank, plan)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    failed = []
+    for part, (name, flags, one_flags) in SHARD_PARTS.items():
+        ref = one[part]
+        runs = [r[part] for r in ranks]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(runs[0]["losses"], ref["losses"]))
+        errs = [update_err(r["leaves"]["step1"], ref["leaves"]["step1"],
+                           ref["leaves"]["init"]) for r in runs]
+        # B1 twice a layer a step (the forward and its remat replay), B2
+        # and B3 once; none under TP (dense attention)
+        n = 24 * SHARD_STEPS * ("flash" in flags)
+        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        checks = {
+            "gloo_groups": all(r["backend"] == "gloo"
+                               and r["pe"] == [i, SHARD_WORLD]
+                               for i, r in enumerate(ranks)),
+            "losses": all(len(r["losses"]) == SHARD_STEPS
+                          and all(math.isfinite(x) for x in r["losses"])
+                          for r in runs)
+            and runs[0]["losses"] == runs[1]["losses"]
+            and all(abs(x - y) <= max(SHARD_LOSS_RTOL * abs(y), bf16_ulp(y))
+                    for x, y in zip(runs[0]["losses"], ref["losses"])),
+            "params_after_step1": max(errs) <= SHARD_UPDATE_RTOL,
+            "launches": all(r["launches"] == ref["launches"] == want
+                            for r in runs),
+            "exchanged": all(r["exchanges"]["calls"] > 0 for r in runs),
+            # each rank holds half the parameters and moments under FSDP;
+            # under TP half the split ones and the rest whole
+            "state_sharded": all(
+                (r["param_bytes"] * SHARD_WORLD == ref["param_bytes"]
+                 if part == "fsdp" else
+                 ref["param_bytes"] / SHARD_WORLD < r["param_bytes"]
+                 < ref["param_bytes"])
+                and r["moment_bytes"] == 2 * r["param_bytes"]
+                for r in runs),
+            "replicated_equal": all(
+                torch.equal(v, runs[0]["replicated"][k])
+                for r in runs for k, v in r["replicated"].items()),
+        }
+        ok = all(checks.values())
+        launches[part] = runs[0]["launches"]
+        emit({"phase": "shard", "part": part, "ok": ok, "checks": checks,
+              "argv": SHARD_BASE_ARGV + flags, "one_process_argv":
+              SHARD_BASE_ARGV + one_flags, "world": SHARD_WORLD,
+              "backend": "gloo (two ranks on one card; NCCL refuses)",
+              "losses_rank0": runs[0]["losses"],
+              "losses_one_process": ref["losses"], "max_rel_diff": rel,
+              "loss_rtol": SHARD_LOSS_RTOL, "update_err_by_rank": errs,
+              "update_rtol": SHARD_UPDATE_RTOL,
+              "launches_by_rank": [r["launches"] for r in runs],
+              "launches_one_process": ref["launches"],
+              "param_bytes_by_rank": [r["param_bytes"] for r in runs],
+              "moment_bytes_by_rank": [r["moment_bytes"] for r in runs],
+              "param_bytes_one_process": ref["param_bytes"],
+              "moment_bytes_one_process": ref["moment_bytes"],
+              "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in runs],
+              "peak_mem_gb_one_process": ref["peak_mem_gb"],
+              "step_ms_by_rank": [r["step_ms"] for r in runs],
+              "step_ms_one_process": ref["step_ms"],
+              "step_mode_one_process": ref["step_mode"],
+              "exchanges_by_rank": [r["exchanges"] for r in runs],
+              "exchange_share_by_rank": [r["exchange_share"] for r in runs],
+              "spawn_s": spawn_s,
+              "times_note": "per-rank ms a step (steps 2-3) of two ranks "
+                            "sharing one card over gloo, the card synced "
+                            "around each exchange: a record of correctness "
+                            "and memory, not a speed of FSDP or TP"})
+        if not ok:
+            failed.append((part, checks))
+    if failed:
+        raise AssertionError(f"shard path failed: {failed}")
+    return {k: launches["fsdp"][k] + launches["tp"][k] for k in flash.LAUNCHES}
 
 
 def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
@@ -2182,6 +2404,7 @@ def main(argv=None) -> int:
         run_resnet()
         by_path["ddp"] = run_ddp()
         by_path["sp"], timed["sp_local_h8"] = run_sp()
+        by_path["shard"] = run_shard()
         by_path["bench"], by_path["bench_quick_d32"] = run_bench()
         launches = by_path["train"]
 

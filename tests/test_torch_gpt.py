@@ -181,12 +181,16 @@ def test_param_count_gpt2_medium():
 ])
 def test_unported_flags_raise(flag, value):
     # expert parallelism needs experts: without them the JAX package's
-    # ValueError comes first (tests/test_torch_moe.py); sequence
-    # parallelism is ported (with flash, as Ulysses's local attention),
-    # MoE with it is not
+    # ValueError comes first (tests/test_torch_moe.py); sequence and
+    # tensor parallelism and FSDP are ported (SP with flash, as Ulysses's
+    # local attention; TP with dense attention, as the JAX package refuses
+    # flash with it), MoE with any of them is not
     moe = {"--expert-parallel": ["--moe-experts", "4"],
            "--sequence-parallel": ["--moe-experts", "4", "--sp-mode",
-                                   "ulysses"]}.get(flag, [])
+                                   "ulysses"],
+           "--tensor-parallel": ["--moe-experts", "4", "--attention",
+                                 "dense"],
+           "--fsdp": ["--moe-experts", "4"]}.get(flag, [])
     args = tgpt.build_parser().parse_args(
         ARGV + ["--device", "cpu", flag, value] + moe)
     with pytest.raises(NotImplementedError, match="not yet ported"):

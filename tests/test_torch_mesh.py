@@ -103,3 +103,39 @@ def test_one_process_mesh_has_no_groups():
     assert (mesh.axis_names, mesh.shape, mesh.coords) == (("data",), (1,),
                                                           (0,))
     assert mesh.group("data") is None and mesh.size("sequence") == 1
+
+
+@pytest.mark.parametrize("axes,devices", [
+    ({"data": 2, "tensor": 2}, 4), ({"sequence": 2, "tensor": 2}, 4),
+    ({"data": -1, "sequence": 2, "tensor": 2}, 8),
+    ({"data": -1, "fsdp": 2, "tensor": 2}, 8)])
+def test_groups_of_several_axes_match_jax_device_mesh(axes, devices):
+    """The ranks a group over several axes holds (``Mesh.grid``, which
+    ``make_mesh`` makes each group from): for every rank and every set of
+    the mesh's axes (the replica axes data x sequence, the token axes
+    data x fsdp x sequence among them), the devices of the JAX package's
+    mesh that differ from the rank's along those axes only, row-major over
+    them; ``live`` drops the axes the mesh does not carry or holds 1
+    long."""
+    jmesh = jdist.make_mesh(axes, env=jdist.process_env({}),
+                            devices=jax.devices()[:devices])
+    ids = np.vectorize(lambda dv: dv.id)(jmesh.devices)
+    names, shape = tdist.mesh_shape(axes, devices)
+    for r in range(devices):
+        mesh = tdist.Mesh(names, shape, r)
+        where = tuple(int(i) for i in np.argwhere(ids == r)[0])
+        for k in range(1, len(names) + 1):
+            for subset in itertools.combinations(names, k):
+                block = ids[tuple(slice(None) if a in subset else c
+                                  for a, c in zip(names, where))]
+                assert mesh.grid(*subset).ravel().tolist() == \
+                    block.ravel().tolist(), (r, subset)
+        assert mesh.live(tdist.REPLICA_AXES) == tuple(
+            a for a in names if a in ("data", "sequence")
+            and mesh.size(a) > 1)
+        assert mesh.size(*tdist.TOKEN_AXES) == tdist.token_shards(mesh) \
+            == devices // mesh.size("tensor")
+        # rank r's replica group holds the ranks of its tensor index
+        replica = mesh.grid(*tdist.REPLICA_AXES).ravel().tolist()
+        assert {q % mesh.size("tensor") for q in replica} == {
+            r % mesh.size("tensor")}

@@ -403,6 +403,109 @@ def sp_trainer_ranks(rank, runs):
     return out
 
 
+def local_numel(t) -> int:
+    """The elements this rank holds of ``t`` (a DTensor's local shard)."""
+    return t.to_local().numel() if hasattr(t, "to_local") else t.numel()
+
+
+def shard_trainer_ranks(rank, runs):
+    """``module.run`` for each ``(module name, argv, flax params)`` of
+    ``runs``, each rank starting from its own slice of the flax weights
+    (``convert.params_from_flax`` over the run's mesh): each run's losses,
+    final step and tokens generated; the parameters after the run gathered
+    whole (``parallel.ParamShards``), every one this rank holds whole
+    (``parallel.TP_RULES`` splits none of them) as it holds it, the
+    elements this rank holds of the parameters and of AdamW's moments, and
+    the ranks of its mesh's groups (tensor, replica, token axes), as
+    ``get_process_group_ranks`` reads them."""
+    import importlib
+
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import bert, convert, parallel
+
+    join()
+    build = bert.build_model
+    out = []
+    for name, argv, tree in runs:
+        meshes = []
+
+        def built(args, device, *, mesh=None, **kw):
+            model = build(args, device, mesh=mesh, **kw)
+            model.load_state_dict(convert.params_from_flax(tree, mesh),
+                                  strict=True)
+            meshes.append(mesh)
+            return model
+
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        bert.build_model = built
+        res = module.run(module.build_parser().parse_args(argv))
+        bert.build_model = build
+        mesh, model = meshes[0], res["state"]["model"]
+        shards = parallel.ParamShards(mesh.group("tensor"))
+        groups = {key: mesh.group(*axes) for key, axes in (
+            ("tensor", ("tensor",)), ("replica", dist.REPLICA_AXES),
+            ("tokens", dist.TOKEN_AXES))}
+        opt = res["state"]["opt"]
+        out.append({
+            "losses": res["losses"], "step": res["state"]["step"],
+            "generated": (res["generated"].tolist()
+                          if "generated" in res else None),
+            "whole": {n: shards.full(n, p).float().numpy()
+                      for n, p in model.named_parameters()},
+            "replicated": {n: (p.to_local() if hasattr(p, "to_local")
+                               else p).detach().float().numpy().copy()
+                           for n, p in model.named_parameters()
+                           if parallel.tp_dim(n) is None},
+            "param_numel": sum(local_numel(p) for p in model.parameters()),
+            "moment_numel": sum(local_numel(st[k])
+                                for st in opt.state.values()
+                                for k in ("exp_avg", "exp_avg_sq")),
+            "groups": {key: (tdist.get_process_group_ranks(g)
+                             if g is not None else [rank])
+                       for key, g in groups.items()},
+        })
+    return out
+
+
+def tp_block_ranks(rank, cases):
+    """Each case of ``cases`` (name -> dict of ``hidden``, ``heads``,
+    ``kv_heads``, ``rope``, ``causal``, the seed and numpy ``x``, ``ct``)
+    as one process's ``Block`` and as a ``Block`` split over the whole
+    world's tensor group, from one seed: both outputs, both sets of grads
+    of ``sum(out * ct)`` (the split one's gathered whole), and the
+    exchanges of the split forward."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import bert, parallel
+
+    join()
+    group = dist.make_mesh({"tensor": tdist.get_world_size()}).group("tensor")
+    out = {}
+    for name, c in cases.items():
+        def attn(q, k, v):
+            return parallel.full_attention(q, k, v, causal=c["causal"])
+
+        res = []
+        for g in (None, group):
+            blk = bert.Block(c["hidden"], c["heads"], 2 * c["hidden"],
+                             torch.float32, attn,
+                             torch.Generator().manual_seed(c["seed"]),
+                             kv_heads=c["kv_heads"], use_rope=c["rope"],
+                             tp_group=g)
+            parallel.tp_shard_(blk, g)
+            parallel.reset_exchanges()
+            o = blk(torch.from_numpy(c["x"]))
+            calls = parallel.EXCHANGES["calls"]
+            (o * torch.from_numpy(c["ct"])).sum().backward()
+            shards = parallel.ParamShards(g)
+            res.append({"o": o.detach().numpy(), "forward_exchanges": calls,
+                        "grads": {k: shards.full(k, p.grad).numpy()
+                                  for k, p in blk.named_parameters()}})
+        out[name] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the harness's own contract
 # ---------------------------------------------------------------------------

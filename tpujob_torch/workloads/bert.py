@@ -13,10 +13,14 @@ terms), the flag surface, ``tokenizer_from_args`` and
 bytes or ``--tokenizer bpe:...`` tokens, a new batch every step), the flag
 checks, ``make_mesh_for`` and ``build_model`` (dense, flash, and under
 ``--sequence-parallel`` the ring or Ulysses attention, flash as Ulysses's
-local kernel), the ``train`` loop (a per-step batch provider, gradient
-accumulation, ``--profile-dir``, data parallelism across processes
-through DDP) and ``run``/``main``.  Of the parallel strategies, data and
-sequence parallelism are ported (and the two together).
+local kernel; under ``--tensor-parallel`` Megatron's blocks), the
+``train`` loop (a per-step batch provider, gradient accumulation,
+``--profile-dir``, data parallelism across processes through DDP over
+the ranks that hold the same parameters, ZeRO-3 through FSDP2 under
+``--fsdp``, checkpoints written whole at any layout) and ``run``/``main``.
+Of the parallel strategies, data, sequence and tensor parallelism and
+FSDP are ported, and their compositions (TP x SP on the ring, FSDP x TP,
+FSDP x SP); expert and pipeline parallelism are not.
 
 Under sequence parallelism each rank holds its rows of the batch and its
 columns of the sequence (``seq_positions``: a contiguous block, or for
@@ -66,20 +70,27 @@ from tpujob_torch.workloads import tokenizer as toklib
 class Dense(nn.Module):
     """flax ``nn.Dense``: input and params promoted to ``dtype`` before the
     product.  The weight is torch's ``[out, in]`` (flax's kernel is
-    ``[in, out]``)."""
+    ``[in, out]``).  With ``reduce_group`` it is row-parallel (Megatron):
+    the rank holds a block of the input dim (``parallel.tp_shard_``), the
+    partial products are summed over the group, and the bias, whole on
+    every rank, is added once after the sum."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 gen: torch.Generator):
+                 gen: torch.Generator, reduce_group=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
         self.bias = nn.Parameter(torch.zeros(d_out))
         self.dtype = dtype
+        self.reduce_group = reduce_group
         with torch.no_grad():
             train_lib.lecun_normal_(self.weight, d_in, gen)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.reduce_group is None:
+            return F.linear(x.to(self.dtype), w, b)
+        y = F.linear(x.to(self.dtype), w)
+        return parallel.reduce_from_tensor(y, self.reduce_group) + b
 
 
 class LayerNorm(nn.Module):
@@ -118,31 +129,39 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
 class Attention(nn.Module):
     """Multi-head (or grouped-query) self-attention.  Training runs the
     ``attention_fn`` (dense or flash) over the whole sequence; decode
-    (``cache`` given) attends one new token against the KV cache."""
+    (``cache`` given) attends one new token against the KV cache.
+
+    Under tensor parallelism (``tp_group``) the rank holds ``heads / n``
+    query heads and ``kv_heads / n`` KV heads, a contiguous block of each
+    (so a GQA group stays whole), and ``out``'s matching input columns:
+    the attention function and the cache see the local heads only."""
 
     def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
                  attention_fn: Optional[Callable], gen: torch.Generator,
                  kv_heads: Optional[int] = None, use_rope: bool = False,
-                 window: int = 0):
+                 window: int = 0, tp_group=None):
         super().__init__()
-        self.hidden, self.heads = hidden, heads
-        self.hkv = kv_heads or heads
+        n = parallel.group_size(tp_group)
+        hkv = kv_heads or heads
+        self.hidden, self.heads, self.hkv = hidden, heads // n, hkv // n
         self.d = hidden // heads
+        self.tp_group = tp_group
         self.attention_fn = attention_fn or parallel.full_attention
         self.use_rope = use_rope
         # causal sliding window (0 = full context); the cached decode masks
         # slots behind it so it matches windowed training exactly
         self.window = window
         self.query = Dense(hidden, hidden, dtype, gen)
-        self.key = Dense(hidden, self.hkv * self.d, dtype, gen)
-        self.value = Dense(hidden, self.hkv * self.d, dtype, gen)
-        self.out = Dense(hidden, hidden, dtype, gen)
+        self.key = Dense(hidden, hkv * self.d, dtype, gen)
+        self.value = Dense(hidden, hkv * self.d, dtype, gen)
+        self.out = Dense(hidden, hidden, dtype, gen, reduce_group=tp_group)
 
     def forward(self, x, cache=None, positions=None):
         """``cache``: ``(k, v, index)`` of this layer in decode, else None.
         ``positions``: the global positions of ``x``'s tokens (a sequence
         shard's), else ``arange(s)``."""
         b, s, _ = x.shape
+        x = parallel.copy_to_tensor(x, self.tp_group)
         q = self.query(x).reshape(b, s, self.heads, self.d)
         k = self.key(x).reshape(b, s, self.hkv, self.d)
         v = self.value(x).reshape(b, s, self.hkv, self.d)
@@ -154,7 +173,7 @@ class Attention(nn.Module):
                        else positions)
                 q, k = rope(q, pos), rope(k, pos)
             o = self.attention_fn(q, k, v)  # [b, s, h, d]
-        return self.out(o.reshape(b, s, self.hidden))
+        return self.out(o.reshape(b, s, self.heads * self.d))
 
     def _attend_cache(self, q, k, v, ck, cv, i: int):
         """One decode position against the cache (``bert.py`` cache branch):
@@ -227,23 +246,26 @@ class MoEMlp(nn.Module):
 
 class Block(nn.Module):
     """Post-LN transformer block with the dense FFN, or with ``moe`` the
-    sparse one."""
+    sparse one.  Under tensor parallelism ``mlp_wi`` is column-parallel and
+    ``mlp_wo`` row-parallel (a block of the intermediate dim a rank)."""
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dtype: torch.dtype, attention_fn: Optional[Callable],
                  gen: torch.Generator, kv_heads: Optional[int] = None,
                  use_rope: bool = False, window: int = 0,
-                 moe: Optional[MoEConfig] = None):
+                 moe: Optional[MoEConfig] = None, tp_group=None):
         super().__init__()
+        self.tp_group = tp_group
         self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
-                              kv_heads, use_rope, window)
+                              kv_heads, use_rope, window, tp_group)
         self.ln_attn = LayerNorm(hidden, dtype)
         if moe is not None:
             self.moe = MoEMlp(hidden, intermediate, moe, dtype, gen)
         else:
             self.moe = None
             self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
-            self.mlp_wo = Dense(intermediate, hidden, dtype, gen)
+            self.mlp_wo = Dense(intermediate, hidden, dtype, gen,
+                                reduce_group=tp_group)
         self.ln_mlp = LayerNorm(hidden, dtype)
 
     def forward(self, x, cache=None, valid=None, positions=None):
@@ -257,7 +279,8 @@ class Block(nn.Module):
         if self.moe is not None:
             h, metrics = self.moe(x, valid)
             return self.ln_mlp(x + h), metrics
-        h = F.gelu(self.mlp_wi(x), approximate="tanh")
+        h = F.gelu(self.mlp_wi(parallel.copy_to_tensor(x, self.tp_group)),
+                   approximate="tanh")
         return self.ln_mlp(x + self.mlp_wo(h))
 
 
@@ -281,7 +304,16 @@ class KVCache:
 
 class Bert(nn.Module):
     """The transformer with a tied LM head (BERT encoder; with a causal
-    attention_fn and ``final_ln`` the GPT-2 decoder)."""
+    attention_fn and ``final_ln`` the GPT-2 decoder).
+
+    ``tp_group``: tensor parallelism over that group (Megatron's layout,
+    ``parallel.TP_RULES``).  Every rank draws the whole weights from the
+    seed, as one process does, and keeps its blocks; the token embedding
+    is split over the vocab (the lookup masked to the rank's rows, then
+    summed over the group; the tied head's logits gathered).
+    ``exchanges``: the blocks exchange activations with other ranks (a
+    sequence or tensor group, or FSDP's parameter gathers); see
+    ``forward``'s remat."""
 
     def __init__(self, vocab: int = 30522, hidden: int = 1024, layers: int = 24,
                  heads: int = 16, intermediate: int = 4096, max_seq: int = 512,
@@ -290,14 +322,13 @@ class Bert(nn.Module):
                  final_ln: bool = False, kv_heads: Optional[int] = None,
                  use_rope: bool = False, window: int = 0, seed: int = 0,
                  moe: Optional[MoEConfig] = None,
-                 seq_parallel: bool = False):
+                 exchanges: bool = False, tp_group=None):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
         self.use_rope, self.moe = use_rope, moe
-        # the attention exchanges activations with the other ranks of its
-        # sequence group (see ``forward``'s remat)
-        self.seq_parallel = seq_parallel
+        self.exchanges = exchanges or tp_group is not None
+        self.tp_group = tp_group
         gen = torch.Generator().manual_seed(seed)
         # vocab padded to a multiple of 128 (the JAX package's Megatron
         # padding); logits are sliced back to the true vocab
@@ -315,13 +346,25 @@ class Bert(nn.Module):
         for i in range(layers):
             setattr(self, f"layer_{i}", Block(
                 hidden, heads, intermediate, dtype, attention_fn, gen,
-                kv_heads, use_rope, window, moe))
+                kv_heads, use_rope, window, moe, tp_group))
+        parallel.tp_shard_(self, tp_group)
 
     def embed(self, ids, position: int = 0, positions=None):
         """Token embedding plus the learned positions from ``position`` on
         (the decode cursor; 0 for a whole sequence), or at ``positions``
         (a sequence shard's global positions)."""
-        x = F.embedding(ids, self.token_embed.weight.to(self.dtype))
+        table = self.token_embed.weight.to(self.dtype)
+        if self.tp_group is None:
+            x = F.embedding(ids, table)
+        else:
+            # the rank's block of the vocab: its ids looked up, the rest 0,
+            # and one rank's row summed into each token
+            lo = parallel.group_rank(self.tp_group) * table.shape[0]
+            local = ids - lo
+            mine = (local >= 0) & (local < table.shape[0])
+            x = F.embedding(torch.where(mine, local, 0), table)
+            x = parallel.reduce_from_tensor(
+                x.masked_fill(~mine[..., None], 0.0), self.tp_group)
         if not self.use_rope:
             pos = (self.pos_embed[position : position + ids.shape[1]]
                    if positions is None else self.pos_embed[positions])
@@ -334,8 +377,9 @@ class Bert(nn.Module):
         # tied LM head: the JAX model casts x to fp32, but flax's
         # Embed.attend then promotes it and the table to the module dtype,
         # so under bf16 the logits are bf16
-        logits = torch.matmul(x.to(self.dtype),
-                              self.token_embed.weight.to(self.dtype).t())
+        x = parallel.copy_to_tensor(x.to(self.dtype), self.tp_group)
+        logits = torch.matmul(x, self.token_embed.weight.to(self.dtype).t())
+        logits = parallel.gather_from_tensor(logits, self.tp_group)
         return logits[..., : self.vocab]
 
     def forward(self, ids, cache: Optional[KVCache] = None, valid=None,
@@ -358,11 +402,12 @@ class Bert(nn.Module):
                 # rematerialise each block on backward (jax.checkpoint);
                 # the trunk draws no random numbers (no dropout, as in the
                 # JAX package), so no RNG state is saved: reading it is
-                # not allowed inside a CUDA graph capture.  Under sequence
-                # parallelism the recomputation runs the whole block: one
-                # that stopped at its last saved tensor would skip an
-                # exchange on one rank that another rank waits for
-                with set_checkpoint_early_stop(not self.seq_parallel):
+                # not allowed inside a CUDA graph capture.  When the block
+                # exchanges with other ranks (sequence or tensor
+                # parallelism, FSDP) the recomputation runs the whole
+                # block: one that stopped at its last saved tensor would
+                # skip an exchange on one rank that another rank waits for
+                with set_checkpoint_early_stop(not self.exchanges):
                     x = checkpoint(blk, x, None, valid, positions,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
@@ -456,7 +501,8 @@ def with_moe_aux(loss, terms):
             + MOE_Z_COEF * terms["router_z"])
 
 
-def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None):
+def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None,
+             mesh=None):
     """Masked LM: predict the original ids at the masked positions.
     ``mask_id`` is the [MASK] token (103, the WordPiece id, for synthetic
     vocabularies).  The log-softmax runs in the logits' dtype (bf16 under
@@ -466,10 +512,12 @@ def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None):
 
     The mean is over the GLOBAL batch's masked positions, which differ in
     number from rank to rank: each rank divides its sum by the global
-    count over the world, so the ranks' mean (DDP's mean of the grads, and
-    the reported loss) is the JAX package's loss of the whole batch.  A
-    rank of a sequence group holds its columns of ids and mask, at
-    ``positions``: the same sums cover them."""
+    count over the ranks that hold distinct tokens (``mesh``'s token axes,
+    or the world), scaled by their number, so their mean (the mean of the
+    grads, and the reported loss) is the JAX package's loss of the whole
+    batch.  A rank of a sequence group holds its columns of ids and mask,
+    at ``positions``: the same sums cover them; the ranks of a tensor
+    group hold the same tokens and are counted once."""
 
     def loss_fn(batch):
         ids, mask = batch  # mask: 1.0 where the position is predicted
@@ -477,8 +525,8 @@ def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None):
         logits, terms = moe_forward(model, masked_ids, loss_fn, positions)
         logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
-        count = torch.clamp(train_lib.global_sum(mask.sum()), min=1.0)
-        loss = -(tok_ll * mask).sum() * dist.group_size() / count
+        count = torch.clamp(train_lib.global_sum(mask.sum(), mesh), min=1.0)
+        loss = -(tok_ll * mask).sum() * dist.token_shards(mesh) / count
         return with_moe_aux(loss, terms)
 
     return loss_fn
@@ -532,7 +580,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="(not yet ported; must be 1)")
+                   help="size of the tensor-parallel axis (Megatron: the "
+                        "heads, the FFN and the vocab split over it)")
     p.add_argument("--sequence-parallel", type=int, default=1,
                    help="size of the sequence-parallel axis (ranks that "
                         "split each sequence)")
@@ -565,7 +614,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-schedule", choices=["gpipe", "1f1b"],
                    default="gpipe")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="(not yet ported; must be 1)")
+                   help="size of the FSDP axis (ZeRO-3: parameters and "
+                        "optimizer state sharded over it; it also splits "
+                        "the batch)")
     p.add_argument("--no-remat", dest="remat", action="store_false", default=True)
     p.add_argument("--log-interval", type=int, default=20)
     train_lib.add_profile_flags(p)
@@ -590,27 +641,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED_STRATEGIES = ("tensor_parallel", "expert_parallel",
-                        "pipeline_parallel", "fsdp")
+_UNPORTED_STRATEGIES = ("expert_parallel", "pipeline_parallel")
 
 
 def reject_unported(args) -> None:
     """Raise for every requested strategy this port does not have yet —
-    never drop a requested flag silently.  (Data and sequence parallelism
-    are ported; ``--moe-experts`` on one sequence shard, so MoE with
-    ``--sequence-parallel`` > 1 is not: its capacity and slot order run
-    over each whole sequence, of which a rank holds a shard.)"""
+    never drop a requested flag silently.  (Data, sequence and tensor
+    parallelism and FSDP are ported, and ``--moe-experts`` on data
+    parallelism alone: MoE with ``--sequence-parallel`` > 1 is not, since
+    its capacity and slot order run over each whole sequence, of which a
+    rank holds a shard; nor with ``--tensor-parallel`` or ``--fsdp`` > 1,
+    whose expert layout (the ``moe/wi``, ``moe/wo`` rules over fsdp and
+    tensor) comes with expert parallelism.)"""
     for name in _UNPORTED_STRATEGIES:
         if getattr(args, name, 1) > 1:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} > 1 is not yet ported to "
-                "tpujob_torch (data and sequence parallelism only)")
-    if getattr(args, "moe_experts", 0) > 0 \
-            and getattr(args, "sequence_parallel", 1) > 1:
-        raise NotImplementedError(
-            "--moe-experts with --sequence-parallel > 1 is not yet ported "
-            "to tpujob_torch (a rank routes its shard of each sequence; "
-            "the capacity and slot order are per whole sequence)")
+                "tpujob_torch (data, sequence and tensor parallelism and "
+                "FSDP only)")
+    if getattr(args, "moe_experts", 0) > 0:
+        if getattr(args, "sequence_parallel", 1) > 1:
+            raise NotImplementedError(
+                "--moe-experts with --sequence-parallel > 1 is not yet "
+                "ported to tpujob_torch (a rank routes its shard of each "
+                "sequence; the capacity and slot order are per whole "
+                "sequence)")
+        for name in ("tensor_parallel", "fsdp"):
+            if getattr(args, name, 1) > 1:
+                raise NotImplementedError(
+                    f"--moe-experts with --{name.replace('_', '-')} > 1 is "
+                    "not yet ported to tpujob_torch (the experts' layout "
+                    "over fsdp and tensor comes with expert parallelism)")
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
@@ -704,17 +765,58 @@ def validate_sp_flags(args, causal: Optional[bool] = None) -> None:
             "fused flash-style block loop")
 
 
+def validate_tp_flags(args) -> None:
+    """The JAX package's ValueErrors for tensor parallelism and FSDP, from
+    the flags alone: flash with TP (its ``build_model``: no partitioning
+    rule for the kernel's call, so the JAX package refuses it; the port
+    keeps the refusal), then its ``validate_parallel_flags``' KV-head and
+    FSDP-with-pipeline rules.  Then the port's own rule: the heads, the
+    intermediate dim and the padded vocab must split over the tensor
+    ranks (the JAX package's placement of such a parameter fails)."""
+    tp = getattr(args, "tensor_parallel", 1)
+    if (tp > 1 and getattr(args, "sequence_parallel", 1) <= 1
+            and getattr(args, "attention", "dense") == "flash"):
+        raise ValueError(
+            "--attention=flash does not compose with --tensor-parallel "
+            "(no GSPMD rule for the Pallas call); use dense attention "
+            "with TP, or flash without TP")
+    kvh = getattr(args, "kv_heads", 0)
+    if kvh > 0 and args.heads % kvh == 0 and tp > 1 and kvh % tp != 0:
+        # the K/V projection's output dim is kv_heads*head_dim; a TP
+        # split that doesn't divide the KV heads would shard across a
+        # head boundary
+        raise ValueError(
+            f"--kv-heads {kvh} must divide evenly over "
+            f"--tensor-parallel {tp}")
+    if getattr(args, "fsdp", 1) > 1 \
+            and getattr(args, "pipeline_parallel", 1) > 1:
+        raise ValueError(
+            "--fsdp does not compose with --pipeline-parallel (the "
+            "stage param stacks enter the pipeline's manual region "
+            "and would be re-gathered whole); pair --fsdp with "
+            "--tensor-parallel or --moe-experts instead")
+    if tp > 1:
+        for what, n in (("--heads", args.heads),
+                        ("--intermediate", args.intermediate),
+                        ("the vocab padded to 128", -(-args.vocab // 128) * 128)):
+            if n % tp:
+                raise ValueError(f"{what} ({n}) must divide evenly over "
+                                 f"--tensor-parallel {tp}")
+
+
 def validate_parallel_flags(args, causal: Optional[bool] = None) -> None:
-    """The flag-coherence rules of the ported strategies (data and
-    sequence parallelism, and MoE on one device).  The MoE flags' own
-    rules come first, then the attention and sequence-parallel rules
-    (``validate_sp_flags``), so their errors are the JAX package's
-    ValueErrors; then an unported strategy is refused, expert parallelism
-    and MoE with sequence parallelism included, and so is
-    ``--pipeline-parallel`` with ``--moe-experts`` (which the JAX package
-    refuses too)."""
+    """The flag-coherence rules of the ported strategies (data, sequence
+    and tensor parallelism, FSDP, and MoE on data parallelism).  The MoE
+    flags' own rules come first, then the attention, sequence-parallel,
+    tensor-parallel and FSDP rules (``validate_sp_flags``,
+    ``validate_tp_flags``), so their errors are the JAX package's
+    ValueErrors; then an unported strategy is refused (expert and
+    pipeline parallelism, MoE with SP, TP or FSDP); ``--pipeline-parallel``
+    with ``--moe-experts`` is refused with them (the JAX package refuses
+    it too)."""
     moe_config_from(args)
     validate_sp_flags(args, causal)
+    validate_tp_flags(args)
     reject_unported(args)
     if getattr(args, "position", "learned") == "rope" \
             and (args.hidden // args.heads) % 2 != 0:
@@ -858,13 +960,20 @@ def build_model(args, device, *, causal: bool = False,
     (``parallel.ring_attention``, dense per hop) or Ulysses
     (``parallel.ulysses_attention``, with ``--attention flash`` the
     kernels as its local attention) over ``mesh``'s sequence group
-    (``make_mesh_for``'s when None)."""
+    (``make_mesh_for``'s when None).  Under ``--tensor-parallel`` the
+    model is this rank's Megatron blocks over ``mesh``'s tensor group,
+    and the attention sees the rank's heads: the ring on them is the JAX
+    package's ring with ``head_axis="tensor"``.  FSDP is applied by
+    ``train`` (after any weights are loaded into this module)."""
     from tpujob_torch.workloads import flash
 
     validate_parallel_flags(args, causal)
     window = getattr(args, "attention_window", 0)
     use_flash = getattr(args, "attention", "dense") == "flash"
     sp = getattr(args, "sequence_parallel", 1)
+    tp = getattr(args, "tensor_parallel", 1)
+    if mesh is None and (sp > 1 or tp > 1):
+        mesh = make_mesh_for(args)
     if use_flash and torch.device(device).type == "cuda":
         # fail at build, not at the first step
         flash.check_supported(torch.bfloat16 if args.bf16 else torch.float32,
@@ -875,8 +984,6 @@ def build_model(args, device, *, causal: bool = False,
                                      window=window)
 
     if sp > 1:
-        if mesh is None:
-            mesh = make_mesh_for(args)
         group = mesh.group("sequence")
         local = args.seq_len // sp
         if args.sp_mode == "ulysses":
@@ -912,7 +1019,8 @@ def build_model(args, device, *, causal: bool = False,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
         window=window, seed=args.seed, moe=moe_config_from(args),
-        seq_parallel=sp > 1,
+        exchanges=sp > 1 or getattr(args, "fsdp", 1) > 1,
+        tp_group=mesh.group("tensor") if tp > 1 else None,
     )
     return model.to(device)
 
@@ -921,7 +1029,7 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
           batch, *, tag: str = "bert",
           batch_provider: Optional[Callable] = None,
           on_step: Optional[Callable[[int], None]] = None,
-          capture: bool = True) -> Dict[str, Any]:
+          capture: bool = True, mesh=None) -> Dict[str, Any]:
     """The training loop: AdamW with the flag surface's schedule, gradient
     accumulation (``--grad-accum``, optax.MultiSteps), step-exact
     checkpoint/resume, ``--profile-dir``, and honest throughput (the clock
@@ -948,7 +1056,14 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     which ran.  ``capture=False`` keeps it eager, to hold the graph
     against.  A MoE model's result holds ``moe_metrics``, each step's
     ``MOE_METRICS`` (the aux terms its loss added, and the dropped
-    assignments) as a dict."""
+    assignments) as a dict.
+
+    ``mesh`` (``make_mesh_for``'s): the gradients are averaged over its
+    token axes only, and the reported loss too; under ``--fsdp`` the model
+    is sharded here (``parallel.fully_shard_model``) before the optimizer
+    is made, so its moments are sharded too; a sharded state is
+    checkpointed whole (``parallel.ParamShards``).  Without it, the whole
+    world is one data axis."""
     validate_parallel_flags(args)
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -968,6 +1083,11 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     lr_fn = train_lib.make_lr_schedule(
         args.lr, getattr(args, "lr_schedule", "constant"),
         getattr(args, "warmup_steps", 0) // accum, args.steps // accum)
+    shards = None
+    if mesh is not None and mesh.size("tensor", "fsdp") > 1:
+        if mesh.size("fsdp") > 1:
+            parallel.fully_shard_model(model, mesh)
+        shards = parallel.ParamShards(mesh.group("tensor"))
     optimizer = train_lib.adamw(model.parameters(), args.lr)
     accumulator = train_lib.with_grad_accum(model.parameters(), accum)
     state = train_lib.init_state(model, optimizer)
@@ -977,23 +1097,24 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     ckpt = None
     start_step = 0
     if args.checkpoint_interval > 0:
-        ckpt = train_lib.Checkpointer(args.dir + "/ckpt")
+        ckpt = train_lib.Checkpointer(args.dir + "/ckpt", shards=shards)
         latest = ckpt.latest_step()
         if latest is not None:
             state = ckpt.restore(latest, state)
             start_step = latest
             print(f"resumed from checkpoint step {latest}")
 
-    loss_fn = loss_of(train_lib.data_parallel(model))
+    loss_fn = loss_of(train_lib.data_parallel(model, mesh))
     train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
-                                           accumulator, capture=capture)
+                                           accumulator, capture=capture,
+                                           mesh=mesh)
     if pe.process_id == 0:
         print(f"{tag}: step_mode={train_step.mode}")
     if start_step >= args.steps:
         # restarted after the final checkpoint (the preemption race):
         # report completion instead of training further
         with torch.no_grad():
-            final_loss = float(train_lib.global_mean(loss_fn(batch)))
+            final_loss = float(train_lib.global_mean(loss_fn(batch), mesh))
         if pe.process_id == 0:
             print(f"already complete: resumed at step {start_step} >= "
                   f"--steps {args.steps}")
@@ -1086,7 +1207,7 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
     pe = dist.initialize(device=device)
     tok = tokenizer_from_args(args, reserve=1)
     mask_id = mask_id_from_args(args, tok)
-    mesh = make_mesh_for(args, pe) if args.sequence_parallel > 1 else None
+    mesh = make_mesh_for(args, pe)
     model = build_model(args, device, mesh=mesh)
     ids0, provider, _ = token_batches(args, pe, tokenizer=tok, mesh=mesh)
     lo, sz = dist.local_batch_slice(args.batch_size, pe, mesh)
@@ -1107,9 +1228,10 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
     positions = None if pos is None else torch.from_numpy(pos).to(device)
     return train(args, pe, model,
                  lambda net: mlm_loss(net, mask_id=mask_id,
-                                      positions=positions),
+                                      positions=positions, mesh=mesh),
                  train_lib.put_batch(masked(ids0, args.seed), device),
-                 batch_provider=bp, on_step=on_step, capture=capture)
+                 batch_provider=bp, on_step=on_step, capture=capture,
+                 mesh=mesh)
 
 
 def main(argv=None) -> int:

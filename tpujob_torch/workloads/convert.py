@@ -14,6 +14,11 @@ the map is mechanical:
 - ``BatchNorm`` ``batch_stats`` ``mean``/``var`` become the buffers
   ``running_mean``/``running_var``;
 - ``Embed`` ``embedding`` becomes ``weight``; ``pos_embed`` stays.
+
+With a ``mesh`` whose tensor axis is longer than 1, each parameter
+``parallel.TP_RULES`` splits is cut to this rank's block of it, so a
+tensor-parallel model starts from the JAX package's weights at any
+layout (FSDP then shards the module it is loaded into).
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from tpujob_torch.workloads import parallel
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -41,8 +48,12 @@ def _collections(tree: Dict[str, Any]):
     return [("params", tree)]
 
 
-def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax variable tree (numpy leaves) -> torch state dict."""
+def params_from_flax(tree: Dict[str, Any], mesh=None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax variable tree (numpy leaves) -> torch state dict: the whole
+    parameters, or with ``mesh`` this rank's tensor-parallel blocks."""
+    n = 1 if mesh is None else mesh.size("tensor")
+    i = 0 if mesh is None else mesh.index("tensor")
     out: Dict[str, torch.Tensor] = {}
     for collection, sub in _collections(tree):
         for path, value in _flatten(sub):
@@ -65,5 +76,8 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 parts[-1] = "weight"
             elif leaf in ("scale", "embedding"):
                 parts[-1] = "weight"
-            out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+            name = ".".join(parts)
+            out[name] = parallel.tp_local(
+                name, torch.from_numpy(np.ascontiguousarray(arr)), n,
+                i).contiguous()
     return out

@@ -17,9 +17,11 @@ their model in ``DistributedDataParallel`` when a group exists
 (``train_lib.data_parallel``).
 
 The mesh (``AXIS_ORDER``, ``make_mesh``, ``Mesh``): named axes over the
-ranks, one process group an axis, and each rank's share of the batch
-(``local_batch_slice`` over the data axes) and of the sequence
-(``local_seq_slice``).  Five of the JAX package's mesh helpers have no
+ranks, one process group for each set of axes (an axis alone, or the
+replica group of a parameter shard, ``REPLICA_AXES``), and each rank's
+share of the batch (``local_batch_slice`` over the data axes) and of the
+sequence (``local_seq_slice``); ``TOKEN_AXES`` and ``token_shards`` say
+which ranks hold distinct tokens (a tensor group holds the same ones).  Five of the JAX package's mesh helpers have no
 body here: under explicit ranks every activation already lies as batch
 over the data axes and sequence over the sequence axis, because each
 rank feeds and keeps only its own rows and columns, so
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import json
 import logging
 import os
@@ -281,7 +284,7 @@ def local_seq_slice(seq_len: int, mesh: "Mesh") -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 #
 # The JAX package's mesh places devices; here each rank is one device, and
-# an axis is a process group (the module docstring says which of its
+# a set of axes is a process group (the module docstring says which of its
 # helpers have no body here).
 
 # Canonical logical axis order, slowest-varying first (the JAX package's):
@@ -355,23 +358,28 @@ def mesh_shape(axes: Optional[Dict[str, int]], world: int
 class Mesh:
     """Named axes over the ranks of the job, laid out row-major (data
     slowest): rank ``r`` sits at ``np.unravel_index(r, shape)``.  ``groups``
-    holds, for each axis longer than 1, the process group of the ranks
-    that differ from this one along that axis only (None without a
-    process group, at world 1)."""
+    holds, for each set of axes longer than 1 (a tuple in the mesh's
+    order), the process group of the ranks that differ from this one along
+    those axes only (none without a process group, at world 1)."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     rank: int = 0
-    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def coords(self) -> Tuple[int, ...]:
         return tuple(int(i) for i in np.unravel_index(self.rank, self.shape))
 
-    def size(self, axis: str) -> int:
-        """The axis' length; 1 for an axis the mesh does not carry."""
-        return (self.shape[self.axis_names.index(axis)]
-                if axis in self.axis_names else 1)
+    def size(self, *axes: str) -> int:
+        """The axes' lengths multiplied; 1 for an axis the mesh does not
+        carry."""
+        out = 1
+        for a in axes:
+            if a in self.axis_names:
+                out *= self.shape[self.axis_names.index(a)]
+        return out
 
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis`` (0 off the mesh)."""
@@ -385,22 +393,35 @@ class Mesh:
             out = out * self.size(a) + self.index(a)
         return out
 
+    def live(self, axes) -> Tuple[str, ...]:
+        """``axes`` the mesh carries longer than 1, in the mesh's order."""
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.size(a) > 1)
+
+    def grid(self, *axes: str, rank: Optional[int] = None) -> np.ndarray:
+        """The ranks that differ from ``rank`` (default this one) along
+        ``axes`` only, as an array of one dim an axis in the order given
+        (an axis the mesh does not carry is 1 long)."""
+        coords = list(np.unravel_index(self.rank if rank is None else rank,
+                                       self.shape))
+        out = np.empty([self.size(a) for a in axes], dtype=np.int64)
+        for at in np.ndindex(out.shape):
+            for a, j in zip(axes, at):
+                if a in self.axis_names:
+                    coords[self.axis_names.index(a)] = j
+            out[at] = np.ravel_multi_index(coords, self.shape)
+        return out
+
     def axis_ranks(self, axis: str, rank: Optional[int] = None) -> List[int]:
         """The ranks that differ from ``rank`` (default this one) along
         ``axis`` only, in the axis' order."""
-        coords = list(np.unravel_index(self.rank if rank is None else rank,
-                                       self.shape))
-        i = self.axis_names.index(axis)
-        out = []
-        for j in range(self.shape[i]):
-            coords[i] = j
-            out.append(int(np.ravel_multi_index(coords, self.shape)))
-        return out
+        return self.grid(axis, rank=rank).tolist()
 
-    def group(self, axis: str):
-        """The process group along ``axis``: None when the axis is 1 long
-        (no exchange needed)."""
-        return self.groups.get(axis)
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one along
+        ``axes`` only (row-major over them): None when they are all 1
+        long (no exchange needed)."""
+        return self.groups.get(self.live(axes))
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, *,
@@ -409,11 +430,13 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, *,
     ``-1`` wildcard; default ``{"data": -1}``, pure data parallelism).
 
     The world and this rank come from the live process group, or from
-    ``env`` without one.  Every process must call this together: each
-    axis' process groups are made with ``new_group`` on every rank, in one
-    order.  A multi-node job (``num_slices`` > 1) must be able to split
-    its data axis over the nodes (``hybrid_mesh_shapes``); the row-major
-    layout then puts each node's ranks on one stretch of the data axis."""
+    ``env`` without one.  Every process must call this together: the
+    process groups of every set of axes longer than 1 (each axis alone,
+    and e.g. the replica group, data x sequence, that holds one shard of a
+    parameter) are made with ``new_group`` on every rank, in one order.
+    A multi-node job (``num_slices`` > 1) must be able to split its data
+    axis over the nodes (``hybrid_mesh_shapes``); the row-major layout
+    then puts each node's ranks on one stretch of the data axis."""
     pe = env or process_env()
     world = group_size() if tdist.is_initialized() else pe.num_processes
     rank = tdist.get_rank() if tdist.is_initialized() else pe.process_id
@@ -426,18 +449,18 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, *,
             raise RuntimeError(
                 f"a mesh of {world} ranks needs the process group "
                 "(distributed.initialize) first")
-        for axis, n in zip(names, shape):
-            if n == 1:
-                continue
-            seen = set()
-            for r in range(world):  # every group, in one order, everywhere
-                ranks = tuple(mesh.axis_ranks(axis, r))
-                if ranks in seen:
-                    continue
-                seen.add(ranks)
-                g = tdist.new_group(list(ranks))
-                if rank in ranks:
-                    mesh.groups[axis] = g
+        live = mesh.live(names)
+        for k in range(1, len(live) + 1):
+            for subset in itertools.combinations(live, k):
+                seen = set()
+                for r in range(world):  # every group, in one order, everywhere
+                    ranks = tuple(mesh.grid(*subset, rank=r).ravel().tolist())
+                    if ranks in seen:
+                        continue
+                    seen.add(ranks)
+                    g = tdist.new_group(list(ranks))
+                    if rank in ranks:
+                        mesh.groups[subset] = g
     return mesh
 
 
@@ -450,12 +473,33 @@ def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
 def batch_divisor(mesh: Mesh, *axes: str) -> int:
     """Global batch dim 0 must be a multiple of this (the number of batch
     shards the mesh produces)."""
-    if not axes:
-        axes = batch_axes(mesh)
-    out = 1
-    for a in axes:
-        out *= mesh.size(a)
-    return out
+    return mesh.size(*(axes or batch_axes(mesh)))
+
+
+# The axes whose ranks hold distinct tokens: rows over data and fsdp,
+# columns over sequence.  The ranks of a model axis (tensor) hold the same
+# tokens, so a sum over the batch runs over these axes, and the gradient
+# of a parameter shard is averaged over them.
+TOKEN_AXES: Tuple[str, ...] = ("data", "fsdp", "sequence")
+# The ranks that hold the same shard of a parameter: the token axes but
+# fsdp, which shards it (ZeRO-3).
+REPLICA_AXES: Tuple[str, ...] = ("data", "sequence")
+
+
+def token_group(mesh: Optional[Mesh] = None):
+    """The process group of the ranks that hold distinct tokens: the token
+    axes' group, or the whole world without a mesh; None when this rank
+    is the only one."""
+    if mesh is not None:
+        return mesh.group(*TOKEN_AXES)
+    return tdist.group.WORLD if group_size() > 1 else None
+
+
+def token_shards(mesh: Optional[Mesh] = None) -> int:
+    """How many distinct shards of the global batch's tokens the ranks
+    hold: the token axes' sizes multiplied, or the world without a
+    mesh."""
+    return group_size() if mesh is None else mesh.size(*TOKEN_AXES)
 
 
 # ---------------------------------------------------------------------------

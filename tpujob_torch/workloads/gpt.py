@@ -19,12 +19,17 @@ Under ``--sequence-parallel N`` each rank trains on its shard of every
 sequence (``bert.seq_positions``) with the targets of the global rows
 (``next_token_shard``, ``lm_loss``); decode runs the KV-cached route on
 every rank's whole model, as the JAX package's does (the cached route
-never runs the sequence-parallel attention).
+never runs the sequence-parallel attention).  Under
+``--tensor-parallel`` or ``--fsdp`` every rank decodes global row 0's
+prompt on its shards (the cache holds the rank's KV heads), all ranks
+together, to the same tokens.
 
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
     torchrun --nproc-per-node 2 -m tpujob_torch.workloads.gpt --device cpu \
         --sequence-parallel 2 --sp-mode ulysses --attention flash ...
+    torchrun --nproc-per-node 4 -m tpujob_torch.workloads.gpt --device cpu \
+        --fsdp 2 --tensor-parallel 2 ...
     python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
     python -m tpujob_torch.workloads.gpt --attention flash \
         --data-file corpus.txt --tokenizer bpe:tok.json:512
@@ -42,7 +47,7 @@ from tpujob_torch.workloads import distributed as dist
 from tpujob_torch.workloads import train_lib
 
 
-def lm_loss(model, positions=None):
+def lm_loss(model, positions=None, mesh=None):
     """Next-token cross-entropy (shift by one).  The log-softmax runs in
     the logits' dtype (bf16 under --bf16), as in the JAX package.  A MoE
     model adds the aux terms as ``bert.mlm_loss`` does.
@@ -52,8 +57,8 @@ def lm_loss(model, positions=None):
     come from the global row, so the pair that straddles two shards is
     kept, and the global sequence's last position (no target) is left out.
     The sum is over the shard and the count is the global batch's, scaled
-    by the world, so the ranks' mean is the global mean, as in
-    ``bert.mlm_loss``."""
+    by the number of token shards (``mesh``'s, or the world), so the
+    ranks' mean is the global mean, as in ``bert.mlm_loss``."""
 
     def loss_fn(batch):
         if positions is None:
@@ -66,8 +71,8 @@ def lm_loss(model, positions=None):
         logits, terms = bertlib.moe_forward(model, ids, loss_fn, positions)
         logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-        count = train_lib.global_sum(valid.sum())
-        loss = -(tok_ll * valid).sum() * dist.group_size() / count
+        count = train_lib.global_sum(valid.sum(), mesh)
+        loss = -(tok_ll * valid).sum() * dist.token_shards(mesh) / count
         return bertlib.with_moe_aux(loss, terms)
 
     return loss_fn
@@ -243,8 +248,7 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
             "--generate-top-k/--generate-top-p need "
             "--generate-temperature > 0 (greedy decode samples nothing)")
     tok = bertlib.tokenizer_from_args(args)
-    mesh = (bertlib.make_mesh_for(args, pe) if args.sequence_parallel > 1
-            else None)
+    mesh = bertlib.make_mesh_for(args, pe)
     model = build_model(args, device, mesh=mesh)
     ids0, provider, sample = bertlib.token_batches(args, pe, tokenizer=tok,
                                                    mesh=mesh)
@@ -256,10 +260,11 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
     bp = None if provider is None else (lambda step: shard(provider(step)))
     positions = None if pos is None else torch.from_numpy(pos).to(device)
     result = bertlib.train(args, pe, model,
-                           lambda net: lm_loss(net, positions=positions),
+                           lambda net: lm_loss(net, positions=positions,
+                                               mesh=mesh),
                            train_lib.put_batch(shard(ids0), device),
                            tag="gpt", batch_provider=bp, on_step=on_step,
-                           capture=capture)
+                           capture=capture, mesh=mesh)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(
             sample[:, : min(8, args.seq_len - n_gen)], device)
@@ -270,6 +275,10 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
             model, prompt, n_gen, temperature=temp,
             top_k=getattr(args, "generate_top_k", 0),
             top_p=getattr(args, "generate_top_p", 0.0), rng=rng)
+        if getattr(model, "fsdp_mesh", None) is not None:
+            # FSDP keeps the root's parameters gathered after a forward
+            # with no backward: shard them again
+            model.reshard()
         if pe.process_id == 0:
             print(f"generated ids: {out[0].tolist()}")
         result["generated"] = out

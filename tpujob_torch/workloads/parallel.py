@@ -1,6 +1,6 @@
 """Dense attention, the reference every attention path is held against,
-sequence parallelism, and the sparse MoE feed-forward: the port of
-``tpujob/workloads/parallel.py``.
+sequence and tensor parallelism, FSDP, and the sparse MoE feed-forward:
+the port of ``tpujob/workloads/parallel.py``.
 
 Layout is the JAX package's ``[batch, seq, heads, head_dim]``.  Ported:
 grouped-query repeat, full attention, the two sequence-parallel
@@ -8,8 +8,19 @@ attentions over a process group (``ring_attention``, with its zigzag
 causal schedule, and ``ulysses_attention``) with their exchanges
 (``shift``, ``all_to_all``: autograd functions whose backward is the
 inverse exchange, counted in ``EXCHANGES``), and
-``moe_capacity``/``moe_ffn`` on one device.  The
-tensor, expert and pipeline strategies are not ported.
+``moe_capacity``/``moe_ffn`` on one device.
+
+The JAX package's ``PARTITION_RULES`` (``partition_spec_tree``,
+``sanitize_spec``, ``shard_params``) are two things here.  Megatron's
+tensor parallelism by hand: ``TP_RULES`` names the dim of each
+parameter split over the tensor group (``tp_local``, ``tp_shard_``), and
+three exchanges carry the activations across it (``copy_to_tensor``,
+``reduce_from_tensor``, ``gather_from_tensor``).  ZeRO-3 is FSDP2's
+``fully_shard`` over the fsdp group (``fully_shard_model``), which shards
+each parameter's dim 0 where the JAX rules pick another dim: the same
+1/n of the parameters and moments a rank.  ``ParamShards`` gathers them
+whole for a checkpoint and slices them again.  The expert and pipeline
+strategies are not ported.
 
 Where the JAX package's attentions take global arrays and cut them with
 ``shard_map``, these take this rank's shard: its rows of the batch and
@@ -20,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import re
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -27,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
+
+from tpujob_torch.workloads import distributed as dist
 
 
 def _gqa_repeat(q, k, v):
@@ -85,7 +99,9 @@ def reset_exchanges() -> None:
 
 
 @contextlib.contextmanager
-def _counted(x: torch.Tensor):
+def counted(x: torch.Tensor):
+    """One exchange of ``x`` (its bytes sent) in ``EXCHANGES``, timed
+    with the card synced around it under ``EXCHANGE_TIMING``."""
     EXCHANGES["calls"] += 1
     EXCHANGES["bytes"] += x.numel() * x.element_size()
     if not EXCHANGE_TIMING:
@@ -101,11 +117,13 @@ def _counted(x: torch.Tensor):
     EXCHANGES["seconds"] += time.perf_counter() - t0
 
 
-def _group_size(group) -> int:
+def group_size(group) -> int:
+    """The ranks of ``group``; None (a mesh axis 1 long) is one rank."""
     return 1 if group is None else tdist.get_world_size(group)
 
 
-def _group_rank(group) -> int:
+def group_rank(group) -> int:
+    """This rank's index in ``group`` (0 in None)."""
     return 0 if group is None else tdist.get_rank(group)
 
 
@@ -116,12 +134,12 @@ def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     tensor's address as a host one), so a CUDA tensor in a gloo group is
     copied to the host, exchanged and copied back; NCCL exchanges the
     device tensors.  The backend decides, never a caught failure."""
-    n, i = _group_size(group), _group_rank(group)
+    n, i = group_size(group), group_rank(group)
     dst = tdist.get_global_rank(group, (i - step) % n)
     src = tdist.get_global_rank(group, (i + step) % n)
     staged = (x.device.type == "cuda"
               and tdist.get_backend(group) == tdist.Backend.GLOO)
-    with _counted(x):
+    with counted(x):
         send = x.detach().contiguous()
         if staged:
             send = send.cpu()
@@ -148,7 +166,7 @@ def shift(x: torch.Tensor, group) -> torch.Tensor:
     """The ring's neighbour exchange (``jax.lax.ppermute`` with
     ``perm = [(j, (j - 1) % n)]``): returns the ``x`` of the next rank.
     Differentiable: the backward shifts the gradient the other way."""
-    if _group_size(group) == 1:
+    if group_size(group) == 1:
         return x
     return _Shift.apply(x, group, 1)
 
@@ -161,11 +179,11 @@ def _all_to_all(x: torch.Tensor, group, split_axis: int,
     the ranks they came from.  One ``all_to_all_single`` on the tensors
     where they lie: gloo takes CUDA tensors in it (it stages them through
     the host itself), NCCL exchanges them on the card."""
-    n = _group_size(group)
+    n = group_size(group)
     send = x.unflatten(split_axis, (n, x.shape[split_axis] // n))
     send = send.movedim(split_axis, 0).contiguous()
     recv = torch.empty_like(send)
-    with _counted(send):
+    with counted(send):
         tdist.all_to_all_single(recv, send, group=group)
     return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
 
@@ -210,9 +228,237 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
                concat_axis: int) -> torch.Tensor:
     """Differentiable tiled all-to-all (see ``_all_to_all``); its backward
     is the all-to-all with the axes swapped."""
-    if _group_size(group) == 1:
+    if group_size(group) == 1:
         return x
     return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (Megatron) and FSDP (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+# The Megatron layout of ``PARTITION_RULES`` on torch's names and [out, in]
+# weights: parameter -> the dim split into contiguous blocks over the
+# tensor group.  Column-parallel (the output dim): the query/key/value and
+# mlp_wi weights and biases, so a rank holds whole heads (and, under GQA,
+# the KV heads its query heads read) and a block of the FFN; row-parallel
+# (the input dim): the out and mlp_wo weights, whose biases stay whole and
+# are added after the all-reduce; the tied embedding's vocab.  Every other
+# parameter (positions, LayerNorms, the row-parallel biases) is whole on
+# every rank.
+TP_RULES = (
+    (r"attn\.(query|key|value)\.(weight|bias)$", 0),
+    (r"attn\.out\.weight$", 1),
+    (r"mlp_wi\.(weight|bias)$", 0),
+    (r"mlp_wo\.weight$", 1),
+    (r"token_embed\.weight$", 0),
+)
+
+
+def tp_dim(name: str) -> Optional[int]:
+    """The dim ``TP_RULES`` splits parameter ``name`` along, or None."""
+    for pattern, dim in TP_RULES:
+        if re.search(pattern, name):
+            return dim
+    return None
+
+
+def tp_local(name: str, t: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rank ``i`` of ``n``'s block of the whole parameter ``t``."""
+    dim = tp_dim(name)
+    if dim is None or n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does not "
+                         f"split over {n} tensor ranks")
+    return t.chunk(n, dim)[i]
+
+
+def tp_shard_(model: torch.nn.Module, group) -> None:
+    """Replace each whole parameter ``TP_RULES`` splits by this rank's
+    block of it (a copy), in place."""
+    n, i = group_size(group), group_rank(group)
+    if n == 1:
+        return
+    for name, p in list(model.named_parameters()):
+        local = tp_local(name, p.data, n, i)
+        if local is not p.data:
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf,
+                    torch.nn.Parameter(local.clone()))
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (no
+    gradient): one ``all_gather`` on the tensors where they lie (gloo
+    takes CUDA tensors in it)."""
+    parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    with counted(x):
+        tdist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.contiguous().clone()
+    with counted(y):
+        tdist.all_reduce(y, group=group)
+    return y
+
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = group_size(ctx.group), group_rank(ctx.group)
+        return g.chunk(n, ctx.dim)[i].contiguous(), None, None
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` unchanged, at the input of column-parallel
+    products; the backward all-reduces the gradient over the tensor group
+    (each rank's products see the whole input, and their gradients of it
+    are partial sums)."""
+    if group_size(group) == 1:
+        return x
+    return _CopyToTensor.apply(x, group)
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: the ranks' partial products summed (all-reduce, in
+    ``x``'s dtype, as the JAX package's partitioned product sums its
+    partial results), after a row-parallel product; the backward passes
+    the gradient on unchanged."""
+    if group_size(group) == 1:
+        return x
+    return _ReduceFromTensor.apply(x, group)
+
+
+def gather_from_tensor(x: torch.Tensor, group, dim: int = -1
+                       ) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim`` (the vocab
+    logits of the tied head); the backward keeps this rank's block of the
+    gradient."""
+    if group_size(group) == 1:
+        return x
+    return _GatherFromTensor.apply(x, group, dim % x.ndim)
+
+
+def fsdp_device_mesh(mesh, device_type: str):
+    """FSDP2's ``DeviceMesh`` from the port's groups: the fsdp group alone
+    (shard), or with replica ranks (``distributed.REPLICA_AXES`` longer
+    than 1) the 2-D (replicate, shard) mesh of the ranks that differ from
+    this one along data, sequence and fsdp."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shard, replica = mesh.group("fsdp"), mesh.group(*dist.REPLICA_AXES)
+    if replica is None:
+        return DeviceMesh.from_group(shard, device_type)
+    ranks = mesh.grid(*dist.REPLICA_AXES, "fsdp").reshape(
+        -1, mesh.size("fsdp"))
+    return DeviceMesh.from_group(
+        [replica, shard], device_type, mesh=ranks,
+        mesh_dim_names=("replicate", "shard"))
+
+
+def fully_shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """ZeRO-3 through FSDP2: each transformer block (``layer_<i>``), then
+    the root (embeddings, LayerNorms), sharded over the fsdp group
+    (``fsdp_device_mesh``).  The parameters and AdamW's moments then live
+    as dim-0 shards (1/n of each a rank); each block's forward all-gathers
+    its parameters and frees them after, and its backward reduce-scatters
+    the gradients (averaged over the fsdp and replica ranks).  Under
+    tensor parallelism each rank's tensor-local parameters are sharded.
+    The model keeps the mesh as ``fsdp_mesh``."""
+    from torch.distributed.fsdp import fully_shard
+
+    dm = fsdp_device_mesh(mesh, next(model.parameters()).device.type)
+    for name, child in model.named_children():
+        if name.startswith("layer_"):
+            fully_shard(child, mesh=dm)
+    fully_shard(model, mesh=dm)
+    model.fsdp_mesh = dm
+    return model
+
+
+def gather_dtensor(t) -> torch.Tensor:
+    """A DTensor whole, on every rank of its mesh, through ``all_gather``
+    over the group of each mesh dim it is sharded along (FSDP2's dim-0
+    shards, ``torch.chunk``'s sizes, padded to the largest for the
+    exchange).  Not ``DTensor.full_tensor``: its functional collective
+    crashes the process under gloo on CUDA tensors (torch 2.11, on the
+    card), where ``all_gather`` works."""
+    out = t.to_local()
+    for d, placement in enumerate(t.placements):
+        if not placement.is_shard():
+            continue
+        group, dim = t.device_mesh.get_group(d), placement.dim
+        n = group_size(group)
+        sizes = [c.shape[0] for c in torch.empty(t.shape[dim]).chunk(n)]
+        sizes += [0] * (n - len(sizes))
+        pad = [0, 0] * (out.ndim - 1 - dim) + [0, max(sizes) - out.shape[dim]]
+        parts = all_gather(F.pad(out, pad), group, dim).split(max(sizes), dim)
+        out = torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)],
+                        dim=dim)
+    return out
+
+
+class ParamShards:
+    """How this rank's parameters lie, for a checkpoint: ``TP_RULES``'
+    blocks over the tensor group, and under FSDP each one a DTensor
+    sharded over fsdp.  ``full`` gathers a parameter (or a tensor shaped
+    like it: its moments, its accumulated gradient) whole, on every rank
+    of its groups, into a new host tensor; ``local`` cuts a whole one to
+    this rank's shard, laid out as ``like``."""
+
+    def __init__(self, tensor_group):
+        self.group = tensor_group
+        self.n, self.i = group_size(tensor_group), group_rank(tensor_group)
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            t = gather_dtensor(t)
+        dim = tp_dim(name)
+        if dim is not None and self.n > 1:
+            t = all_gather(t, self.group, dim)
+        return t.detach().to("cpu", copy=True)
+
+    def local(self, name: str, whole: torch.Tensor, like: torch.Tensor
+              ) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        t = tp_local(name, whole, self.n, self.i)
+        if isinstance(like, DTensor):
+            return distribute_tensor(t.to(like.device, like.dtype),
+                                     like.device_mesh, like.placements,
+                                     src_data_rank=None)
+        return t
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +539,7 @@ def ring_attention(q, k, v, group, *, causal: bool = False,
     dense einsum, as in the JAX package (no kernel runs per hop)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    n, idx = _group_size(group), _group_rank(group)
+    n, idx = group_size(group), group_rank(group)
     sq = q.shape[1]
     if ring_layout_zigzag(n * sq, n, causal) and k.shape[1] == sq:
         return _zigzag_ring_attention(q, k, v, group, scale)
@@ -328,7 +574,7 @@ def _zigzag_ring_attention(q, k, v, group, scale):
     order from the embedding on (positions and targets permuted to match),
     so no layer permutes anything; the JAX package permutes natural-order
     inputs in and out at each call instead."""
-    n, idx = _group_size(group), _group_rank(group)
+    n, idx = group_size(group), group_rank(group)
     c = q.shape[1] // 2
     qa, qb = q[:, :c], q[:, c:]  # early chunk j, late chunk 2n-1-j
     tri = _causal_bias(c, c, q.device)
@@ -372,7 +618,7 @@ def ulysses_attention(q, k, v, group, *, causal: bool = False,
     ``[b, s/n, h, d]``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    n = _group_size(group)
+    n = group_size(group)
     heads, hkv = q.shape[2], k.shape[2]
     if heads % n != 0:
         raise ValueError(

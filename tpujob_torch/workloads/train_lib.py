@@ -22,13 +22,16 @@
   the JAX trainers' AOT ``compile()``); ``step_mode`` is the rule.
 - ``make_multi_step``: k updates in one call (the ``lax.scan``), k steps
   in one CUDA graph on one card; ``init_state``: the state dict.
-- ``data_parallel``: the model in ``DistributedDataParallel`` when a
-  process group exists (the gradient all-reduce that jit inserts in the
-  JAX package), ``global_mean`` / ``global_sum`` across the ranks, and
-  ``make_eval_step`` (metric sums over the global batch).
+- ``data_parallel``: the model in ``DistributedDataParallel`` over the
+  ranks that hold the same parameters (the gradient all-reduce that jit
+  inserts in the JAX package; an FSDP model reduces its own),
+  ``global_mean`` / ``global_sum`` over the ranks that hold distinct
+  tokens, and ``make_eval_step`` (metric sums over the global batch).
 - ``Checkpointer``: step-numbered ``torch.save`` checkpoints with the same
   ``latest_step``/``restore``/``restore_latest``/``max_to_keep`` contract;
-  process 0 writes, every process agrees on the latest step.
+  process 0 writes, every process agrees on the latest step; a sharded
+  state (tensor parallel, FSDP) is written whole and sliced again on
+  restore, so it resumes at any layout.
 - ``Profiler``, ``add_profile_flags``, ``profiler_from_args``: the
   ``--profile-*`` surface on ``torch.profiler`` (a Chrome trace where the
   JAX package writes an xplane one).
@@ -47,6 +50,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as tdist
+from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
 from tpujob_torch.workloads import distributed as dist
@@ -317,10 +321,14 @@ def adamw(params, lr: float, weight_decay: float = 0.01) -> torch.optim.AdamW:
     On the card the optimizer is capturable: its step counts live on the
     card and each group's lr is a 0-d fp32 tensor there, which ``set_lr``
     fills, so one captured update reads each step's lr (a float would be
-    baked into the graph).  On the CPU the lr is a float, as before."""
+    baked into the graph).  On the CPU the lr is a float, as before, and so
+    it is for FSDP's sharded parameters (DTensors, whose step is eager
+    across ranks: a 0-d lr tensor beside them would mix a plain tensor
+    into their ops)."""
     params = list(params)
     decay, no_decay = _decay_mask(params)
-    on_card = bool(params) and params[0].is_cuda
+    on_card = (bool(params) and params[0].is_cuda
+               and not isinstance(params[0], DTensor))
     groups = [{"params": decay, "weight_decay": weight_decay},
               {"params": no_decay, "weight_decay": 0.0}]
     if on_card:
@@ -494,37 +502,52 @@ def with_grad_accum(params, every: int) -> Optional[GradAccum]:
 # ---------------------------------------------------------------------------
 
 
-def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
-    """``model`` in ``DistributedDataParallel`` when a process group of
-    more than one rank exists, else ``model`` itself.  Every rank builds
-    the same weights from the seed (DDP checks and broadcasts them once);
-    the grads of each backward are averaged across the ranks, which over
-    equal local batches is the global batch's gradient."""
-    if dist.group_size() == 1:
+def data_parallel(model: torch.nn.Module, mesh=None) -> torch.nn.Module:
+    """``model`` in ``DistributedDataParallel`` over the ranks that hold
+    the same parameters, else ``model`` itself.  Every rank builds the
+    same weights from the seed (DDP checks and broadcasts them once); the
+    grads of each backward are averaged across those ranks, which over
+    equal local batches is the global batch's gradient.
+
+    Without ``mesh`` they are the whole world.  With one they are the
+    token axes' group (``distributed.TOKEN_AXES``): a tensor group's ranks
+    hold different shards, whose grads must not be averaged together.  A
+    model FSDP has sharded (``parallel.fully_shard_model``) is returned
+    as it is: FSDP reduce-scatters its grads over fsdp and averages them
+    over the replica axes itself, and a DDP around it would reduce them
+    twice."""
+    group = dist.token_group(mesh)
+    if group is None or getattr(model, "fsdp_mesh", None) is not None:
         return model
     dev = next(model.parameters()).device
     return DistributedDataParallel(
-        model, device_ids=[dev.index] if dev.type == "cuda" else None)
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        process_group=group)
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks (a new tensor; ``x`` itself with no
-    group).  Queued on the card under NCCL: the host does not wait."""
-    if dist.group_size() == 1:
+def global_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` summed over the ranks that hold distinct tokens (a new
+    tensor; ``x`` itself when there is one such rank): the whole world
+    without ``mesh``, the token axes' group with one (a tensor group's
+    ranks hold the same rows, and are not counted twice).  Queued on the
+    card under NCCL: the host does not wait."""
+    group = dist.token_group(mesh)
+    if group is None:
         return x
     y = x.clone()
-    tdist.all_reduce(y)
+    tdist.all_reduce(y, group=group)
     return y
 
 
-def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the ranks, in fp32 and then in ``x``'s dtype
-    (one rounding of a bf16 loss, as the global mean has): of a per-rank
-    mean over equal local batches, the global batch's mean."""
-    world = dist.group_size()
-    if world == 1:
+def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` averaged over the ranks of ``global_sum``, in fp32 and then in
+    ``x``'s dtype (one rounding of a bf16 loss, as the global mean has):
+    of a per-rank mean over equal local batches, the global batch's
+    mean."""
+    shards = dist.token_shards(mesh)
+    if shards == 1:
         return x
-    return (global_sum(x.float()) / world).to(x.dtype)
+    return (global_sum(x.float(), mesh) / shards).to(x.dtype)
 
 
 def make_eval_step(metric_fn: Callable[[Any], Tuple[torch.Tensor, ...]]):
@@ -692,7 +715,7 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
                     accum: Optional[GradAccum] = None,
-                    capture: bool = True):
+                    capture: bool = True, mesh=None):
     """``step(state, batch) -> (state, loss)``: value and grad of
     ``loss_fn(batch)`` (which runs the model), one AdamW update at
     ``lr_fn(update count)``, and ``state['step'] + 1``.  The update is in
@@ -708,9 +731,10 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
     folds and updates); the losses and parameters are those of the eager
     step, bit for bit, since the same kernels run in the same order.
 
-    Across processes ``loss_fn`` runs the DDP wrapper (``data_parallel``),
-    so the grads are the ranks' mean before ``accum`` folds them in; the
-    returned loss is the ranks' mean too (``global_mean``), the global
+    Across processes ``loss_fn`` runs the DDP wrapper (``data_parallel``)
+    or an FSDP model, so the grads are the ranks' mean before ``accum``
+    folds them in; the returned loss is the ranks' mean too
+    (``global_mean`` over ``mesh``'s token axes, or the world), the global
     batch's loss as the JAX package reports it.
 
     Extra outputs of the loss: besides its value, ``loss_fn`` may write
@@ -726,7 +750,8 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
         def step(state, batch):
             loss, _ = _eager_step(loss_fn, optimizer, lr_fn, accum,
                                   state["step"], batch)
-            return dict(state, step=state["step"] + 1), global_mean(loss)
+            return dict(state, step=state["step"] + 1), global_mean(loss,
+                                                                    mesh)
 
         step.mode = mode
         return step
@@ -888,6 +913,41 @@ def _to_saveable(state: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in state.items()}
 
 
+def _optimizer_names(optimizer, model) -> list:
+    """The parameter name of each index of ``optimizer.state_dict()``'s
+    state (its groups' parameters in order)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def _map_tensors(state: Dict[str, Any], saved: Dict[str, Any], fn
+                 ) -> Dict[str, Any]:
+    """``saved``, the state dicts of ``state``'s values, with every tensor
+    shaped like a parameter replaced by ``fn(name, t, like)``: ``name`` is
+    the parameter's and ``like`` its live counterpart in ``state``.  Those
+    tensors are the model's, the optimizer's moments (not its 0-d step
+    counts) and a ``GradAccum``'s running means."""
+    model = state["model"]
+    params = dict(model.named_parameters())
+    live = model.state_dict()
+    out = dict(saved)
+    for k, v in state.items():
+        sd = saved[k]
+        if k == "model":
+            out[k] = {n: fn(n, t, live[n]) for n, t in sd.items()}
+        elif isinstance(v, torch.optim.Optimizer):
+            names = _optimizer_names(v, model)
+            out[k] = dict(sd, state={
+                i: {key: (fn(names[i], t, params[names[i]])
+                          if torch.is_tensor(t) and t.ndim else t)
+                    for key, t in entry.items()}
+                for i, entry in sd["state"].items()})
+        elif isinstance(v, GradAccum):
+            out[k] = dict(sd, acc=[fn(n, a, params[n])
+                                   for n, a in zip(params, sd["acc"])])
+    return out
+
+
 class Checkpointer:
     """Step-numbered save/restore for the train state.
 
@@ -902,13 +962,22 @@ class Checkpointer:
     it at a barrier; ``latest_step`` is process 0's answer, so no process
     resumes at another step.  A state holds the unwrapped module, never
     the DDP wrapper, so a checkpoint restores at any world size.
+
+    A sharded state (tensor parallel, FSDP) comes with ``shards``
+    (``parallel.ParamShards``): every process gathers each parameter, its
+    AdamW moments and its accumulated gradient whole (``shards.full``),
+    process 0 writes the one-process checkpoint, and a restore slices each
+    tensor to this rank's shard again (``shards.local``), as orbax restores
+    into the live sharded template in the JAX package.  So a checkpoint
+    written at one layout resumes at another, one process included.
     """
 
     FILE = "state.pt"
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, shards=None):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.shards = shards
         os.makedirs(self._dir, exist_ok=True)
 
     def _steps(self):
@@ -920,11 +989,15 @@ class Checkpointer:
         return sorted(out)
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
+        saveable = _to_saveable(state)
+        if self.shards is not None:  # every rank takes part in the gathers
+            saveable = _map_tensors(state, saveable,
+                                    lambda n, t, like: self.shards.full(n, t))
         if not tdist.is_initialized() or tdist.get_rank() == 0:
             d = os.path.join(self._dir, str(step))
             os.makedirs(d, exist_ok=True)
             tmp = os.path.join(d, self.FILE + ".tmp")
-            torch.save(_to_saveable(state), tmp)
+            torch.save(saveable, tmp)
             os.replace(tmp, os.path.join(d, self.FILE))
             for old in self._steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self._dir, str(old)),
@@ -944,6 +1017,8 @@ class Checkpointer:
         optimizers in ``like`` are loaded in place, plain values replaced."""
         saved = torch.load(os.path.join(self._dir, str(step), self.FILE),
                            map_location="cpu", weights_only=True)
+        if self.shards is not None:
+            saved = _map_tensors(like, saved, self.shards.local)
         out = dict(like)
         for k, v in like.items():
             if hasattr(v, "load_state_dict"):
