@@ -162,7 +162,28 @@ Phases, one JSON line each on stdout:
    (FSDP's all-gathers and reduce-scatters counted around
    ``torch.distributed``'s calls, ``counted_collectives``): a record of
    correctness and memory, not a speed of FSDP or TP.
-16. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
+16. ``ep``: expert parallelism and MoE under sequence parallelism, two
+   ranks on the one card over gloo (as ``shard``), one line a part, each
+   against the parent's own one-process captured run of the same seed
+   and global batch (8), the ``moe`` phase's experts (8, top-2, capacity
+   1.25), 3 steps; the one process's memory (about 33 GB at full depth)
+   is freed before the ranks start.  ``ep``: GPT-2-medium at full width
+   and depth through ``gpt.run --expert-parallel 2 --attention flash``,
+   each rank 4 of the 8 experts of every layer and all 8 rows into
+   B1-B3 (48 / 24 / 24 launches a rank-step); ``moe_sp``: the same model
+   at 8 of its 24 layers under ``--sequence-parallel 2 --sp-mode ulysses
+   --attention flash`` (each rank 512 of each row's positions, the slots
+   of each whole sequence).  Losses within SHARD_LOSS_RTOL (or one bf16
+   ulp), ``update_err`` after step 1 within SHARD_UPDATE_RTOL, every
+   step's dropped assignments equal to one process's as integers under
+   ``ep`` (a rank's arithmetic is one process's, sum for sum), step 1's
+   under ``moe_sp`` (the two ranks' summed) and each later step's there
+   within EP_DROPPED_RTOL, each rank's parameter, expert and moment
+   bytes against one process's, the parameters the expert group holds
+   whole bit-equal on both ranks, peak memory, and the exchanges' calls,
+   bytes and share of a rank-step: a record of correctness and memory,
+   not a speed of expert parallelism.
+17. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
     tpujob_torch.bench_models --models resnet50,bert-large,gpt`` and
     ``python -m tpujob_torch.bench_models --quick --models gpt`` (head dim
     32) as child processes on the card; their JSON lines are printed as
@@ -311,6 +332,35 @@ SHARD_LOSS_RTOL = 5e-3
 # The params after step 1 against one process's (``update_err``): the
 # gate of ``ddp`` and ``sp``, and their reason.
 SHARD_UPDATE_RTOL = 0.25
+# ep: expert parallelism and MoE under sequence parallelism, two ranks on
+# the one card (gloo), the moe phase's experts (8, top-2, capacity 1.25),
+# global batch 8, 3 steps, each part against one process's captured step
+# on the same batch from the seed, held to the shard phase's tolerances
+EP_WORLD = 2
+EP_STEPS = 3
+EP_BASE_ARGV = ["--batch-size", "8", "--steps", str(EP_STEPS),
+                "--log-interval", "1", "--seed", "0", "--moe-experts", "8",
+                "--moe-k", "2", "--moe-capacity-factor", "1.25"]
+EP_PARTS = {
+    # part: (module, the ranks' flags, the one process's flags)
+    "ep": ("gpt", ["--expert-parallel", "2", "--attention", "flash"],
+           ["--attention", "flash"]),
+    # GPT-2-medium's depth cut from 24 to 8 layers to keep the phase short
+    "moe_sp": ("gpt", ["--layers", "8", "--sequence-parallel", "2",
+                       "--sp-mode", "ulysses", "--attention", "flash"],
+               ["--layers", "8", "--attention", "flash"]),
+}
+# Dropped assignments against one process's.  Under EP a rank's
+# arithmetic is one process's sum for sum (``parallel.moe_ffn``), and
+# every step's count must be one process's as an integer.  Under SP step
+# 1 routes the same batch with the same weights (the slots of each whole
+# sequence, its capacity), and its count must be one process's; after it
+# the weights differ by their ``update_err`` (Ulysses's projections on
+# half the rows, DDP's mean of two gradients), the router's near ties
+# fall otherwise, and each later step's count is held within
+# EP_DROPPED_RTOL of one process's (observed 0.04-0.06% on an H100 80GB
+# HBM3 at 700 W).
+EP_DROPPED_RTOL = 0.01
 # graph: each trainer once eager (capture=False) and once captured, from
 # one seed; the two must agree bit for bit (the same kernels in the same
 # order): GPT-2-medium 8 steps, BERT-large MLM 8 mini-steps in groups of 2
@@ -1825,7 +1875,7 @@ def whole_leaves(model, mesh) -> dict:
     calls it together."""
     from tpujob_torch.workloads import parallel
 
-    shards = parallel.ParamShards(mesh.group("tensor"))
+    shards = parallel.ParamShards(mesh.group("tensor"), mesh.group("expert"))
     prefixes = gpt_leaves(model)
     return {n: shards.full(n, p).float() for n, p in model.named_parameters()
             if n.startswith(prefixes)}
@@ -1845,9 +1895,11 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
     (``parallel.EXCHANGE_TIMING``; under ``--fsdp`` FSDP's collectives
     too, ``counted_collectives``), and the leaves ``update_err`` reads
     (``gpt_leaves``, gathered whole) at the build and after step 1; and
-    the bytes this rank holds of the parameters and of AdamW's moments,
-    its peak memory, and the parameters it holds whole that a tensor
-    group would split none of, as it holds them."""
+    the bytes this rank holds of the parameters (and of the experts among
+    them) and of AdamW's moments, its peak memory, the parameters it
+    holds whole that a tensor or expert group would split none of, as it
+    holds them, and a MoE run's aux terms and dropped assignments a
+    step."""
     from tpujob_torch.workloads import bert, flash, parallel, train_lib
 
     build, built, leaves = bert.build_model, [], {}
@@ -1886,6 +1938,10 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
             "exchange_share": parallel.EXCHANGES["seconds"] * 1e3 / sum(ms),
             "step_mode": res["step_mode"],
             "param_bytes": local_bytes(model.parameters()),
+            "expert_bytes": local_bytes(
+                q for n, q in model.named_parameters()
+                if parallel.ep_dim(n) is not None),
+            "moe_metrics": res.get("moe_metrics"),
             "moment_bytes": local_bytes(
                 st[k] for st in opt.state.values()
                 for k in ("exp_avg", "exp_avg_sq")),
@@ -1893,20 +1949,21 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
             "replicated": {n: p.detach().float().cpu()
                            for n, p in model.named_parameters()
                            if parallel.tp_dim(n) is None
+                           and parallel.ep_dim(n) is None
                            and not hasattr(p, "to_local")}}
 
 
 def mesh_plan(base: list, parts: dict) -> dict:
-    """What each rank of the ``sp`` or ``shard`` phase runs, passed to it
-    whole (a spawned rank imports this file anew)."""
+    """What each rank of the ``sp``, ``shard`` or ``ep`` phase runs,
+    passed to it whole (a spawned rank imports this file anew)."""
     return {"device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
             "base": base, "parts": parts}
 
 
 def mesh_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
-    """One rank of the ``sp`` or ``shard`` phase: the group over gloo on
-    the card, then each part's run (``mesh_run``); what the parent checks
-    goes to ``out_dir``."""
+    """One rank of the ``sp``, ``shard`` or ``ep`` phase: the group over
+    gloo on the card, then each part's run (``mesh_run``); what the
+    parent checks goes to ``out_dir``."""
     import datetime
     import faulthandler
     import importlib
@@ -2114,6 +2171,125 @@ def run_shard() -> dict:
         raise AssertionError(f"shard path failed: {failed}")
     return {k: launches["fsdp"][k] + launches["tp"][k] for k in flash.LAUNCHES}
 
+
+def run_ep() -> dict:
+    """Each part's one-process run, its memory freed before the ranks
+    start (one process peaks near 33 GB at full depth), then two gloo
+    ranks on the card running every part; one line a part."""
+    import gc
+    import importlib
+
+    from tpujob_torch.workloads import flash
+
+    out_dir = os.path.join("build", "chip_smoke", "ep")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    plan = mesh_plan(EP_BASE_ARGV, EP_PARTS)
+    one = {}
+    for part, (name, _, flags) in EP_PARTS.items():
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        one[part] = mesh_run(module, EP_BASE_ARGV + flags, plan["device"],
+                             os.path.join(out_dir, "one", part))
+        gc.collect()
+        torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 2**30
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(EP_WORLD, out_dir, mesh_rank, plan)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    failed = []
+    for part, (name, flags, one_flags) in EP_PARTS.items():
+        ref = one[part]
+        runs = [r[part] for r in ranks]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(runs[0]["losses"], ref["losses"]))
+        errs = [update_err(r["leaves"]["step1"], ref["leaves"]["step1"],
+                           ref["leaves"]["init"]) for r in runs]
+        layers = flag(flags, "--layers") if "--layers" in flags else 24
+        n = layers * EP_STEPS
+        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        # an expert rank routes every row (its drops are one process's);
+        # a sequence rank routes its half of each row
+        dropped = [[m["dropped"] for m in r["moe_metrics"]] for r in runs]
+        ref_dropped = [m["dropped"] for m in ref["moe_metrics"]]
+        got_dropped = (dropped[0] if part == "ep"
+                       else [sum(x) for x in zip(*dropped)])
+        checks = {
+            "gloo_groups": all(r["backend"] == "gloo"
+                               and r["pe"] == [i, EP_WORLD]
+                               for i, r in enumerate(ranks)),
+            "losses": all(len(r["losses"]) == EP_STEPS
+                          and all(math.isfinite(x) for x in r["losses"])
+                          for r in runs)
+            and runs[0]["losses"] == runs[1]["losses"]
+            and all(abs(x - y) <= max(SHARD_LOSS_RTOL * abs(y), bf16_ulp(y))
+                    for x, y in zip(runs[0]["losses"], ref["losses"])),
+            "params_after_step1": max(errs) <= SHARD_UPDATE_RTOL,
+            "dropped": len(ref_dropped) == EP_STEPS
+            and got_dropped[0] == ref_dropped[0]
+            and all(abs(x - y) <= EP_DROPPED_RTOL * y
+                    for x, y in zip(got_dropped, ref_dropped))
+            and (part != "ep"
+                 or dropped[0] == dropped[1] == ref_dropped),
+            "launches": all(r["launches"] == ref["launches"] == want
+                            for r in runs),
+            "exchanged": all(r["exchanges"]["calls"] > 0 for r in runs),
+            # under EP each rank holds half the experts and every other
+            # parameter whole; under SP the whole model
+            "state_sharded": all(
+                (r["expert_bytes"] * EP_WORLD == ref["expert_bytes"]
+                 if part == "ep" else
+                 r["expert_bytes"] == ref["expert_bytes"])
+                and r["param_bytes"] - r["expert_bytes"]
+                == ref["param_bytes"] - ref["expert_bytes"]
+                and r["moment_bytes"] == 2 * r["param_bytes"]
+                for r in runs),
+            "replicated_equal": all(
+                torch.equal(v, runs[0]["replicated"][k])
+                for r in runs for k, v in r["replicated"].items()),
+        }
+        ok = all(checks.values())
+        launches[part] = runs[0]["launches"]
+        emit({"phase": "ep", "part": part, "ok": ok, "checks": checks,
+              "argv": EP_BASE_ARGV + flags, "one_process_argv":
+              EP_BASE_ARGV + one_flags, "world": EP_WORLD,
+              "backend": "gloo (two ranks on one card; NCCL refuses)",
+              "losses_rank0": runs[0]["losses"],
+              "losses_one_process": ref["losses"], "max_rel_diff": rel,
+              "loss_rtol": SHARD_LOSS_RTOL, "update_err_by_rank": errs,
+              "update_rtol": SHARD_UPDATE_RTOL,
+              "dropped_by_rank": dropped,
+              "dropped_one_process": ref_dropped,
+              "aux_rank0": runs[0]["moe_metrics"],
+              "aux_one_process": ref["moe_metrics"],
+              "launches_by_rank": [r["launches"] for r in runs],
+              "launches_one_process": ref["launches"],
+              "param_bytes_by_rank": [r["param_bytes"] for r in runs],
+              "expert_bytes_by_rank": [r["expert_bytes"] for r in runs],
+              "moment_bytes_by_rank": [r["moment_bytes"] for r in runs],
+              "param_bytes_one_process": ref["param_bytes"],
+              "expert_bytes_one_process": ref["expert_bytes"],
+              "moment_bytes_one_process": ref["moment_bytes"],
+              "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in runs],
+              "peak_mem_gb_one_process": ref["peak_mem_gb"],
+              "parent_reserved_gb_at_spawn": parent_gb,
+              "step_ms_by_rank": [r["step_ms"] for r in runs],
+              "step_ms_one_process": ref["step_ms"],
+              "step_mode_one_process": ref["step_mode"],
+              "exchanges_by_rank": [r["exchanges"] for r in runs],
+              "exchange_share_by_rank": [r["exchange_share"] for r in runs],
+              "spawn_s": spawn_s,
+              "times_note": "per-rank ms a step (steps 2-3) of two ranks "
+                            "sharing one card over gloo, the card synced "
+                            "around each exchange: a record of correctness "
+                            "and memory, not a speed of expert or sequence "
+                            "parallelism"})
+        if not ok:
+            failed.append((part, checks))
+    if failed:
+        raise AssertionError(f"ep path failed: {failed}")
+    return {k: launches["ep"][k] + launches["moe_sp"][k]
+            for k in flash.LAUNCHES}
 
 def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
     """``module.run`` once through its flag surface, eager
@@ -2405,6 +2581,7 @@ def main(argv=None) -> int:
         by_path["ddp"] = run_ddp()
         by_path["sp"], timed["sp_local_h8"] = run_sp()
         by_path["shard"] = run_shard()
+        by_path["ep"] = run_ep()
         by_path["bench"], by_path["bench_quick_d32"] = run_bench()
         launches = by_path["train"]
 

@@ -175,8 +175,8 @@ def test_run_flag_errors():
     with pytest.raises(ValueError, match="needs --data-file"):
         tbert.run(p.parse_args(ARGV + ["--device", "cpu",
                                        "--tokenizer", "bpe:x"]))
-    # MoE runs on one device; expert parallelism is not ported
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # expert parallelism over 2 ranks: one process cannot hold its axis
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         tbert.run(p.parse_args(ARGV + ["--device", "cpu", "--moe-experts",
                                        "4", "--expert-parallel", "2"]))
 

@@ -180,11 +180,13 @@ def test_param_count_gpt2_medium():
     ("--pipeline-parallel", "2"), ("--expert-parallel", "2"),
 ])
 def test_unported_flags_raise(flag, value):
-    # expert parallelism needs experts: without them the JAX package's
-    # ValueError comes first (tests/test_torch_moe.py); sequence and
-    # tensor parallelism and FSDP are ported (SP with flash, as Ulysses's
-    # local attention; TP with dense attention, as the JAX package refuses
-    # flash with it), MoE with any of them is not
+    # only the pipeline is not ported.  Each other strategy builds with a
+    # MoE model too (expert parallelism needs experts: without them the
+    # JAX package's ValueError comes first, tests/test_torch_moe.py;
+    # flash pairs with Ulysses, TP with dense attention, as the JAX
+    # package refuses flash with it): the flags pass, and one process
+    # cannot hold a model axis of 2 (the mesh's own error); FSDP builds
+    # its model here and shards it in ``train``
     moe = {"--expert-parallel": ["--moe-experts", "4"],
            "--sequence-parallel": ["--moe-experts", "4", "--sp-mode",
                                    "ulysses"],
@@ -193,7 +195,15 @@ def test_unported_flags_raise(flag, value):
            "--fsdp": ["--moe-experts", "4"]}.get(flag, [])
     args = tgpt.build_parser().parse_args(
         ARGV + ["--device", "cpu", flag, value] + moe)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    if flag == "--pipeline-parallel":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tgpt.build_model(args, torch.device("cpu"))
+        return
+    tbert.validate_parallel_flags(args, causal=True)
+    if flag == "--fsdp":
+        assert tgpt.build_model(args, torch.device("cpu")).moe is not None
+        return
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         tgpt.build_model(args, torch.device("cpu"))
 
 

@@ -1,4 +1,4 @@
-"""The port's sparse MoE (``--moe-experts``, expert parallelism 1) against
+"""The port's sparse MoE (``--moe-experts``) on one device against
 the JAX package's, on the CPU, from the same numpy inputs and weights
 (``convert.params_from_flax`` carries flax's ``moe/{router,wi,wo}`` as
 they are).
@@ -378,7 +378,7 @@ def test_moe_config_from_has_the_reference_rules():
 
 REFUSALS = [
     (["--moe-k", "0"], ValueError, "--moe-k must be >= 1"),
-    (["--expert-parallel", "2"], NotImplementedError, "not yet ported"),
+    (["--expert-parallel", "2"], ValueError, "not divisible by fixed axes"),
     (["--pipeline-parallel", "2"], NotImplementedError, "not yet ported"),
     (["--moe-experts", "0", "--expert-parallel", "2"], ValueError,
      "needs --moe-experts"),
@@ -389,10 +389,11 @@ REFUSALS = [
 
 @pytest.mark.parametrize("flags,error,match", REFUSALS)
 def test_entry_points_refuse_what_one_device_cannot_run(flags, error, match):
-    """``--moe-experts`` builds on one device; expert parallelism and the
-    pipeline (which the JAX package refuses with MoE) are not ported; the
-    MoE flags' own errors are the JAX package's ValueErrors, raised before
-    that refusal."""
+    """``--moe-experts`` builds on one device; expert parallelism over 2
+    ranks cannot run on one (the mesh's own error: EP itself is ported,
+    ``tests/test_torch_ep.py``), the pipeline (which the JAX package
+    refuses with MoE) is not ported; the MoE flags' own errors are the
+    JAX package's ValueErrors, raised before that refusal."""
     args = tgpt.build_parser().parse_args(SMALL + ["--device", "cpu"] + flags)
     with pytest.raises(error, match=match):
         tgpt.build_model(args, torch.device("cpu"))
@@ -400,7 +401,8 @@ def test_entry_points_refuse_what_one_device_cannot_run(flags, error, match):
 
 @pytest.mark.parametrize("flags,error,match", REFUSALS)
 def test_train_refuses_as_build_model_does(flags, error, match):
-    """``train`` checks the flags before it touches the model or batch."""
+    """``train`` checks the flags, and makes the mesh they name when given
+    none, before it touches the model or batch."""
     args = tgpt.build_parser().parse_args(SMALL + ["--device", "cpu"] + flags)
     with pytest.raises(error, match=match):
         tbert.train(args, tdist.process_env({}), None, tgpt.lm_loss, None)

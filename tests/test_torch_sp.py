@@ -277,13 +277,15 @@ def test_sp_combinations_jax_refuses_raise_its_value_error(name):
     ["--moe-experts", "4", "--fsdp", "2"],
     ["--moe-experts", "4", "--expert-parallel", "2"]])
 def test_unported_strategies_with_sp_raise_not_yet_ported(flags):
-    """MoE with SP (its capacity is per whole sequence), alone or beside
-    TP or FSDP (which are ported, and compose with the ring:
-    ``tests/test_torch_tp.py``, ``tests/test_torch_fsdp.py``), and EP,
-    which the JAX package composes with the ring, are refused."""
+    """MoE with SP (its capacity and slots are each whole sequence's:
+    ``parallel.seq_route``), alone or beside TP or FSDP, and EP, which the
+    JAX package composes with the ring, are ported now
+    (``tests/test_torch_ep.py`` runs them): the flags pass, and one
+    process cannot hold the sequence axis (the mesh's own error)."""
     assert _jax_error(flags, True) is None
     args = tgpt.build_parser().parse_args(SMALL + RING + flags)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    tbert.validate_parallel_flags(args, causal=True)
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         tgpt.build_model(args, "cpu")
 
 

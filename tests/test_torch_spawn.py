@@ -85,6 +85,16 @@ def join(device="cpu"):
     return dist.initialize(device=torch.device(device), timeout=RANK_TIMEOUT)
 
 
+def leave():
+    """Wait for every rank, then take the group down: a rank whose peers
+    exit while its gloo threads still hold their connections can abort
+    at exit ("terminate called without an active exception")."""
+    import torch.distributed as tdist
+
+    tdist.barrier()
+    dist.shutdown()
+
+
 def numpy_state(module):
     return {k: v.detach().float().numpy().copy()
             for k, v in module.state_dict().items()}
@@ -174,8 +184,8 @@ def moe_ranks(rank, argv, local_argv, state):
     [out] = trainer_ranks(rank, "gpt", [argv], state)
     global_terms = bert.moe_terms
 
-    def local_terms(metrics):
-        terms = global_terms(metrics)
+    def local_terms(metrics, mesh=None):
+        terms = global_terms(metrics, mesh)
         terms["load_balance"] = torch.stack(
             [m["load_balance"] for m in metrics]).mean()
         return terms
@@ -414,10 +424,14 @@ def shard_trainer_ranks(rank, runs):
     (``convert.params_from_flax`` over the run's mesh): each run's losses,
     final step and tokens generated; the parameters after the run gathered
     whole (``parallel.ParamShards``), every one this rank holds whole
-    (``parallel.TP_RULES`` splits none of them) as it holds it, the
-    elements this rank holds of the parameters and of AdamW's moments, and
-    the ranks of its mesh's groups (tensor, replica, token axes), as
-    ``get_process_group_ranks`` reads them."""
+    (``parallel.TP_RULES`` and ``EP_RULES`` split none of them) as it
+    holds it, the elements this rank holds of the parameters and of
+    AdamW's moments, the ranks of its mesh's groups (tensor, replica,
+    token axes, and ``ffn``: expert x tensor), as
+    ``get_process_group_ranks`` reads them, and a MoE run's
+    ``moe_metrics`` and, for each forward, whether its load balance is
+    the world formula's (``bert.moe_terms`` without the mesh) bit for
+    bit."""
     import importlib
 
     import torch.distributed as tdist
@@ -425,10 +439,16 @@ def shard_trainer_ranks(rank, runs):
     from tpujob_torch.workloads import bert, convert, parallel
 
     join()
-    build = bert.build_model
+    build, terms = bert.build_model, bert.moe_terms
     out = []
     for name, argv, tree in runs:
-        meshes = []
+        meshes, lb_world_equal = [], []
+
+        def recorded(metrics, mesh=None):
+            got = terms(metrics, mesh)
+            world = terms(metrics)["load_balance"]
+            lb_world_equal.append(torch.equal(got["load_balance"], world))
+            return got
 
         def built(args, device, *, mesh=None, **kw):
             model = build(args, device, mesh=mesh, **kw)
@@ -438,14 +458,15 @@ def shard_trainer_ranks(rank, runs):
             return model
 
         module = importlib.import_module(f"tpujob_torch.workloads.{name}")
-        bert.build_model = built
+        bert.build_model, bert.moe_terms = built, recorded
         res = module.run(module.build_parser().parse_args(argv))
-        bert.build_model = build
+        bert.build_model, bert.moe_terms = build, terms
         mesh, model = meshes[0], res["state"]["model"]
-        shards = parallel.ParamShards(mesh.group("tensor"))
+        shards = parallel.ParamShards(mesh.group("tensor"),
+                                      mesh.group("expert"))
         groups = {key: mesh.group(*axes) for key, axes in (
             ("tensor", ("tensor",)), ("replica", dist.REPLICA_AXES),
-            ("tokens", dist.TOKEN_AXES))}
+            ("tokens", dist.TOKEN_AXES), ("ffn", ("expert", "tensor")))}
         opt = res["state"]["opt"]
         out.append({
             "losses": res["losses"], "step": res["state"]["step"],
@@ -456,7 +477,8 @@ def shard_trainer_ranks(rank, runs):
             "replicated": {n: (p.to_local() if hasattr(p, "to_local")
                                else p).detach().float().numpy().copy()
                            for n, p in model.named_parameters()
-                           if parallel.tp_dim(n) is None},
+                           if parallel.tp_dim(n) is None
+                           and parallel.ep_dim(n) is None},
             "param_numel": sum(local_numel(p) for p in model.parameters()),
             "moment_numel": sum(local_numel(st[k])
                                 for st in opt.state.values()
@@ -464,7 +486,10 @@ def shard_trainer_ranks(rank, runs):
             "groups": {key: (tdist.get_process_group_ranks(g)
                              if g is not None else [rank])
                        for key, g in groups.items()},
+            "moe_metrics": res.get("moe_metrics"),
+            "lb_world_equal": lb_world_equal,
         })
+    leave()
     return out
 
 
@@ -503,6 +528,81 @@ def tp_block_ranks(rank, cases):
                         "grads": {k: shards.full(k, p.grad).numpy()
                                   for k, p in blk.named_parameters()}})
         out[name] = res
+    return out
+
+
+def ep_ffn_ranks(rank, cases):
+    """Each case of ``cases`` (name -> dict of the mesh ``axes``, numpy
+    ``x``, ``router``, ``wi``, ``wo``, ``ct``, ``k``, ``cf``): ``moe_ffn``
+    on the mesh's groups, this rank holding its experts and tensor block
+    of ``wi``/``wo`` (``parallel.mesh_local``) and every row.  Its output,
+    metrics, and the gradients of ``sum(y * ct) + lb + z``: x's and the
+    router's as held, the experts' gathered whole."""
+    from tpujob_torch.workloads import parallel
+
+    join()
+    out = {}
+    for name, c in cases.items():
+        mesh = dist.make_mesh(c["axes"])
+        x, router = (torch.from_numpy(c[n]).requires_grad_()
+                     for n in ("x", "router"))
+        wi, wo = (parallel.mesh_local(f"moe.{n}", torch.from_numpy(c[n]),
+                                      mesh).clone().requires_grad_()
+                  for n in ("wi", "wo"))
+        y, m = parallel.moe_ffn(x, router, wi, wo, k=c["k"],
+                                capacity_factor=c["cf"],
+                                groups=parallel.moe_groups(mesh))
+        ((y * torch.from_numpy(c["ct"])).sum() + m["load_balance"]
+         + m["router_z"]).backward()
+        shards = parallel.ParamShards(mesh.group("tensor"),
+                                      mesh.group("expert"))
+        out[name] = {"y": y.detach().numpy(),
+                     "metrics": {k: v.detach().numpy()
+                                 for k, v in m.items()},
+                     "x": x.grad.numpy(), "router": router.grad.numpy(),
+                     "wi": shards.full("moe.wi", wi.grad).numpy(),
+                     "wo": shards.full("moe.wo", wo.grad).numpy(),
+                     "local_experts": wi.shape[0]}
+    leave()
+    return out
+
+
+def seq_route_ranks(rank, cases):
+    """Each case of ``cases`` (name -> dict of numpy ``x`` [b, S, d],
+    ``router``, ``wi``, ``wo``, ``k``, ``cf``, optional ``valid`` [b, S],
+    and ``zigzag``): this rank's shard of each sequence over the world's
+    sequence group (its contiguous block, or the zigzag pair of chunks)
+    through ``moe_route`` + ``seq_route`` and ``moe_ffn``: its positions,
+    experts, slots, keep flags, dropped count and output."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import parallel
+
+    join()
+    n = tdist.get_world_size()
+    group = dist.make_mesh({"sequence": n}).group("sequence")
+    out = {}
+    for name, c in cases.items():
+        seq = c["x"].shape[1]
+        pos = (parallel.zigzag_index(seq, n, rank) if c["zigzag"]
+               else np.arange(rank * seq // n, (rank + 1) * seq // n))
+        x = torch.from_numpy(c["x"][:, pos])
+        valid = (None if c.get("valid") is None
+                 else torch.from_numpy(c["valid"][:, pos]))
+        positions = torch.from_numpy(pos)
+        num_experts = c["router"].shape[1]
+        cap = parallel.moe_capacity(seq, num_experts, c["k"], c["cf"])
+        r = parallel.moe_route(x, torch.from_numpy(c["router"]), c["k"],
+                               cap, valid)
+        r = parallel.seq_route(r, group, positions, cap)
+        y, m = parallel.moe_ffn(
+            x, *(torch.from_numpy(c[k]) for k in ("router", "wi", "wo")),
+            k=c["k"], capacity_factor=c["cf"], valid=valid,
+            groups=parallel.MoEGroups(sequence=group), positions=positions)
+        out[name] = {"positions": pos, "expert_idx": r.expert_idx.numpy(),
+                     "slot": r.pos.long().numpy(), "keep": r.keep.numpy(),
+                     "dropped": m["dropped"].item(), "y": y.numpy()}
+    leave()
     return out
 
 

@@ -4,9 +4,11 @@ The BERT encoder and the GPT decoder are one machine here as in the JAX
 package: post-LN blocks, learned (or rotary) positions, a tied LM head,
 rematerialised blocks.  What is ported: ``rope``, ``Attention`` (training
 branch and the KV-cache branch of decode), ``Block`` with the dense FFN or
-the sparse MoE one (``MoEConfig``, ``MoEMlp``, ``moe_config_from``; one
-device, no expert parallelism), ``Bert`` (embed / head / forward, and
-decode one token at a time against an explicit ``KVCache``), the
+the sparse MoE one (``MoEConfig``, ``MoEMlp``, ``moe_config_from``; on
+one device, or its experts split over an expert group and its FFN over
+a tensor group, on a sequence split over a sequence group), ``Bert``
+(embed / head / forward, and decode one token at a time against an
+explicit ``KVCache``), the
 masked-LM objective (``mask_batch``, ``mlm_loss``, with the MoE aux
 terms), the flag surface, ``tokenizer_from_args`` and
 ``token_batches`` (synthetic, or a real corpus with ``--data-file``, raw
@@ -18,9 +20,10 @@ local kernel; under ``--tensor-parallel`` Megatron's blocks), the
 ``--profile-dir``, data parallelism across processes through DDP over
 the ranks that hold the same parameters, ZeRO-3 through FSDP2 under
 ``--fsdp``, checkpoints written whole at any layout) and ``run``/``main``.
-Of the parallel strategies, data, sequence and tensor parallelism and
-FSDP are ported, and their compositions (TP x SP on the ring, FSDP x TP,
-FSDP x SP); expert and pipeline parallelism are not.
+Of the parallel strategies, data, sequence, tensor and expert
+parallelism and FSDP are ported, and their compositions (TP x SP on the
+ring, FSDP x TP, FSDP x SP, and MoE with EP or without on any of them);
+pipeline parallelism is not.
 
 Under sequence parallelism each rank holds its rows of the batch and its
 columns of the sequence (``seq_positions``: a contiguous block, or for
@@ -72,8 +75,9 @@ class Dense(nn.Module):
     product.  The weight is torch's ``[out, in]`` (flax's kernel is
     ``[in, out]``).  With ``reduce_group`` it is row-parallel (Megatron):
     the rank holds a block of the input dim (``parallel.tp_shard_``), the
-    partial products are summed over the group, and the bias, whole on
-    every rank, is added once after the sum."""
+    partial products, in fp32, are summed over the group and rounded once
+    to ``dtype`` (``parallel.reduce_from_tensor``), and the bias, whole
+    on every rank, is added once after the sum."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
                  gen: torch.Generator, reduce_group=None):
@@ -89,8 +93,9 @@ class Dense(nn.Module):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
         if self.reduce_group is None:
             return F.linear(x.to(self.dtype), w, b)
-        y = F.linear(x.to(self.dtype), w)
-        return parallel.reduce_from_tensor(y, self.reduce_group) + b
+        y = F.linear(x.to(self.dtype).float(), w.float())
+        y = parallel.reduce_from_tensor(y, self.reduce_group)
+        return y.to(self.dtype) + b
 
 
 class LayerNorm(nn.Module):
@@ -129,7 +134,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
 class Attention(nn.Module):
     """Multi-head (or grouped-query) self-attention.  Training runs the
     ``attention_fn`` (dense or flash) over the whole sequence; decode
-    (``cache`` given) attends one new token against the KV cache.
+    (``cache`` given) attends one new token against the KV cache.  A
+    sequence-parallel ``attention_fn`` takes a shard at ``positions``;
+    without them (the full route's decode of a MoE model) the
+    ``whole_attention_fn`` attends the whole sequence on every rank.
 
     Under tensor parallelism (``tp_group``) the rank holds ``heads / n``
     query heads and ``kv_heads / n`` KV heads, a contiguous block of each
@@ -139,7 +147,8 @@ class Attention(nn.Module):
     def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
                  attention_fn: Optional[Callable], gen: torch.Generator,
                  kv_heads: Optional[int] = None, use_rope: bool = False,
-                 window: int = 0, tp_group=None):
+                 window: int = 0, tp_group=None,
+                 whole_attention_fn: Optional[Callable] = None):
         super().__init__()
         n = parallel.group_size(tp_group)
         hkv = kv_heads or heads
@@ -147,6 +156,7 @@ class Attention(nn.Module):
         self.d = hidden // heads
         self.tp_group = tp_group
         self.attention_fn = attention_fn or parallel.full_attention
+        self.whole_attention_fn = whole_attention_fn
         self.use_rope = use_rope
         # causal sliding window (0 = full context); the cached decode masks
         # slots behind it so it matches windowed training exactly
@@ -172,7 +182,10 @@ class Attention(nn.Module):
                 pos = (torch.arange(s, device=x.device) if positions is None
                        else positions)
                 q, k = rope(q, pos), rope(k, pos)
-            o = self.attention_fn(q, k, v)  # [b, s, h, d]
+            fn = self.attention_fn
+            if positions is None and self.whole_attention_fn is not None:
+                fn = self.whole_attention_fn
+            o = fn(q, k, v)  # [b, s, h, d]
         return self.out(o.reshape(b, s, self.heads * self.d))
 
     def _attend_cache(self, q, k, v, ck, cv, i: int):
@@ -209,8 +222,8 @@ class Attention(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """Static MoE hyperparameters (the JAX package's, without a mesh:
-    expert parallelism is not ported)."""
+    """Static MoE hyperparameters (the JAX package's; its mesh is the
+    model's ``moe_groups``)."""
 
     experts: int
     k: int = 2
@@ -222,13 +235,17 @@ class MoEMlp(nn.Module):
     ``router`` [d, E] (fp32, normal(0.02)), ``wi`` [E, d, f] and ``wo``
     [E, f, d] (flax's lecun_normal, whose fan-in counts the expert axis as
     receptive field: d * E and f * E), cast to the compute dtype at each
-    use."""
+    use.  All three are drawn whole from the seed; on ``groups`` the model
+    then keeps this rank's experts and block of f (``Bert``'s
+    ``parallel.ep_shard_`` / ``tp_shard_``), so the generator's stream and
+    every later parameter are one process's."""
 
     def __init__(self, hidden: int, intermediate: int, cfg: MoEConfig,
-                 dtype: torch.dtype, gen: torch.Generator):
+                 dtype: torch.dtype, gen: torch.Generator,
+                 groups: Optional[parallel.MoEGroups] = None):
         super().__init__()
         e = cfg.experts
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.groups = cfg, dtype, groups
         self.router = nn.Parameter(torch.empty(hidden, e))
         self.wi = nn.Parameter(torch.empty(e, hidden, intermediate))
         self.wo = nn.Parameter(torch.empty(e, intermediate, hidden))
@@ -237,30 +254,35 @@ class MoEMlp(nn.Module):
             train_lib.lecun_normal_(self.wi, hidden * e, gen)
             train_lib.lecun_normal_(self.wo, intermediate * e, gen)
 
-    def forward(self, x, valid=None):
+    def forward(self, x, valid=None, positions=None):
         return parallel.moe_ffn(
             x, self.router, self.wi.to(self.dtype), self.wo.to(self.dtype),
             k=self.cfg.k, capacity_factor=self.cfg.capacity_factor,
-            valid=valid)
+            valid=valid, groups=self.groups, positions=positions)
 
 
 class Block(nn.Module):
     """Post-LN transformer block with the dense FFN, or with ``moe`` the
     sparse one.  Under tensor parallelism ``mlp_wi`` is column-parallel and
-    ``mlp_wo`` row-parallel (a block of the intermediate dim a rank)."""
+    ``mlp_wo`` row-parallel (a block of the intermediate dim a rank); the
+    sparse one exchanges over ``moe_groups``."""
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dtype: torch.dtype, attention_fn: Optional[Callable],
                  gen: torch.Generator, kv_heads: Optional[int] = None,
                  use_rope: bool = False, window: int = 0,
-                 moe: Optional[MoEConfig] = None, tp_group=None):
+                 moe: Optional[MoEConfig] = None, tp_group=None,
+                 moe_groups: Optional[parallel.MoEGroups] = None,
+                 whole_attention_fn: Optional[Callable] = None):
         super().__init__()
         self.tp_group = tp_group
         self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
-                              kv_heads, use_rope, window, tp_group)
+                              kv_heads, use_rope, window, tp_group,
+                              whole_attention_fn)
         self.ln_attn = LayerNorm(hidden, dtype)
         if moe is not None:
-            self.moe = MoEMlp(hidden, intermediate, moe, dtype, gen)
+            self.moe = MoEMlp(hidden, intermediate, moe, dtype, gen,
+                              moe_groups)
         else:
             self.moe = None
             self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
@@ -277,7 +299,7 @@ class Block(nn.Module):
         ``Attention.forward`` takes them."""
         x = self.ln_attn(x + self.attn(x, cache, positions))
         if self.moe is not None:
-            h, metrics = self.moe(x, valid)
+            h, metrics = self.moe(x, valid, positions)
             return self.ln_mlp(x + h), metrics
         h = F.gelu(self.mlp_wi(parallel.copy_to_tensor(x, self.tp_group)),
                    approximate="tanh")
@@ -311,8 +333,12 @@ class Bert(nn.Module):
     seed, as one process does, and keeps its blocks; the token embedding
     is split over the vocab (the lookup masked to the rank's rows, then
     summed over the group; the tied head's logits gathered).
+    ``moe_groups``: the sparse FFN's groups (``parallel.moe_groups``);
+    the rank keeps its experts (``parallel.EP_RULES``) the same way.
+    ``whole_attention_fn``: the attention of a forward without
+    ``positions`` when ``attention_fn`` takes a sequence shard.
     ``exchanges``: the blocks exchange activations with other ranks (a
-    sequence or tensor group, or FSDP's parameter gathers); see
+    sequence, tensor or expert group, or FSDP's parameter gathers); see
     ``forward``'s remat."""
 
     def __init__(self, vocab: int = 30522, hidden: int = 1024, layers: int = 24,
@@ -322,12 +348,16 @@ class Bert(nn.Module):
                  final_ln: bool = False, kv_heads: Optional[int] = None,
                  use_rope: bool = False, window: int = 0, seed: int = 0,
                  moe: Optional[MoEConfig] = None,
-                 exchanges: bool = False, tp_group=None):
+                 exchanges: bool = False, tp_group=None,
+                 moe_groups: Optional[parallel.MoEGroups] = None,
+                 whole_attention_fn: Optional[Callable] = None):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
         self.use_rope, self.moe = use_rope, moe
-        self.exchanges = exchanges or tp_group is not None
+        expert_group = moe_groups.expert if moe_groups else None
+        self.exchanges = (exchanges or tp_group is not None
+                          or expert_group is not None)
         self.tp_group = tp_group
         gen = torch.Generator().manual_seed(seed)
         # vocab padded to a multiple of 128 (the JAX package's Megatron
@@ -346,8 +376,10 @@ class Bert(nn.Module):
         for i in range(layers):
             setattr(self, f"layer_{i}", Block(
                 hidden, heads, intermediate, dtype, attention_fn, gen,
-                kv_heads, use_rope, window, moe, tp_group))
+                kv_heads, use_rope, window, moe, tp_group, moe_groups,
+                whole_attention_fn))
         parallel.tp_shard_(self, tp_group)
+        parallel.ep_shard_(self, expert_group)
 
     def embed(self, ids, position: int = 0, positions=None):
         """Token embedding plus the learned positions from ``position`` on
@@ -455,7 +487,8 @@ MOE_AUX_COEF, MOE_Z_COEF = 0.01, 1e-3
 MOE_METRICS = ("load_balance", "router_z", "dropped")
 
 
-def moe_terms(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+def moe_terms(metrics: List[Dict[str, torch.Tensor]], mesh=None
+              ) -> Dict[str, torch.Tensor]:
     """The aux terms of a MoE forward from its layers' ``moe_ffn`` metrics:
     the mean over the layers of the load balance and of the router z-loss
     (the JAX package's ``_mean_sown``), and this rank's dropped
@@ -463,31 +496,35 @@ def moe_terms(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]
 
     The load balance is the GLOBAL batch's, as the JAX package's data axis
     computes it: the per-expert top-1 counts and the token count (no grad)
-    are summed over the ranks, and the rank's own sum of probabilities
-    (the differentiated factor) is scaled by the world, so the ranks' mean
-    of this term, and DDP's mean of its gradients, are the whole batch's.
-    The z-loss is a mean over equal local batches and needs nothing."""
-    world = dist.group_size()
+    are summed over the ranks that hold distinct tokens (``mesh``'s token
+    axes, or the world: ``train_lib.global_sum``), and the rank's own sum
+    of probabilities (the differentiated factor) is scaled by their
+    number, so the mean of this term over those ranks, and DDP's mean of
+    its gradients, are the whole batch's.  The ranks of an expert or
+    tensor group hold the same rows and are counted once.  The z-loss is
+    a mean over equal local batches and needs nothing."""
     counts = train_lib.global_sum(torch.stack(
-        [torch.cat([m["top1_count"], m["tokens"][None]]) for m in metrics]))
-    prob_sum = torch.stack([m["prob_sum"] for m in metrics]) * world
+        [torch.cat([m["top1_count"], m["tokens"][None]]) for m in metrics]),
+        mesh)
+    prob_sum = (torch.stack([m["prob_sum"] for m in metrics])
+                * dist.token_shards(mesh))
     lb = parallel.load_balance(counts[:, :-1], prob_sum, counts[:, -1])
     return {"load_balance": lb.mean(),
             "router_z": torch.stack([m["router_z"] for m in metrics]).mean(),
             "dropped": torch.stack([m["dropped"] for m in metrics]).sum()}
 
 
-def moe_forward(model: nn.Module, ids, loss_fn, positions=None):
+def moe_forward(model: nn.Module, ids, loss_fn, positions=None, mesh=None):
     """``(logits, terms)`` of ``model`` (a ``Bert`` or its DDP wrapper) on
     ``ids`` (at ``positions``, a sequence shard's): ``terms`` are
-    ``moe_terms`` for a MoE model, None for a dense one.  Their values
-    (``MOE_METRICS``) are ``loss_fn``'s extra outputs
+    ``moe_terms`` over ``mesh`` for a MoE model, None for a dense one.
+    Their values (``MOE_METRICS``) are ``loss_fn``'s extra outputs
     (``train_lib.set_loss_extras``), which ``train`` reads after each
     step."""
     if getattr(model, "module", model).moe is None:
         return model(ids, positions=positions), None
-    logits, metrics = model(ids, with_metrics=True)
-    terms = moe_terms(metrics)
+    logits, metrics = model(ids, with_metrics=True, positions=positions)
+    terms = moe_terms(metrics, mesh)
     train_lib.set_loss_extras(
         loss_fn, torch.stack([terms[k] for k in MOE_METRICS]))
     return logits, terms
@@ -522,7 +559,8 @@ def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None,
     def loss_fn(batch):
         ids, mask = batch  # mask: 1.0 where the position is predicted
         masked_ids = torch.where(mask > 0, mask_id, ids)
-        logits, terms = moe_forward(model, masked_ids, loss_fn, positions)
+        logits, terms = moe_forward(model, masked_ids, loss_fn, positions,
+                                    mesh)
         logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
         count = torch.clamp(train_lib.global_sum(mask.sum(), mesh), min=1.0)
@@ -607,7 +645,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-capacity-factor", type=float, default=1.25,
                    help="per-expert buffer slack over perfect balance")
     p.add_argument("--expert-parallel", type=int, default=1,
-                   help="(not yet ported; must be 1)")
+                   help="size of the expert-parallel axis (the experts "
+                        "split over it; needs --moe-experts divisible by "
+                        "it)")
     p.add_argument("--pipeline-parallel", type=int, default=1,
                    help="(not yet ported; must be 1)")
     p.add_argument("--pipeline-microbatches", type=int, default=0)
@@ -641,37 +681,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED_STRATEGIES = ("expert_parallel", "pipeline_parallel")
+_UNPORTED_STRATEGIES = ("pipeline_parallel",)
 
 
 def reject_unported(args) -> None:
     """Raise for every requested strategy this port does not have yet —
-    never drop a requested flag silently.  (Data, sequence and tensor
-    parallelism and FSDP are ported, and ``--moe-experts`` on data
-    parallelism alone: MoE with ``--sequence-parallel`` > 1 is not, since
-    its capacity and slot order run over each whole sequence, of which a
-    rank holds a shard; nor with ``--tensor-parallel`` or ``--fsdp`` > 1,
-    whose expert layout (the ``moe/wi``, ``moe/wo`` rules over fsdp and
-    tensor) comes with expert parallelism.)"""
+    never drop a requested flag silently.  (Data, sequence, tensor and
+    expert parallelism and FSDP are ported, and ``--moe-experts`` on any
+    of them; the pipeline is not.)"""
     for name in _UNPORTED_STRATEGIES:
         if getattr(args, name, 1) > 1:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} > 1 is not yet ported to "
-                "tpujob_torch (data, sequence and tensor parallelism and "
-                "FSDP only)")
-    if getattr(args, "moe_experts", 0) > 0:
-        if getattr(args, "sequence_parallel", 1) > 1:
-            raise NotImplementedError(
-                "--moe-experts with --sequence-parallel > 1 is not yet "
-                "ported to tpujob_torch (a rank routes its shard of each "
-                "sequence; the capacity and slot order are per whole "
-                "sequence)")
-        for name in ("tensor_parallel", "fsdp"):
-            if getattr(args, name, 1) > 1:
-                raise NotImplementedError(
-                    f"--moe-experts with --{name.replace('_', '-')} > 1 is "
-                    "not yet ported to tpujob_torch (the experts' layout "
-                    "over fsdp and tensor comes with expert parallelism)")
+                "tpujob_torch (data, sequence, tensor and expert "
+                "parallelism and FSDP only)")
     if getattr(args, "grad_accum", 1) < 1:
         raise ValueError(f"grad accumulation must be >= 1, got "
                          f"{args.grad_accum}")
@@ -679,9 +702,7 @@ def reject_unported(args) -> None:
 
 def moe_config_from(args) -> Optional[MoEConfig]:
     """Validate the MoE flag surface and build the config (None = dense),
-    with the JAX package's rules.  (An ``--expert-parallel`` > 1 that
-    passes them is refused by ``reject_unported``, which the flag checks
-    run after this.)"""
+    with the JAX package's rules."""
     n_experts = getattr(args, "moe_experts", 0)
     ep = getattr(args, "expert_parallel", 1)
     if n_experts <= 0:
@@ -805,15 +826,14 @@ def validate_tp_flags(args) -> None:
 
 
 def validate_parallel_flags(args, causal: Optional[bool] = None) -> None:
-    """The flag-coherence rules of the ported strategies (data, sequence
-    and tensor parallelism, FSDP, and MoE on data parallelism).  The MoE
-    flags' own rules come first, then the attention, sequence-parallel,
-    tensor-parallel and FSDP rules (``validate_sp_flags``,
-    ``validate_tp_flags``), so their errors are the JAX package's
-    ValueErrors; then an unported strategy is refused (expert and
-    pipeline parallelism, MoE with SP, TP or FSDP); ``--pipeline-parallel``
-    with ``--moe-experts`` is refused with them (the JAX package refuses
-    it too)."""
+    """The flag-coherence rules of the ported strategies (data, sequence,
+    tensor and expert parallelism, FSDP, and MoE on any of them).  The
+    MoE flags' own rules come first, then the attention,
+    sequence-parallel, tensor-parallel and FSDP rules
+    (``validate_sp_flags``, ``validate_tp_flags``), so their errors are
+    the JAX package's ValueErrors; then an unported strategy (the
+    pipeline) is refused; ``--pipeline-parallel`` with ``--moe-experts``
+    is refused with it (the JAX package refuses it too)."""
     moe_config_from(args)
     validate_sp_flags(args, causal)
     validate_tp_flags(args)
@@ -963,8 +983,11 @@ def build_model(args, device, *, causal: bool = False,
     (``make_mesh_for``'s when None).  Under ``--tensor-parallel`` the
     model is this rank's Megatron blocks over ``mesh``'s tensor group,
     and the attention sees the rank's heads: the ring on them is the JAX
-    package's ring with ``head_axis="tensor"``.  FSDP is applied by
-    ``train`` (after any weights are loaded into this module)."""
+    package's ring with ``head_axis="tensor"``.  A MoE model's FFN runs
+    on ``mesh``'s expert, tensor and sequence groups
+    (``parallel.moe_groups``), the rank holding its experts under
+    ``--expert-parallel``.  FSDP is applied by ``train`` (after any
+    weights are loaded into this module)."""
     from tpujob_torch.workloads import flash
 
     validate_parallel_flags(args, causal)
@@ -972,7 +995,8 @@ def build_model(args, device, *, causal: bool = False,
     use_flash = getattr(args, "attention", "dense") == "flash"
     sp = getattr(args, "sequence_parallel", 1)
     tp = getattr(args, "tensor_parallel", 1)
-    if mesh is None and (sp > 1 or tp > 1):
+    ep = getattr(args, "expert_parallel", 1)
+    if mesh is None and (sp > 1 or tp > 1 or ep > 1):
         mesh = make_mesh_for(args)
     if use_flash and torch.device(device).type == "cuda":
         # fail at build, not at the first step
@@ -982,6 +1006,11 @@ def build_model(args, device, *, causal: bool = False,
     def flash_fn(q, k, v, causal=causal, scale=None):
         return flash.flash_attention(q, k, v, causal=causal, scale=scale,
                                      window=window)
+
+    def whole_fn(q, k, v):
+        if use_flash:
+            return flash_fn(q, k, v)
+        return parallel.full_attention(q, k, v, causal=causal, window=window)
 
     if sp > 1:
         group = mesh.group("sequence")
@@ -1003,14 +1032,11 @@ def build_model(args, device, *, causal: bool = False,
                     "sequence-parallel model decodes with "
                     "gpt.generate_cached")
             return exchange(q, k, v)
-    elif use_flash:
-        attention_fn = flash_fn
-    elif causal:
-        def attention_fn(q, k, v):
-            return parallel.full_attention(q, k, v, causal=True,
-                                           window=window)
+    elif use_flash or causal:
+        attention_fn = whole_fn
     else:
         attention_fn = None
+    moe = moe_config_from(args)
     model = Bert(
         vocab=args.vocab, hidden=args.hidden, layers=args.layers,
         heads=args.heads, intermediate=args.intermediate, max_seq=args.seq_len,
@@ -1018,9 +1044,12 @@ def build_model(args, device, *, causal: bool = False,
         attention_fn=attention_fn, remat=args.remat, final_ln=final_ln,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
-        window=window, seed=args.seed, moe=moe_config_from(args),
+        window=window, seed=args.seed, moe=moe,
         exchanges=sp > 1 or getattr(args, "fsdp", 1) > 1,
         tp_group=mesh.group("tensor") if tp > 1 else None,
+        moe_groups=parallel.moe_groups(mesh) if moe else None,
+        # a MoE model's full-route decode forwards whole sequences
+        whole_attention_fn=whole_fn if sp > 1 and moe else None,
     )
     return model.to(device)
 
@@ -1059,12 +1088,19 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     assignments) as a dict.
 
     ``mesh`` (``make_mesh_for``'s): the gradients are averaged over its
-    token axes only, and the reported loss too; under ``--fsdp`` the model
-    is sharded here (``parallel.fully_shard_model``) before the optimizer
-    is made, so its moments are sharded too; a sharded state is
-    checkpointed whole (``parallel.ParamShards``).  Without it, the whole
-    world is one data axis."""
+    token axes only, and the reported loss too (the ranks of a tensor or
+    expert group hold the same rows and different weights: they are not
+    replicas); under ``--fsdp`` the model is sharded here
+    (``parallel.fully_shard_model``) before the optimizer is made, so its
+    moments are sharded too; a sharded state is checkpointed whole
+    (``parallel.ParamShards`` over the tensor and expert groups).
+    Without it, the whole world is one data axis, unless the flags name
+    another axis: then the flags' mesh (``make_mesh_for``)."""
     validate_parallel_flags(args)
+    if mesh is None and any(getattr(args, a, 1) > 1 for a in (
+            "fsdp", "tensor_parallel", "sequence_parallel",
+            "expert_parallel")):
+        mesh = make_mesh_for(args, pe)  # never a sharded run as data
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
         raise ValueError(
@@ -1084,10 +1120,11 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
         args.lr, getattr(args, "lr_schedule", "constant"),
         getattr(args, "warmup_steps", 0) // accum, args.steps // accum)
     shards = None
-    if mesh is not None and mesh.size("tensor", "fsdp") > 1:
+    if mesh is not None and mesh.size("tensor", "fsdp", "expert") > 1:
         if mesh.size("fsdp") > 1:
             parallel.fully_shard_model(model, mesh)
-        shards = parallel.ParamShards(mesh.group("tensor"))
+        shards = parallel.ParamShards(mesh.group("tensor"),
+                                      mesh.group("expert"))
     optimizer = train_lib.adamw(model.parameters(), args.lr)
     accumulator = train_lib.with_grad_accum(model.parameters(), accum)
     state = train_lib.init_state(model, optimizer)

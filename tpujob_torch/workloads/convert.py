@@ -15,10 +15,11 @@ the map is mechanical:
   ``running_mean``/``running_var``;
 - ``Embed`` ``embedding`` becomes ``weight``; ``pos_embed`` stays.
 
-With a ``mesh`` whose tensor axis is longer than 1, each parameter
-``parallel.TP_RULES`` splits is cut to this rank's block of it, so a
-tensor-parallel model starts from the JAX package's weights at any
-layout (FSDP then shards the module it is loaded into).
+With a ``mesh`` whose expert or tensor axis is longer than 1, each
+parameter ``parallel.EP_RULES`` or ``parallel.TP_RULES`` splits is cut
+to this rank's block of it (its experts, its block of each), so a model
+under expert or tensor parallelism starts from the JAX package's
+weights at any layout (FSDP then shards the module it is loaded into).
 """
 from __future__ import annotations
 
@@ -51,9 +52,8 @@ def _collections(tree: Dict[str, Any]):
 def params_from_flax(tree: Dict[str, Any], mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> torch state dict: the whole
-    parameters, or with ``mesh`` this rank's tensor-parallel blocks."""
-    n = 1 if mesh is None else mesh.size("tensor")
-    i = 0 if mesh is None else mesh.index("tensor")
+    parameters, or with ``mesh`` this rank's blocks of them
+    (``parallel.mesh_local``)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, sub in _collections(tree):
         for path, value in _flatten(sub):
@@ -77,7 +77,7 @@ def params_from_flax(tree: Dict[str, Any], mesh=None
             elif leaf in ("scale", "embedding"):
                 parts[-1] = "weight"
             name = ".".join(parts)
-            out[name] = parallel.tp_local(
-                name, torch.from_numpy(np.ascontiguousarray(arr)), n,
-                i).contiguous()
+            out[name] = parallel.mesh_local(
+                name, torch.from_numpy(np.ascontiguousarray(arr)),
+                mesh).contiguous()
     return out

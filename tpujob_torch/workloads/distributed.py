@@ -21,10 +21,17 @@ ranks, one process group for each set of axes (an axis alone, or the
 replica group of a parameter shard, ``REPLICA_AXES``), and each rank's
 share of the batch (``local_batch_slice`` over the data axes) and of the
 sequence (``local_seq_slice``); ``TOKEN_AXES`` and ``token_shards`` say
-which ranks hold distinct tokens (a tensor group holds the same ones).  Five of the JAX package's mesh helpers have no
-body here: under explicit ranks every activation already lies as batch
-over the data axes and sequence over the sequence axis, because each
-rank feeds and keeps only its own rows and columns, so
+which ranks hold distinct tokens (a tensor group holds the same ones,
+and so does an expert group: the batch is not split over ``expert``, as
+the JAX package's ``batch_axes`` leaves it out, so every rank of an
+expert group routes the same rows to its own experts).  ``expert`` is
+neither a token axis nor a replica axis of an FSDP shard: its ranks
+hold different experts.  ``Mesh.group("expert", "tensor")`` is the
+group a sparse FFN sums its partial outputs over.  Five of the JAX
+package's mesh helpers have no body here: under explicit ranks every
+activation already lies as batch over the data axes and sequence over
+the sequence axis, because each rank feeds and keeps only its own rows
+and columns, so
 ``batch_sharding`` and ``replicated`` (GSPMD placements of whole
 arrays), ``constrain_activation`` (a GSPMD layout pin) and
 ``shard_map`` (a manual region over global arrays) have nothing to
@@ -477,12 +484,13 @@ def batch_divisor(mesh: Mesh, *axes: str) -> int:
 
 
 # The axes whose ranks hold distinct tokens: rows over data and fsdp,
-# columns over sequence.  The ranks of a model axis (tensor) hold the same
-# tokens, so a sum over the batch runs over these axes, and the gradient
-# of a parameter shard is averaged over them.
+# columns over sequence.  The ranks of a model axis (tensor, expert) hold
+# the same tokens, so a sum over the batch runs over these axes, and the
+# gradient of a parameter shard is averaged over them.
 TOKEN_AXES: Tuple[str, ...] = ("data", "fsdp", "sequence")
 # The ranks that hold the same shard of a parameter: the token axes but
-# fsdp, which shards it (ZeRO-3).
+# fsdp, which shards it (ZeRO-3).  Not expert: its ranks hold different
+# experts, and the same replicated parameters with the same gradients.
 REPLICA_AXES: Tuple[str, ...] = ("data", "sequence")
 
 

@@ -20,9 +20,13 @@ sequence (``bert.seq_positions``) with the targets of the global rows
 (``next_token_shard``, ``lm_loss``); decode runs the KV-cached route on
 every rank's whole model, as the JAX package's does (the cached route
 never runs the sequence-parallel attention).  Under
-``--tensor-parallel`` or ``--fsdp`` every rank decodes global row 0's
-prompt on its shards (the cache holds the rank's KV heads), all ranks
-together, to the same tokens.
+``--tensor-parallel``, ``--expert-parallel`` or ``--fsdp`` every rank
+decodes global row 0's prompt on its shards (the cache holds the rank's
+KV heads), all ranks together, to the same tokens.  A MoE model decodes
+by the full route on every rank in lockstep, since its FFN exchanges
+over the expert and tensor groups (a rank that skipped a step would
+leave the others waiting); under ``--sequence-parallel`` each rank
+forwards the whole buffer (``Bert``'s ``whole_attention_fn``).
 
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
@@ -30,6 +34,8 @@ Entry point (on the card; ``--device cpu`` for the CPU):
         --sequence-parallel 2 --sp-mode ulysses --attention flash ...
     torchrun --nproc-per-node 4 -m tpujob_torch.workloads.gpt --device cpu \
         --fsdp 2 --tensor-parallel 2 ...
+    torchrun --nproc-per-node 2 -m tpujob_torch.workloads.gpt --device cpu \
+        --moe-experts 4 --expert-parallel 2 ...
     python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
     python -m tpujob_torch.workloads.gpt --attention flash \
         --data-file corpus.txt --tokenizer bpe:tok.json:512
@@ -63,12 +69,14 @@ def lm_loss(model, positions=None, mesh=None):
     def loss_fn(batch):
         if positions is None:
             (ids,) = batch  # [b, s] int64
-            logits, terms = bertlib.moe_forward(model, ids, loss_fn)
+            logits, terms = bertlib.moe_forward(model, ids, loss_fn,
+                                                mesh=mesh)
             logp = torch.log_softmax(logits[:, :-1], dim=-1)
             tok_ll = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
             return bertlib.with_moe_aux(-tok_ll.mean(), terms)
         ids, targets, valid = batch
-        logits, terms = bertlib.moe_forward(model, ids, loss_fn, positions)
+        logits, terms = bertlib.moe_forward(model, ids, loss_fn, positions,
+                                            mesh)
         logp = torch.log_softmax(logits, dim=-1)
         tok_ll = torch.gather(logp, -1, targets[..., None])[..., 0]
         count = train_lib.global_sum(valid.sum(), mesh)

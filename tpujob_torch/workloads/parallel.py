@@ -1,6 +1,6 @@
 """Dense attention, the reference every attention path is held against,
-sequence and tensor parallelism, FSDP, and the sparse MoE feed-forward:
-the port of ``tpujob/workloads/parallel.py``.
+sequence and tensor parallelism, FSDP, and the sparse MoE feed-forward
+with expert parallelism: the port of ``tpujob/workloads/parallel.py``.
 
 Layout is the JAX package's ``[batch, seq, heads, head_dim]``.  Ported:
 grouped-query repeat, full attention, the two sequence-parallel
@@ -8,19 +8,23 @@ attentions over a process group (``ring_attention``, with its zigzag
 causal schedule, and ``ulysses_attention``) with their exchanges
 (``shift``, ``all_to_all``: autograd functions whose backward is the
 inverse exchange, counted in ``EXCHANGES``), and
-``moe_capacity``/``moe_ffn`` on one device.
+``moe_capacity``/``moe_ffn`` on one device or over the expert, tensor
+and sequence groups (``MoEGroups``).
 
 The JAX package's ``PARTITION_RULES`` (``partition_spec_tree``,
-``sanitize_spec``, ``shard_params``) are two things here.  Megatron's
+``sanitize_spec``, ``shard_params``) are three things here.  Megatron's
 tensor parallelism by hand: ``TP_RULES`` names the dim of each
 parameter split over the tensor group (``tp_local``, ``tp_shard_``), and
 three exchanges carry the activations across it (``copy_to_tensor``,
-``reduce_from_tensor``, ``gather_from_tensor``).  ZeRO-3 is FSDP2's
-``fully_shard`` over the fsdp group (``fully_shard_model``), which shards
-each parameter's dim 0 where the JAX rules pick another dim: the same
-1/n of the parameters and moments a rank.  ``ParamShards`` gathers them
-whole for a checkpoint and slices them again.  The expert and pipeline
-strategies are not ported.
+``reduce_from_tensor``, ``gather_from_tensor``).  Expert parallelism:
+``EP_RULES`` splits the experts over the expert group (``ep_local``,
+``ep_shard_``), and ``moe_ffn`` sums each token's partial outputs over
+the expert x tensor group.  ZeRO-3 is FSDP2's ``fully_shard`` over the
+fsdp group (``fully_shard_model``), which shards each parameter's dim 0
+(the experts' d dim) where the JAX rules pick another dim: the same 1/n
+of the parameters and moments a rank.  ``ParamShards`` gathers them
+whole for a checkpoint and slices them again.  The pipeline strategy is
+not ported.
 
 Where the JAX package's attentions take global arrays and cut them with
 ``shard_map``, these take this rank's shard: its rows of the batch and
@@ -33,7 +37,7 @@ import contextlib
 import math
 import re
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -243,8 +247,10 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
 # mlp_wi weights and biases, so a rank holds whole heads (and, under GQA,
 # the KV heads its query heads read) and a block of the FFN; row-parallel
 # (the input dim): the out and mlp_wo weights, whose biases stay whole and
-# are added after the all-reduce; the tied embedding's vocab.  Every other
-# parameter (positions, LayerNorms, the row-parallel biases) is whole on
+# are added after the all-reduce; the tied embedding's vocab; and the
+# experts in flax's layout, ``moe.wi`` [E, d, f] column-parallel on f and
+# ``moe.wo`` [E, f, d] row-parallel on f.  Every other parameter
+# (positions, LayerNorms, the row-parallel biases, the router) is whole on
 # every rank.
 TP_RULES = (
     (r"attn\.(query|key|value)\.(weight|bias)$", 0),
@@ -252,40 +258,86 @@ TP_RULES = (
     (r"mlp_wi\.(weight|bias)$", 0),
     (r"mlp_wo\.weight$", 1),
     (r"token_embed\.weight$", 0),
+    (r"moe\.wi$", 2),
+    (r"moe\.wo$", 1),
 )
+# The expert layout (``P("expert", ...)`` of the JAX package's ``moe/wi``
+# and ``moe/wo``): the experts split along dim 0 over the expert group, a
+# rank holding E / n whole experts (each of them cut over the tensor group
+# by ``TP_RULES``).  The router stays whole.
+EP_RULES = ((r"moe\.(wi|wo)$", 0),)
 
 
-def tp_dim(name: str) -> Optional[int]:
-    """The dim ``TP_RULES`` splits parameter ``name`` along, or None."""
-    for pattern, dim in TP_RULES:
+def _rule_dim(rules, name: str) -> Optional[int]:
+    for pattern, dim in rules:
         if re.search(pattern, name):
             return dim
     return None
 
 
-def tp_local(name: str, t: torch.Tensor, n: int, i: int) -> torch.Tensor:
-    """Rank ``i`` of ``n``'s block of the whole parameter ``t``."""
-    dim = tp_dim(name)
+def tp_dim(name: str) -> Optional[int]:
+    """The dim ``TP_RULES`` splits parameter ``name`` along, or None."""
+    return _rule_dim(TP_RULES, name)
+
+
+def ep_dim(name: str) -> Optional[int]:
+    """The dim ``EP_RULES`` splits parameter ``name`` along, or None."""
+    return _rule_dim(EP_RULES, name)
+
+
+def _local(dim: Optional[int], what: str, name: str, t: torch.Tensor,
+           n: int, i: int) -> torch.Tensor:
     if dim is None or n == 1:
         return t
     if t.shape[dim] % n:
         raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does not "
-                         f"split over {n} tensor ranks")
+                         f"split over {n} {what} ranks")
     return t.chunk(n, dim)[i]
+
+
+def tp_local(name: str, t: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rank ``i`` of ``n``'s block of the whole parameter ``t``."""
+    return _local(tp_dim(name), "tensor", name, t, n, i)
+
+
+def ep_local(name: str, t: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Expert rank ``i`` of ``n``'s experts of the parameter ``t``."""
+    return _local(ep_dim(name), "expert", name, t, n, i)
+
+
+def mesh_local(name: str, t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of the whole parameter ``t`` on ``mesh`` (its
+    experts, then its tensor block of each): what ``tp_shard_`` and
+    ``ep_shard_`` keep of the parameter this rank drew whole."""
+    if mesh is None:
+        return t
+    t = ep_local(name, t, mesh.size("expert"), mesh.index("expert"))
+    return tp_local(name, t, mesh.size("tensor"), mesh.index("tensor"))
+
+
+def _shard_(local, model: torch.nn.Module, group) -> None:
+    n, i = group_size(group), group_rank(group)
+    if n == 1:
+        return
+    for name, p in list(model.named_parameters()):
+        block = local(name, p.data, n, i)
+        if block is not p.data:
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf,
+                    torch.nn.Parameter(block.clone()))
 
 
 def tp_shard_(model: torch.nn.Module, group) -> None:
     """Replace each whole parameter ``TP_RULES`` splits by this rank's
     block of it (a copy), in place."""
-    n, i = group_size(group), group_rank(group)
-    if n == 1:
-        return
-    for name, p in list(model.named_parameters()):
-        local = tp_local(name, p.data, n, i)
-        if local is not p.data:
-            owner, _, leaf = name.rpartition(".")
-            setattr(model.get_submodule(owner), leaf,
-                    torch.nn.Parameter(local.clone()))
+    _shard_(tp_local, model, group)
+
+
+def ep_shard_(model: torch.nn.Module, group) -> None:
+    """Replace each parameter ``EP_RULES`` splits by this rank's experts
+    of it (a copy), in place; composes with ``tp_shard_`` in either
+    order (they split different dims)."""
+    _shard_(ep_local, model, group)
 
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -350,9 +402,13 @@ def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron's g: the ranks' partial products summed (all-reduce, in
-    ``x``'s dtype, as the JAX package's partitioned product sums its
-    partial results), after a row-parallel product; the backward passes
-    the gradient on unchanged."""
+    ``x``'s dtype), after a row-parallel product; the backward passes
+    the gradient on unchanged.  The row-parallel products pass fp32
+    partials and round the sum once to the compute dtype: the JAX
+    package's partitioned product all-reduces its f32 dot and converts
+    after (XLA's CPU partitioner; what ``tests/test_torch_tp.py``'s bf16
+    case holds the port to).  The experts' outputs do the same
+    (``_CombineFromExperts``)."""
     if group_size(group) == 1:
         return x
     return _ReduceFromTensor.apply(x, group)
@@ -385,22 +441,46 @@ def fsdp_device_mesh(mesh, device_type: str):
         mesh_dim_names=("replicate", "shard"))
 
 
+def fsdp_placements(model: torch.nn.Module) -> Dict[int, object]:
+    """FSDP2's placement of each expert weight, by the parameter's id:
+    ``moe.wi`` [E, d, f] on dim 1 and ``moe.wo`` [E, f, d] on dim 2, the
+    d dim, where the JAX package's ``fsdp`` entry of their rules puts it.
+    FSDP2's default, dim 0, is the expert dim, which a rank holding E / ep
+    experts may hold fewer of than there are fsdp ranks (padded shards).
+    The numerics do not depend on the dim; the memory does."""
+    from torch.distributed.tensor import Shard
+
+    out = {}
+    for name, p in model.named_parameters():
+        if re.search(r"moe\.wi$", name):
+            out[id(p)] = Shard(1)
+        elif re.search(r"moe\.wo$", name):
+            out[id(p)] = Shard(2)
+    return out
+
+
 def fully_shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     """ZeRO-3 through FSDP2: each transformer block (``layer_<i>``), then
     the root (embeddings, LayerNorms), sharded over the fsdp group
     (``fsdp_device_mesh``).  The parameters and AdamW's moments then live
-    as dim-0 shards (1/n of each a rank); each block's forward all-gathers
-    its parameters and frees them after, and its backward reduce-scatters
-    the gradients (averaged over the fsdp and replica ranks).  Under
-    tensor parallelism each rank's tensor-local parameters are sharded.
-    The model keeps the mesh as ``fsdp_mesh``."""
+    as shards (1/n of each a rank: dim 0, the experts' d dim,
+    ``fsdp_placements``); each block's forward all-gathers its parameters
+    and frees them after, and its backward reduce-scatters the gradients
+    (averaged over the fsdp and replica ranks).  Under tensor or expert
+    parallelism each rank's local parameters are sharded.  The model
+    keeps the mesh as ``fsdp_mesh``."""
     from torch.distributed.fsdp import fully_shard
 
     dm = fsdp_device_mesh(mesh, next(model.parameters()).device.type)
+    placements = fsdp_placements(model)
+
+    def place(p):
+        return placements.get(id(p))
+
     for name, child in model.named_children():
         if name.startswith("layer_"):
-            fully_shard(child, mesh=dm)
-    fully_shard(model, mesh=dm)
+            fully_shard(child, mesh=dm, shard_placement_fn=place)
+    fully_shard(model, mesh=dm, shard_placement_fn=place)
     model.fsdp_mesh = dm
     return model
 
@@ -428,16 +508,19 @@ def gather_dtensor(t) -> torch.Tensor:
 
 
 class ParamShards:
-    """How this rank's parameters lie, for a checkpoint: ``TP_RULES``'
-    blocks over the tensor group, and under FSDP each one a DTensor
-    sharded over fsdp.  ``full`` gathers a parameter (or a tensor shaped
-    like it: its moments, its accumulated gradient) whole, on every rank
-    of its groups, into a new host tensor; ``local`` cuts a whole one to
-    this rank's shard, laid out as ``like``."""
+    """How this rank's parameters lie, for a checkpoint: ``EP_RULES``'
+    experts over the expert group, ``TP_RULES``' blocks over the tensor
+    group, and under FSDP each one a DTensor sharded over fsdp.  ``full``
+    gathers a parameter (or a tensor shaped like it: its moments, its
+    accumulated gradient) whole, on every rank of its groups, into a new
+    host tensor; ``local`` cuts a whole one to this rank's shard, laid
+    out as ``like``."""
 
-    def __init__(self, tensor_group):
-        self.group = tensor_group
+    def __init__(self, tensor_group, expert_group=None):
+        self.group, self.expert_group = tensor_group, expert_group
         self.n, self.i = group_size(tensor_group), group_rank(tensor_group)
+        self.n_ep = group_size(expert_group)
+        self.i_ep = group_rank(expert_group)
 
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
         from torch.distributed.tensor import DTensor
@@ -447,13 +530,17 @@ class ParamShards:
         dim = tp_dim(name)
         if dim is not None and self.n > 1:
             t = all_gather(t, self.group, dim)
+        dim = ep_dim(name)
+        if dim is not None and self.n_ep > 1:
+            t = all_gather(t, self.expert_group, dim)
         return t.detach().to("cpu", copy=True)
 
     def local(self, name: str, whole: torch.Tensor, like: torch.Tensor
               ) -> torch.Tensor:
         from torch.distributed.tensor import DTensor, distribute_tensor
 
-        t = tp_local(name, whole, self.n, self.i)
+        t = ep_local(name, whole, self.n_ep, self.i_ep)
+        t = tp_local(name, t, self.n, self.i)
         if isinstance(like, DTensor):
             return distribute_tensor(t.to(like.device, like.dtype),
                                      like.device_mesh, like.placements,
@@ -644,7 +731,7 @@ def ulysses_attention(q, k, v, group, *, causal: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# sparse Mixture-of-Experts FFN (expert parallelism 1)
+# sparse Mixture-of-Experts FFN, and expert parallelism
 # ---------------------------------------------------------------------------
 
 
@@ -701,21 +788,58 @@ def moe_route(x: torch.Tensor, router_kernel: torch.Tensor, k: int, cap: int,
     return Routing(logits, probs, gate, expert_idx, oh, oh_prio, pos, keep)
 
 
-def dispatch_combine(r: Routing, cap: int, dtype: torch.dtype
+def seq_route(r: Routing, group, positions: torch.Tensor, cap: int
+              ) -> Routing:
+    """``r``, the routing of this rank's shard of each sequence, with the
+    slots and keep flags the whole sequences give its assignments: the
+    reference's k-major order over the whole sequence (every first choice
+    in sequence order before every second choice), whatever layout the
+    shards hold (contiguous, or the zigzag chunks).  The integer choices
+    (-1 where ``valid`` masked the position) and the positions are
+    all-gathered over the sequence ``group`` (no gradient), put in
+    sequence order, and the reference's cumsum taken over them; this
+    rank keeps its positions' slots.  Exact, and every rank computes the
+    same whole-sequence slots."""
+    b, s, k = r.expert_idx.shape
+    num_experts = r.oh.shape[-1]
+    valid = r.oh.sum(-1) > 0  # [b, s, k]: zero rows were masked
+    choice = torch.where(valid, r.expert_idx, -1)
+    where = all_gather(positions.to(r.expert_idx.device, torch.long),
+                       group, 0)
+    every = all_gather(choice, group, 1)  # [b, S, k], in gather order
+    whole = torch.empty_like(every).index_copy_(1, where, every)
+    experts = torch.arange(num_experts, device=whole.device)
+    oh = (whole[..., None] == experts).float()  # [b, S, k, E]
+    oh_prio = oh.transpose(1, 2).reshape(b, -1, num_experts)
+    pos = torch.cumsum(oh_prio, dim=1) - 1.0
+    pos = torch.sum(pos * oh_prio, dim=-1)  # [b, k*S]
+    pos = pos.reshape(b, k, -1)[:, :, positions.to(pos.device)].reshape(
+        b, k * s)
+    return r._replace(pos=pos, keep=(pos < cap).float())
+
+
+def dispatch_combine(r: Routing, cap: int, dtype: torch.dtype,
+                     experts: Optional[slice] = None,
+                     gate: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense dispatch and combine tensors [b, s, E, cap] of a routing,
     in ``dtype``: dispatch is 1 where a kept assignment puts the token in
     an expert's slot, combine the same weighted by its gate.  The slot
     one-hot compares with ``arange(cap)``: a slot past the capacity
-    matches none, where a one-hot of it would raise."""
-    b, ks, num_experts = r.oh_prio.shape
+    matches none, where a one-hot of it would raise.  ``experts``: only
+    those columns (an expert rank's, [b, s, E / n, cap]); ``gate``: the
+    gates to weigh by (``r.gate`` by default)."""
+    b, ks, _ = r.oh_prio.shape
     k = r.gate.shape[-1]
+    gate = r.gate if gate is None else gate
+    oh_prio = r.oh_prio if experts is None else r.oh_prio[..., experts]
+    num_experts = oh_prio.shape[-1]
     slots = torch.arange(cap, device=r.pos.device, dtype=torch.float32)
     slot = (r.pos[..., None] == slots).float() * r.keep[..., None]
     # [b, k*s, E, cap] -> [b, s, k, E, cap]
-    dispatch = (r.oh_prio[..., None] * slot[..., None, :]).reshape(
+    dispatch = (oh_prio[..., None] * slot[..., None, :]).reshape(
         b, k, ks // k, num_experts, cap).permute(0, 2, 1, 3, 4)
-    combine = (dispatch * r.gate[..., None, None]).sum(2).to(dtype)
+    combine = (dispatch * gate[..., None, None]).sum(2).to(dtype)
     return dispatch.sum(2).to(dtype), combine
 
 
@@ -730,45 +854,149 @@ def load_balance(top1_count: torch.Tensor, prob_sum: torch.Tensor,
         (top1_count / n) * (prob_sum / n), dim=-1)
 
 
+class _DispatchToExperts(torch.autograd.Function):
+    """``einsum("bsec,bsd->becd", dispatch, x)``, whose gradient of x,
+    this rank's experts' (and f block's) share of it, is summed over
+    ``group`` in fp32 and rounded once: Megatron's f with fp32 partials,
+    so each token's gradient is the one process's (the sum of its kept
+    slots' gradients, rounded once)."""
+
+    @staticmethod
+    def forward(ctx, dispatch, x, group):
+        ctx.save_for_backward(dispatch)
+        ctx.group, ctx.dtype = group, x.dtype
+        return torch.einsum("bsec,bsd->becd", dispatch, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dispatch,) = ctx.saved_tensors
+        gx = torch.einsum("bsec,becd->bsd", dispatch.float(), g.float())
+        return None, _all_reduce(gx, ctx.group).to(ctx.dtype), None
+
+
+class _CombineFromExperts(torch.autograd.Function):
+    """``einsum("bsec,becd->bsd", combine, out)`` summed over ``group``:
+    the ranks' fp32 partial products all-reduced and rounded once to the
+    compute dtype, which is the one process's product (each token's kept
+    products summed in fp32, rounded once): Megatron's g with fp32
+    partials.  The backward is the plain product's own, in the compute
+    dtype, on this rank's experts."""
+
+    @staticmethod
+    def forward(ctx, combine, out, group):
+        ctx.save_for_backward(combine, out)
+        y = torch.einsum("bsec,becd->bsd", combine.float(), out.float())
+        return _all_reduce(y, group).to(combine.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        combine, out = ctx.saved_tensors
+        with torch.enable_grad():
+            c = combine.detach().requires_grad_()
+            o = out.detach().requires_grad_()
+            y = torch.einsum("bsec,becd->bsd", c, o)
+        gc, go = torch.autograd.grad(y, (c, o), g)
+        return gc, go, None
+
+
+class MoEGroups(NamedTuple):
+    """The process groups a sharded ``moe_ffn`` exchanges over:
+    ``expert`` splits the experts (``EP_RULES``), ``ffn`` is the expert x
+    tensor group whose ranks hold the partial outputs of one token's FFN
+    (each its experts, each its block of f), ``sequence`` holds the other
+    shards of each sequence.  None: an axis 1 long."""
+
+    expert: Any = None
+    ffn: Any = None
+    sequence: Any = None
+
+
+def moe_groups(mesh) -> Optional[MoEGroups]:
+    """``mesh``'s ``MoEGroups`` (None when every one is 1 long)."""
+    if mesh is None:
+        return None
+    g = MoEGroups(mesh.group("expert"), mesh.group("expert", "tensor"),
+                  mesh.group("sequence"))
+    return None if g == MoEGroups() else g
+
+
 def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor, wi: torch.Tensor,
             wo: torch.Tensor, *, k: int = 2, capacity_factor: float = 1.25,
-            valid: Optional[torch.Tensor] = None
+            valid: Optional[torch.Tensor] = None,
+            groups: Optional[MoEGroups] = None,
+            positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sparse MoE feed-forward with top-k routing (the JAX package's
-    ``moe_ffn`` without a mesh).
+    """Sparse MoE feed-forward with top-k routing: the JAX package's
+    ``moe_ffn``, on one device or on ``groups``.
 
-    ``x``: [batch, seq, d_model]; ``router_kernel``: [d_model, E];
-    ``wi``: [E, d_model, d_ff]; ``wo``: [E, d_ff, d_model].  Returns ``(y,
-    metrics)``, y shaped like x.  ``valid``: optional [batch, seq] 0/1
-    mask; positions with 0 are not routed (no slot, output 0) and the
-    load balance counts valid positions only, which keeps decode over a
-    fixed buffer causal.
+    ``x``: [batch, seq, d_model]; ``router_kernel``: [d_model, E], whole;
+    ``wi``: [E, d_model, d_ff]; ``wo``: [E, d_ff, d_model], or this
+    rank's experts and block of d_ff of them.  Returns ``(y, metrics)``,
+    y shaped like x.  ``valid``: optional [batch, seq] 0/1 mask;
+    positions with 0 are not routed (no slot, output 0) and the load
+    balance counts valid positions only, which keeps decode over a fixed
+    buffer causal.
 
     Dispatch is dense, as in the reference: one-hot dispatch and combine
     tensors [b, s, E, cap] (``dispatch_combine``, in x's dtype) and three
     einsums around a tanh GELU, so every expert takes part and the shapes
     never depend on the data.
 
+    On ``groups`` (``moe_groups``; the JAX package pins the dispatched
+    buffer's expert dim to its ``expert`` axis and GSPMD derives the
+    exchanges) each rank routes all its rows with the whole router, runs
+    its experts (``groups.expert``'s share, each on its block of d_ff
+    under tensor parallelism) on its columns of the dispatch, and the
+    partial outputs, summed over ``groups.ffn`` in fp32 and rounded once
+    to x's dtype, are y (``_CombineFromExperts``).  Two gradients are
+    summed over ``groups.ffn`` in the backward (Megatron's f): x's
+    through the dispatch, in fp32 (``_DispatchToExperts``), and the
+    gates' (``copy_to_tensor``); x's through the router, whole on every
+    rank, is not, so every replicated parameter (the router first) ends
+    the backward with one gradient on every rank of the group.  Under
+    expert parallelism alone this is one process's arithmetic, sum for
+    sum.  With
+    ``positions`` (this rank's global positions along a sequence split
+    over ``groups.sequence``) the capacity is the whole sequence's and
+    the slots are the whole sequence's (``seq_route``); the experts have
+    no bias and gelu(0) = 0, so a rank runs them on a buffer holding its
+    own tokens' slots and combines its own positions, exchanging no
+    activation.  Without ``positions`` x is whole sequences.
+
     ``metrics``: ``load_balance`` (the Switch aux loss, density from the
     top-1 choice only) and ``router_z`` (mean squared logsumexp of the
     logits), the reference's two; and the parts the load balance is made
     of, which the loss sums over ranks (``top1_count`` [E] and
     ``tokens``, without grad, ``prob_sum`` [E]), and ``dropped``, the
-    count of valid assignments past their expert's capacity (not in the
-    reference; a diagnostic)."""
+    count of this rank's valid assignments past their expert's capacity
+    (not in the reference; a diagnostic)."""
     b, s, _ = x.shape
-    num_experts = wi.shape[0]
+    num_experts = router_kernel.shape[1]
     if not 1 <= k <= num_experts:
         raise ValueError(
             f"top-k k={k} must be in [1, num_experts={num_experts}]")
-    cap = moe_capacity(s, num_experts, k, capacity_factor)
+    g = groups or MoEGroups()
+    seq = g.sequence if positions is not None else None
+    cap = moe_capacity(s * group_size(seq), num_experts, k, capacity_factor)
     r = moe_route(x, router_kernel, k, cap, valid)
-    dispatch, combine = dispatch_combine(r, cap, x.dtype)
-    expert_in = torch.einsum("bsec,bsd->becd", dispatch, x)
+    if group_size(seq) > 1:
+        r = seq_route(r, seq, positions, cap)
+    if g.ffn is None:
+        dispatch, combine = dispatch_combine(r, cap, x.dtype)
+        expert_in = torch.einsum("bsec,bsd->becd", dispatch, x)
+    else:
+        e0 = group_rank(g.expert) * wi.shape[0]
+        dispatch, combine = dispatch_combine(
+            r, cap, x.dtype, slice(e0, e0 + wi.shape[0]),
+            copy_to_tensor(r.gate, g.ffn))
+        expert_in = _DispatchToExperts.apply(dispatch, x, g.ffn)
     h = F.gelu(torch.einsum("becd,edf->becf", expert_in, wi),
                approximate="tanh")
     out = torch.einsum("becf,efd->becd", h, wo)
-    y = torch.einsum("bsec,becd->bsd", combine, out)
+    if g.ffn is None:
+        y = torch.einsum("bsec,becd->bsd", combine, out)
+    else:
+        y = _CombineFromExperts.apply(combine, out, g.ffn)
 
     top1_count = r.oh[:, :, 0, :].sum(dim=(0, 1))
     if valid is not None:
