@@ -183,7 +183,27 @@ Phases, one JSON line each on stdout:
    whole bit-equal on both ranks, peak memory, and the exchanges' calls,
    bytes and share of a rank-step: a record of correctness and memory,
    not a speed of expert parallelism.
-17. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
+17. ``pipe``: pipeline parallelism, two ranks on the one card over gloo
+   (as ``shard``; the stage exchanges stage through the host, as the
+   ring's shift does), one line a part, GPT-2-medium at full width and
+   depth through ``gpt.run --pipeline-parallel 2 --attention flash``,
+   global batch 8: ``gpipe`` and ``1f1b`` (4 microbatches of 2 rows, 3
+   steps), each against the parent's own one-process captured run of the
+   same seed and batch (losses within one bf16 ulp, ``update_err`` after
+   step 1 within SHARD_UPDATE_RTOL, the stages' leaves merged), each rank
+   holding its 12 layers and every parameter outside them (203,718,656
+   parameters, their bytes and twice them in AdamW's moments, exactly),
+   96 / 48 / 48 launches a rank-step (B1 again in GPipe's remat replay or
+   1F1B's recomputing backward tick), peak memory, and the exchanges'
+   calls, bytes and share of a rank-step; ``1f1b`` also against
+   ``gpipe`` (losses within one bf16 ulp, the leaves' gradients after
+   the run within PIPE_GRAD_RTOL normwise); ``gpipe_m8``
+   and ``1f1b_m8``, 8 microbatches for two steps: the peak memory against
+   m 4 (1F1B's within PIPE_1F1B_PEAK_RATIO: its stash is bounded by the
+   stages); ``mlm``, BERT-large MLM under 1F1B at 8 of its 24 layers (the
+   non-causal kernels on the pipeline).  B1-B3 are held to their plain
+   versions at a microbatch's shape first (kernel case ``pipe_b2``).
+18. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
     tpujob_torch.bench_models --models resnet50,bert-large,gpt`` and
     ``python -m tpujob_torch.bench_models --quick --models gpt`` (head dim
     32) as child processes on the card; their JSON lines are printed as
@@ -361,6 +381,53 @@ EP_PARTS = {
 # EP_DROPPED_RTOL of one process's (observed 0.04-0.06% on an H100 80GB
 # HBM3 at 700 W).
 EP_DROPPED_RTOL = 0.01
+# pipe: pipeline parallelism, two ranks on the one card (gloo), pipeline 2,
+# GPT-2-medium at full width and depth on the flash kernels, global batch 8
+# in 4 microbatches of 2 rows, 3 steps, under each schedule, each against
+# one process's captured step on the same batch from the seed, held to the
+# shard phase's update gate and to one bf16 ulp of each loss; then both
+# schedules at 8 microbatches (peak memory against m 4; 2 steps: torch
+# makes AdamW's moments at the first update, so a first step's backward
+# peaks without them), and BERT-large MLM under 1F1B at 8 of its 24 layers
+# (the non-causal kernels)
+PIPE_WORLD = 2
+PIPE_STEPS = 3
+PIPE_BASE_ARGV = ["--batch-size", "8", "--steps", str(PIPE_STEPS),
+                  "--log-interval", "1", "--seed", "0"]
+PIPE_PP = ["--pipeline-parallel", "2", "--attention", "flash"]
+PIPE_PARTS = {
+    # part: (module, the ranks' flags, the one process's flags or None)
+    "gpipe": ("gpt", PIPE_PP + ["--pipeline-microbatches", "4"],
+              ["--attention", "flash"]),
+    "1f1b": ("gpt", PIPE_PP + ["--pipeline-microbatches", "4",
+                               "--pipeline-schedule", "1f1b"],
+             ["--attention", "flash"]),
+    "gpipe_m8": ("gpt", PIPE_PP + ["--pipeline-microbatches", "8",
+                                   "--steps", "2"], None),
+    "1f1b_m8": ("gpt", PIPE_PP + ["--pipeline-microbatches", "8",
+                                  "--pipeline-schedule", "1f1b",
+                                  "--steps", "2"], None),
+    # BERT-large's depth cut from 24 to 8 layers to keep the phase short
+    "mlm": ("bert", ["--layers", "8"] + PIPE_PP + [
+        "--pipeline-microbatches", "4", "--pipeline-schedule", "1f1b"],
+            ["--layers", "8", "--attention", "flash"]),
+}
+# a rank's parameters at GPT-2-medium and pipeline 2: 12 of the 24 layers
+# (12,596,224 each) and every parameter outside them (the tied embedding
+# padded to 50,304 rows, the positions, ln_embed, ln_f: 52,563,968)
+PIPE_RANK_PARAMS = 12 * 12_596_224 + 52_563_968
+# the two schedules against each other: their losses within one bf16 ulp
+# (the JAX package's test allows 1e-3 between fp32 losses; GPipe's loss
+# is a bf16 mean, 1F1B's an fp32 mean of four bf16 ones, and bf16's
+# values near 11 are 0.0625 apart), their gradients after the run (the
+# leaves update_err reads) normwise within PIPE_GRAD_RTOL: 1F1B runs its
+# head a microbatch at a time, GPipe on the whole batch (other GEMM
+# shapes, and the tied embedding's bf16 gradient rounded once a
+# microbatch before the fp32 sum)
+PIPE_GRAD_RTOL = 5e-2
+# 1F1B's peak memory at 8 microbatches over its peak at 4: the stash is
+# bounded by the stage count, not by m (the JAX test's 30% slack)
+PIPE_1F1B_PEAK_RATIO = 1.3
 # graph: each trainer once eager (capture=False) and once captured, from
 # one seed; the two must agree bit for bit (the same kernels in the same
 # order): GPT-2-medium 8 steps, BERT-large MLM 8 mini-steps in groups of 2
@@ -1932,10 +1999,15 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
         parallel.EXCHANGE_TIMING = False
     ms = [(y - x) * 1e3 for x, y in zip(stamps, stamps[1:])]
     model, opt = res["state"]["model"], res["state"]["opt"]
-    return {"losses": res["losses"], "step_ms": ms,
+    # a pipeline stage's gradients of the leaves it holds, after the run
+    grads = {n: q.grad.float().cpu() for n, q in model.named_parameters()
+             if "--pipeline-parallel" in argv
+             and n.startswith(gpt_leaves(model))}
+    return {"losses": res["losses"], "step_ms": ms, "grads": grads,
             "launches": dict(flash.LAUNCHES), "leaves": leaves,
             "exchanges": dict(parallel.EXCHANGES),
-            "exchange_share": parallel.EXCHANGES["seconds"] * 1e3 / sum(ms),
+            "exchange_share": (parallel.EXCHANGES["seconds"] * 1e3 / sum(ms)
+                               if ms else None),
             "step_mode": res["step_mode"],
             "param_bytes": local_bytes(model.parameters()),
             "expert_bytes": local_bytes(
@@ -2291,6 +2363,165 @@ def run_ep() -> dict:
     return {k: launches["ep"][k] + launches["moe_sp"][k]
             for k in flash.LAUNCHES}
 
+def rank_params(name: str, argv: list) -> int:
+    """The parameters a pipeline stage of ``<name>.run``'s model holds
+    under ``argv`` (the trainer's defaults for the flags it does not
+    name): its share of the layers and every parameter outside them (GPT
+    has ``ln_f``, BERT not)."""
+    import importlib
+
+    module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+    a = module.build_parser().parse_args(argv)
+    h, f = a.hidden, a.intermediate
+    layer = 4 * (h * h + h) + (h * f + f) + (f * h + h) + 4 * h
+    shared = (-(-a.vocab // 128) * 128 * h + a.seq_len * h
+              + (4 if name == "gpt" else 2) * h)
+    return a.layers // a.pipeline_parallel * layer + shared
+
+
+def run_pipe() -> dict:
+    """B1-B3 at a microbatch's shape (``pipe_b2``), each GPT part's and
+    the MLM part's one-process run (one for both schedules), then two
+    gloo ranks on the card running every part; one line a part."""
+    import gc
+    import importlib
+
+    from tpujob_torch.workloads import flash
+
+    b_mb = (flag(PIPE_BASE_ARGV, "--batch-size")
+            // flag(PIPE_PARTS["gpipe"][1], "--pipeline-microbatches"))
+    check_kernels(s=MAIN["s"], window=0, timed=False, b=b_mb,
+                  case=f"pipe_b{b_mb}")
+    out_dir = os.path.join("build", "chip_smoke", "pipe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    plan = mesh_plan(PIPE_BASE_ARGV, PIPE_PARTS)
+    one = {}
+    for part, (name, _, flags) in PIPE_PARTS.items():
+        key = (name, tuple(flags or ()))
+        if flags is None or key in one:
+            continue
+        module = importlib.import_module(f"tpujob_torch.workloads.{name}")
+        one[key] = mesh_run(module, PIPE_BASE_ARGV + flags, plan["device"],
+                            os.path.join(out_dir, "one", part))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(PIPE_WORLD, out_dir, mesh_rank, plan)
+    spawn_s = time.perf_counter() - t0
+    launches = {k: 0 for k in flash.LAUNCHES}
+    peaks, failed = {}, []
+    for part, (name, flags, one_flags) in PIPE_PARTS.items():
+        argv = PIPE_BASE_ARGV + flags
+        steps = flag(flags, "--steps") if "--steps" in flags else PIPE_STEPS
+        micro = flag(flags, "--pipeline-microbatches")
+        layers = flag(flags, "--layers") if "--layers" in flags else 24
+        runs = [r[part] for r in ranks]
+        # each stage's half of the layers, every microbatch: B1 twice a
+        # layer (GPipe's remat replay, 1F1B's recomputing backward tick),
+        # B2 and B3 once
+        n = layers // PIPE_WORLD * micro
+        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        params = rank_params(name, argv)
+        exchanged = steps - 1  # counted from the end of step 1 on
+        checks = {
+            "gloo_groups": all(r["backend"] == "gloo"
+                               and r["pe"] == [i, PIPE_WORLD]
+                               for i, r in enumerate(ranks)),
+            "losses": all(len(r["losses"]) == steps
+                          and all(math.isfinite(x) for x in r["losses"])
+                          for r in runs)
+            and runs[0]["losses"] == runs[1]["losses"],
+            "launches": all(r["launches"] == {k: v * steps
+                                              for k, v in want.items()}
+                            for r in runs),
+            # a stage holds its layers and every parameter outside them
+            "state_per_stage": all(r["param_bytes"] == 4 * params
+                                   and r["moment_bytes"] == 2 * 4 * params
+                                   for r in runs)
+            and (name != "gpt" or params == PIPE_RANK_PARAMS),
+            "exchanged": all(r["exchanges"]["calls"] > 0 for r in runs)
+            if exchanged else True,
+            "replicated_equal": all(
+                torch.equal(v, runs[0]["replicated"][k])
+                for r in runs for k, v in r["replicated"].items()
+                if not k.startswith("layer_")),
+        }
+        line = {"phase": "pipe", "part": part, "argv": argv,
+                "world": PIPE_WORLD, "microbatches": micro,
+                "backend": "gloo (two ranks on one card; NCCL refuses)",
+                "losses_rank0": runs[0]["losses"],
+                "launches_by_rank": [r["launches"] for r in runs],
+                "launches_per_rank_step": want,
+                "param_bytes_by_rank": [r["param_bytes"] for r in runs],
+                "moment_bytes_by_rank": [r["moment_bytes"] for r in runs],
+                "rank_params": params,
+                "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in runs],
+                "step_ms_by_rank": [r["step_ms"] for r in runs],
+                "step_mode_by_rank": [r["step_mode"] for r in runs],
+                "spawn_s": spawn_s}
+        if exchanged:
+            line.update(
+                exchanges_per_rank_step=[
+                    {k: v / exchanged for k, v in r["exchanges"].items()}
+                    for r in runs],
+                exchange_share_by_rank=[r["exchange_share"] for r in runs])
+        if one_flags is not None:
+            ref = one[(name, tuple(one_flags))]
+            got = {}
+            for r in runs:  # the stages' leaves, one dict
+                got.update(r["leaves"]["step1"])
+            err = update_err(got, ref["leaves"]["step1"],
+                             ref["leaves"]["init"])
+            checks["losses_one_process"] = all(
+                abs(x - y) <= bf16_ulp(y)
+                for x, y in zip(runs[0]["losses"], ref["losses"]))
+            checks["params_after_step1"] = err <= SHARD_UPDATE_RTOL
+            line.update(one_process_argv=PIPE_BASE_ARGV + one_flags,
+                        losses_one_process=ref["losses"],
+                        update_err=err, update_rtol=SHARD_UPDATE_RTOL,
+                        param_bytes_one_process=ref["param_bytes"],
+                        peak_mem_gb_one_process=ref["peak_mem_gb"],
+                        step_ms_one_process=ref["step_ms"],
+                        step_mode_one_process=ref["step_mode"])
+        peaks[part] = max(r["peak_mem_gb"] for r in runs)
+        if part == "1f1b":
+            # the two schedules compute one function
+            other = [r["gpipe"] for r in ranks]
+            g = {k: v for r in runs for k, v in r["grads"].items()}
+            h = {k: v for r in other for k, v in r["grads"].items()}
+            grad_err = math.sqrt(sum(float(((g[k] - h[k]) ** 2).sum())
+                                     for k in h)
+                                 / sum(float((h[k] ** 2).sum()) for k in h))
+            checks["equals_gpipe"] = (
+                all(abs(x - y) <= bf16_ulp(y) for x, y in
+                    zip(runs[0]["losses"], other[0]["losses"]))
+                and grad_err <= PIPE_GRAD_RTOL)
+            line.update(losses_gpipe=other[0]["losses"],
+                        grad_rel_err_vs_gpipe=grad_err,
+                        grad_rtol=PIPE_GRAD_RTOL)
+        if part.endswith("_m8"):
+            at4 = peaks[part[: -len("_m8")]]
+            line.update(peak_mem_gb_m4=at4, peak_ratio_m8_m4=peaks[part] / at4)
+            if part == "1f1b_m8":
+                checks["peak_bounded"] = (peaks[part]
+                                          <= PIPE_1F1B_PEAK_RATIO * at4)
+                line["peak_ratio_max"] = PIPE_1F1B_PEAK_RATIO
+        ok = all(checks.values())
+        for k in launches:
+            launches[k] += runs[0]["launches"][k]
+        emit({**line, "ok": ok, "checks": checks,
+              "times_note": "per-rank ms a step of two ranks sharing one "
+                            "card over gloo, the card synced around each "
+                            "exchange: a record of correctness and memory, "
+                            "not a speed of pipeline parallelism"})
+        if not ok:
+            failed.append((part, checks))
+    if failed:
+        raise AssertionError(f"pipe path failed: {failed}")
+    return launches
+
+
 def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
     """``module.run`` once through its flag surface, eager
     (``capture=False``) or captured: what the graph phase compares (the
@@ -2582,6 +2813,7 @@ def main(argv=None) -> int:
         by_path["sp"], timed["sp_local_h8"] = run_sp()
         by_path["shard"] = run_shard()
         by_path["ep"] = run_ep()
+        by_path["pipe"] = run_pipe()
         by_path["bench"], by_path["bench_quick_d32"] = run_bench()
         launches = by_path["train"]
 

@@ -42,8 +42,8 @@ sequence parallelism, in the port against the JAX package, on the CPU.
   the world's formula's bit for bit, and an expert-parallel run's load
   balance, z-loss and dropped assignments are one process's.
 - The flag rules: the JAX package's ValueErrors for EP without experts
-  and for experts that do not divide over EP; the pipeline still
-  refused; MoE with TP, FSDP or SP and EP alone pass the flag checks.
+  and for experts that do not divide over EP, and for MoE with the
+  pipeline; MoE with TP, FSDP or SP and EP alone pass the flag checks.
 """
 import re
 
@@ -481,7 +481,13 @@ def test_moe_compositions_pass_the_flag_checks(flags):
 
 
 def test_pipeline_is_still_refused():
+    """The pipeline is ported, but not with MoE: the JAX package's
+    ValueError, word for word."""
+    flags = ["--moe-experts", "4", "--pipeline-parallel", "2"]
+    want = jax_error(flags, True)
+    assert want is not None
     args = tgpt.build_parser().parse_args(MOE + ["--pipeline-parallel",
                                                  "2"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError) as err:
         tgpt.build_model(args, "cpu")
+    assert str(err.value) == want

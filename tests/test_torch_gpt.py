@@ -180,13 +180,14 @@ def test_param_count_gpt2_medium():
     ("--pipeline-parallel", "2"), ("--expert-parallel", "2"),
 ])
 def test_unported_flags_raise(flag, value):
-    # only the pipeline is not ported.  Each other strategy builds with a
+    # every strategy is ported now.  Each but the pipeline builds with a
     # MoE model too (expert parallelism needs experts: without them the
     # JAX package's ValueError comes first, tests/test_torch_moe.py;
     # flash pairs with Ulysses, TP with dense attention, as the JAX
-    # package refuses flash with it): the flags pass, and one process
-    # cannot hold a model axis of 2 (the mesh's own error); FSDP builds
-    # its model here and shards it in ``train``
+    # package refuses flash with it; the pipeline runs the dense FFN, as
+    # the JAX package refuses MoE with it): the flags pass, and one
+    # process cannot hold a model axis of 2 (the mesh's own error); FSDP
+    # builds its model here and shards it in ``train``
     moe = {"--expert-parallel": ["--moe-experts", "4"],
            "--sequence-parallel": ["--moe-experts", "4", "--sp-mode",
                                    "ulysses"],
@@ -195,10 +196,6 @@ def test_unported_flags_raise(flag, value):
            "--fsdp": ["--moe-experts", "4"]}.get(flag, [])
     args = tgpt.build_parser().parse_args(
         ARGV + ["--device", "cpu", flag, value] + moe)
-    if flag == "--pipeline-parallel":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tgpt.build_model(args, torch.device("cpu"))
-        return
     tbert.validate_parallel_flags(args, causal=True)
     if flag == "--fsdp":
         assert tgpt.build_model(args, torch.device("cpu")).moe is not None

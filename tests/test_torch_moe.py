@@ -379,7 +379,8 @@ def test_moe_config_from_has_the_reference_rules():
 REFUSALS = [
     (["--moe-k", "0"], ValueError, "--moe-k must be >= 1"),
     (["--expert-parallel", "2"], ValueError, "not divisible by fixed axes"),
-    (["--pipeline-parallel", "2"], NotImplementedError, "not yet ported"),
+    (["--pipeline-parallel", "2"], ValueError,
+     "does not compose with --moe-experts"),
     (["--moe-experts", "0", "--expert-parallel", "2"], ValueError,
      "needs --moe-experts"),
     (["--moe-experts", "3", "--expert-parallel", "2"], ValueError,
@@ -391,9 +392,9 @@ REFUSALS = [
 def test_entry_points_refuse_what_one_device_cannot_run(flags, error, match):
     """``--moe-experts`` builds on one device; expert parallelism over 2
     ranks cannot run on one (the mesh's own error: EP itself is ported,
-    ``tests/test_torch_ep.py``), the pipeline (which the JAX package
-    refuses with MoE) is not ported; the MoE flags' own errors are the
-    JAX package's ValueErrors, raised before that refusal."""
+    ``tests/test_torch_ep.py``), the pipeline with MoE raises the JAX
+    package's ValueError; the MoE flags' own errors are the JAX package's
+    ValueErrors too."""
     args = tgpt.build_parser().parse_args(SMALL + ["--device", "cpu"] + flags)
     with pytest.raises(error, match=match):
         tgpt.build_model(args, torch.device("cpu"))

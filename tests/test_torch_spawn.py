@@ -427,8 +427,10 @@ def shard_trainer_ranks(rank, runs):
     (``parallel.TP_RULES`` and ``EP_RULES`` split none of them) as it
     holds it, the elements this rank holds of the parameters and of
     AdamW's moments, the ranks of its mesh's groups (tensor, replica,
-    token axes, and ``ffn``: expert x tensor), as
-    ``get_process_group_ranks`` reads them, and a MoE run's
+    token axes, and ``ffn``: expert x tensor; and the pipeline's), as
+    ``get_process_group_ranks`` reads them, under a pipeline the
+    gradients of the parameters outside the blocks after the last step,
+    and a MoE run's
     ``moe_metrics`` and, for each forward, whether its load balance is
     the world formula's (``bert.moe_terms`` without the mesh) bit for
     bit."""
@@ -486,11 +488,99 @@ def shard_trainer_ranks(rank, runs):
             "groups": {key: (tdist.get_process_group_ranks(g)
                              if g is not None else [rank])
                        for key, g in groups.items()},
+            "pipeline_group": (tdist.get_process_group_ranks(
+                mesh.group("pipeline")) if mesh.size("pipeline") > 1
+                else [rank]),
             "moe_metrics": res.get("moe_metrics"),
             "lb_world_equal": lb_world_equal,
+            "shared_grads": {n: p.grad.float().numpy().copy()
+                             for n, p in model.named_parameters()
+                             if not n.startswith("layer_")
+                             and mesh.size("pipeline") > 1},
         })
     leave()
     return out
+
+
+def pipeline_stack_ranks(rank, cases):
+    """Each case of ``cases`` (name -> dict of the mesh ``axes``, numpy
+    ``ws`` [L, d, d], ``x`` [B, d], ``h`` [d, k], ``y`` [B, k], the
+    microbatches ``m``, ``skip_idle`` and the ``schedule``) on the stack
+    of ``tanh(x @ w)`` layers, this rank holding its stage's layers
+    (``parallel.stage_layers``) and its rows of the batch
+    (``distributed.local_batch_slice``):
+
+    - ``"pipeline"``: ``parallel.pipeline``'s output and the grads of its
+      sum for the stage's layers and the rows;
+    - ``"1f1b"`` / ``"gpipe"``: ``pipeline_schedule.pipeline_1f1b`` /
+      ``pipeline_gpipe`` with the head ``mean((y @ h - target) ** 2)``:
+      the loss, the grads of the stage's layers and of ``h``, ``dx`` and
+      the stash peaks.
+
+    Each with the rank's stage, its rows and the exchanges' calls."""
+    from tpujob_torch.workloads import parallel, pipeline_schedule
+
+    join()
+    out = {}
+    for name, c in cases.items():
+        mesh = dist.make_mesh(c["axes"])
+        group = mesh.group("pipeline")
+        num_layers = len(c["ws"])
+        layers = (parallel.stage_layers(num_layers, mesh)
+                  or range(num_layers))
+        lo, sz = dist.local_batch_slice(len(c["x"]), mesh=mesh)
+        w = torch.tensor(c["ws"][layers.start:layers.stop],
+                         requires_grad=True)
+
+        def stage_fn(xb):
+            for wi in w:
+                xb = torch.tanh(xb @ wi)
+            return xb
+
+        x = torch.tensor(c["x"][lo : lo + sz], requires_grad=True)
+        h = torch.tensor(c["h"], requires_grad=True)
+        target = torch.from_numpy(c["y"][lo : lo + sz])
+        parallel.reset_exchanges()
+        res = {"stage": mesh.index("pipeline"), "rows": (lo, sz)}
+        if c["schedule"] == "pipeline":
+            o = parallel.pipeline(stage_fn, x, group, num_layers=num_layers,
+                                  num_microbatches=c["m"],
+                                  skip_idle=c["skip_idle"])
+            res["forward_exchanges"] = parallel.EXCHANGES["calls"]
+            o.sum().backward()
+            res.update(o=o.detach().numpy(), dx=x.grad.numpy())
+        else:
+            run = {"1f1b": pipeline_schedule.pipeline_1f1b,
+                   "gpipe": pipeline_schedule.pipeline_gpipe}[c["schedule"]]
+            r = run(stage_fn, x.detach(),
+                    lambda yb, ex: torch.mean((yb @ h - ex[0]) ** 2),
+                    (target,), group, num_layers=num_layers,
+                    num_microbatches=c["m"])
+            res.update(loss=r.loss.item(), dx=r.dx.numpy(),
+                       stash_peak=r.stash_peak, cot_peak=r.cot_peak,
+                       dh=None if h.grad is None else h.grad.numpy())
+        res["dw"] = w.grad.numpy()
+        res["exchanges"] = parallel.EXCHANGES["calls"]
+        out[name] = res
+    leave()
+    return out
+
+
+def bf16_tp_sum_ranks(rank, runs):
+    """``shard_trainer_ranks`` with the column-parallel products' input
+    gradient summed as the port summed it before: the products' own
+    gradients (each rounded to the compute dtype) added, then all-reduced
+    in that dtype (Megatron's f on the input, ``copy_to_tensor``)."""
+    import torch.nn.functional as F
+
+    from tpujob_torch.workloads import parallel
+
+    def column_parallel(x, pairs, group):
+        x = parallel.copy_to_tensor(x, group)
+        return [F.linear(x, w, b) for w, b in pairs]
+
+    parallel.column_parallel = column_parallel
+    return shard_trainer_ranks(rank, runs)
 
 
 def tp_block_ranks(rank, cases):

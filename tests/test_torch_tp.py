@@ -33,7 +33,8 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from test_torch_spawn import shard_trainer_ranks, spawn, tp_block_ranks
+from test_torch_spawn import (bf16_tp_sum_ranks, shard_trainer_ranks,
+                              spawn, tp_block_ranks)
 from tpujob.workloads import bert as jbert
 from tpujob.workloads import distributed as jdist
 from tpujob.workloads import gpt as jgpt
@@ -259,22 +260,34 @@ def update_err(got, ref, init) -> float:
     return float(np.sqrt(num / den))
 
 
-def test_run_at_tensor_2_in_bf16_matches_jax(tmp_path):
+BF16_TP = [a for a in SMALL if a != "--no-bf16"] + TP
+
+
+@pytest.fixture(scope="module")
+def jax_bf16(tmp_path_factory):
+    """The JAX package's bf16 GPT run at tensor 2, its initial weights,
+    and those as a torch state dict."""
+    jrun = jax_run(jgpt, BF16_TP, {"data": 1, "tensor": 2},
+                   tmp_path_factory.mktemp("jax_bf16"))
+    tree = flax_init(jgpt, BF16_TP)
+    init = {k: v.numpy() for k, v in convert.params_from_flax(tree).items()}
+    return jrun, tree, init
+
+
+def test_run_at_tensor_2_in_bf16_matches_jax(tmp_path, jax_bf16):
     """``gpt.run`` at tensor 2 in bf16 (the card's dtype) against the
     JAX package's bf16 run on the same mesh, from the same weights.  The
     row-parallel products' fp32 partials are summed in fp32 and rounded
     once (``parallel.reduce_from_tensor``), as the JAX package's
-    partitioned product all-reduces its f32 dot.  Tolerances
-    (``BF16_ATOL``, ``BF16_UPDATE_RTOL``, one bf16 ulp of each loss) are
-    bf16's and AdamW's, stated with their reason above; the parameters
-    the tensor group holds whole bit-equal on its ranks."""
-    argv = [a for a in SMALL if a != "--no-bf16"] + TP
-    jlosses, jparams = jax_run(jgpt, argv, {"data": 1, "tensor": 2},
-                               tmp_path / "jax")
-    tree = flax_init(jgpt, argv)
-    init = {k: v.numpy() for k, v in convert.params_from_flax(tree).items()}
+    partitioned product all-reduces its f32 dot; so are the
+    column-parallel products' input-gradient partials
+    (``parallel.column_parallel``).  Tolerances (``BF16_ATOL``,
+    ``BF16_UPDATE_RTOL``, one bf16 ulp of each loss) are bf16's and
+    AdamW's, stated with their reason above; the parameters the tensor
+    group holds whole bit-equal on its ranks."""
+    (jlosses, jparams), tree, init = jax_bf16
     ranks = [o[0] for o in spawn(shard_trainer_ranks, 2, tmp_path, [
-        ("gpt", port(argv, tmp_path / "port"), tree)])]
+        ("gpt", port(BF16_TP, tmp_path / "port"), tree)])]
     for r in ranks:
         assert len(r["losses"]) == 3
         for x, y in zip(r["losses"], jlosses):
@@ -286,6 +299,26 @@ def test_run_at_tensor_2_in_bf16_matches_jax(tmp_path):
         for k, v in r["replicated"].items():
             np.testing.assert_array_equal(ranks[0]["replicated"][k], v,
                                           err_msg=k)
+
+
+def test_fp32_sums_of_input_gradients_bring_tp_closer_to_jax(tmp_path,
+                                                            jax_bf16):
+    """The JAX package's CPU partitioner transposes a column-parallel
+    product as an fp32 dot of the rank's partial, an fp32 all-reduce
+    (one for q, k and v together) and one rounding to bf16 each, then
+    bf16 adds; the port's ``column_parallel`` does the same.  Against the
+    earlier sum (the products' bf16 gradients added, then all-reduced in
+    bf16, ``bf16_tp_sum_ranks``), the run's ``update_err`` to the JAX
+    package's run falls, and its losses stay within one bf16 ulp."""
+    (jlosses, jparams), tree, init = jax_bf16
+    runs = [("gpt", port(BF16_TP, tmp_path / "port"), tree)]
+    now = spawn(shard_trainer_ranks, 2, tmp_path, runs)[0][0]
+    before = spawn(bf16_tp_sum_ranks, 2, tmp_path, runs)[0][0]
+    errs = [update_err(r["whole"], jparams, init) for r in (now, before)]
+    print("update_err fp32 sums, bf16 sums:", errs)
+    assert errs[0] < errs[1], errs
+    for x, y in zip(now["losses"], jlosses):
+        assert abs(x - y) <= bf16_ulp(y)
 
 
 # ---------------------------------------------------------------------------
@@ -337,16 +370,13 @@ def test_tp_and_fsdp_combinations_jax_refuses_raise_its_value_error(name):
     ["--moe-experts", "4", "--tensor-parallel", "2"],
     ["--moe-experts", "4", "--fsdp", "2"]])
 def test_strategies_still_unported_raise_not_yet_ported(flags):
-    """Of the strategies the JAX package builds, only the pipeline is
-    still refused.  Expert parallelism and MoE with SP, TP or FSDP pass
-    the flag checks now (``tests/test_torch_ep.py`` runs them); one
-    process cannot hold their axis of 2 (the mesh's own error)."""
+    """No strategy the JAX package builds is refused any more: expert
+    parallelism and MoE with SP, TP or FSDP (``tests/test_torch_ep.py``
+    runs them) and the pipeline (``tests/test_torch_pipeline*.py``) pass
+    the flag checks; one process cannot hold their axis of 2 (the mesh's
+    own error)."""
     assert jax_error(flags, True) is None
     args = tgpt.build_parser().parse_args(SMALL + flags)
-    if "--pipeline-parallel" in flags:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tgpt.build_model(args, "cpu")
-        return
     tbert.validate_parallel_flags(args, causal=True)
     with pytest.raises(ValueError, match="not divisible by fixed axes"):
         tbert.make_mesh_for(args, tbert.dist.process_env({}))

@@ -20,10 +20,17 @@ local kernel; under ``--tensor-parallel`` Megatron's blocks), the
 ``--profile-dir``, data parallelism across processes through DDP over
 the ranks that hold the same parameters, ZeRO-3 through FSDP2 under
 ``--fsdp``, checkpoints written whole at any layout) and ``run``/``main``.
-Of the parallel strategies, data, sequence, tensor and expert
-parallelism and FSDP are ported, and their compositions (TP x SP on the
-ring, FSDP x TP, FSDP x SP, and MoE with EP or without on any of them);
-pipeline parallelism is not.
+Every parallel strategy of the JAX package is ported: data, sequence,
+tensor, expert and pipeline parallelism and FSDP, and their compositions
+(TP x SP on the ring, FSDP x TP, FSDP x SP, MoE with EP or without on
+any of them, data x pipeline and TP x pipeline).
+
+Under ``--pipeline-parallel`` each rank holds its stage's layers
+(``parallel.stage_layers``) and every parameter outside them, and a step
+is the schedule's fused forward and backward
+(``make_pipeline_value_and_grad``: GPipe or 1F1B, the embedding on the
+first stage, the head on the last); ``pipeline_apply`` is the pipelined
+forward (every stage's logits), for decode.
 
 Under sequence parallelism each rank holds its rows of the batch and its
 columns of the sequence (``seq_positions``: a contiguous block, or for
@@ -61,13 +68,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from tpujob_torch.workloads import data as datalib
 from tpujob_torch.workloads import distributed as dist
-from tpujob_torch.workloads import parallel, train_lib
+from tpujob_torch.workloads import parallel, pipeline_schedule, train_lib
 from tpujob_torch.workloads import tokenizer as toklib
 
 class Dense(nn.Module):
@@ -89,8 +97,12 @@ class Dense(nn.Module):
         with torch.no_grad():
             train_lib.lecun_normal_(self.weight, d_in, gen)
 
+    def params(self):
+        """The weight and bias in the compute dtype."""
+        return self.weight.to(self.dtype), self.bias.to(self.dtype)
+
     def forward(self, x):
-        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        w, b = self.params()
         if self.reduce_group is None:
             return F.linear(x.to(self.dtype), w, b)
         y = F.linear(x.to(self.dtype).float(), w.float())
@@ -171,10 +183,13 @@ class Attention(nn.Module):
         ``positions``: the global positions of ``x``'s tokens (a sequence
         shard's), else ``arange(s)``."""
         b, s, _ = x.shape
-        x = parallel.copy_to_tensor(x, self.tp_group)
-        q = self.query(x).reshape(b, s, self.heads, self.d)
-        k = self.key(x).reshape(b, s, self.hkv, self.d)
-        v = self.value(x).reshape(b, s, self.hkv, self.d)
+        q, k, v = parallel.column_parallel(
+            x.to(self.query.dtype),
+            [d.params() for d in (self.query, self.key, self.value)],
+            self.tp_group)
+        q = q.reshape(b, s, self.heads, self.d)
+        k = k.reshape(b, s, self.hkv, self.d)
+        v = v.reshape(b, s, self.hkv, self.d)
         if cache is not None:
             o = self._attend_cache(q, k, v, *cache)
         else:
@@ -301,8 +316,9 @@ class Block(nn.Module):
         if self.moe is not None:
             h, metrics = self.moe(x, valid, positions)
             return self.ln_mlp(x + h), metrics
-        h = F.gelu(self.mlp_wi(parallel.copy_to_tensor(x, self.tp_group)),
-                   approximate="tanh")
+        [h] = parallel.column_parallel(x.to(self.mlp_wi.dtype),
+                                       [self.mlp_wi.params()], self.tp_group)
+        h = F.gelu(h, approximate="tanh")
         return self.ln_mlp(x + self.mlp_wo(h))
 
 
@@ -339,7 +355,12 @@ class Bert(nn.Module):
     ``positions`` when ``attention_fn`` takes a sequence shard.
     ``exchanges``: the blocks exchange activations with other ranks (a
     sequence, tensor or expert group, or FSDP's parameter gathers); see
-    ``forward``'s remat."""
+    ``trunk``'s remat.  ``stage``: the layers this rank holds, a pipeline
+    stage's (``parallel.stage_layers``; default all of them): the rank
+    draws the whole model from the seed, as one process does, and drops
+    the other stages' blocks, so a block keeps its one-process name
+    (``layer_<i>``) and weights; the embeddings and LayerNorms stay on
+    every stage."""
 
     def __init__(self, vocab: int = 30522, hidden: int = 1024, layers: int = 24,
                  heads: int = 16, intermediate: int = 4096, max_seq: int = 512,
@@ -350,9 +371,11 @@ class Bert(nn.Module):
                  moe: Optional[MoEConfig] = None,
                  exchanges: bool = False, tp_group=None,
                  moe_groups: Optional[parallel.MoEGroups] = None,
-                 whole_attention_fn: Optional[Callable] = None):
+                 whole_attention_fn: Optional[Callable] = None,
+                 stage: Optional[range] = None):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
+        self.stage = range(layers) if stage is None else stage
         self.dtype, self.remat, self.final_ln = dtype, remat, final_ln
         self.use_rope, self.moe = use_rope, moe
         expert_group = moe_groups.expert if moe_groups else None
@@ -378,6 +401,9 @@ class Bert(nn.Module):
                 hidden, heads, intermediate, dtype, attention_fn, gen,
                 kv_heads, use_rope, window, moe, tp_group, moe_groups,
                 whole_attention_fn))
+        for i in range(layers):
+            if i not in self.stage:
+                delattr(self, f"layer_{i}")
         parallel.tp_shard_(self, tp_group)
         parallel.ep_shard_(self, expert_group)
 
@@ -409,8 +435,9 @@ class Bert(nn.Module):
         # tied LM head: the JAX model casts x to fp32, but flax's
         # Embed.attend then promotes it and the table to the module dtype,
         # so under bf16 the logits are bf16
-        x = parallel.copy_to_tensor(x.to(self.dtype), self.tp_group)
-        logits = torch.matmul(x, self.token_embed.weight.to(self.dtype).t())
+        [logits] = parallel.column_parallel(
+            x.to(self.dtype), [(self.token_embed.weight.to(self.dtype), None)],
+            self.tp_group)
         logits = parallel.gather_from_tensor(logits, self.tp_group)
         return logits[..., : self.vocab]
 
@@ -426,11 +453,23 @@ class Bert(nn.Module):
         positions of a sequence shard's tokens (``seq_positions``)."""
         if cache is not None:
             return self._decode(ids, cache)
-        x = self.embed(ids, positions=positions)
+        x, metrics = self.trunk(self.embed(ids, positions=positions), valid,
+                                positions)
+        logits = self.head(x)
+        return (logits, metrics) if with_metrics else logits
+
+    def trunk(self, x, valid=None, positions=None,
+              remat: Optional[bool] = None):
+        """The blocks this model holds (all of them, or its pipeline
+        stage's) applied to ``x``, and a MoE model's metrics, one dict a
+        layer.  ``remat`` (default ``self.remat``) checkpoints each block
+        when grad is enabled; the 1F1B stage passes False, its backward
+        tick recomputing the stage already."""
+        remat = self.remat if remat is None else remat
         metrics = []
-        for i in range(self.layers):
+        for i in self.stage:
             blk = getattr(self, f"layer_{i}")
-            if self.remat and torch.is_grad_enabled():
+            if remat and torch.is_grad_enabled():
                 # rematerialise each block on backward (jax.checkpoint);
                 # the trunk draws no random numbers (no dropout, as in the
                 # JAX package), so no RNG state is saved: reading it is
@@ -448,8 +487,7 @@ class Bert(nn.Module):
             if self.moe is not None:
                 x, m = x
                 metrics.append(m)
-        logits = self.head(x)
-        return (logits, metrics) if with_metrics else logits
+        return x, metrics
 
     def _decode(self, ids, cache: KVCache):
         """One position through the trunk with every layer's attention on
@@ -473,6 +511,109 @@ class Bert(nn.Module):
                for _ in range(self.layers)],
             v=[torch.zeros(shape, dtype=self.dtype, device=dev)
                for _ in range(self.layers)])
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+
+def pipeline_apply(model: Bert, ids, mesh, num_microbatches: int):
+    """Logits of ``ids`` with the trunk run as a GPipe pipeline over
+    ``mesh``'s pipeline group (``parallel.pipeline``; each block
+    checkpointed under ``model.remat``): the JAX package's
+    ``pipeline_apply``.  Every stage embeds and runs the head on the
+    pipeline's output, as the JAX package does on its replicated arrays,
+    so every stage holds the logits.  A forward: training runs
+    ``make_pipeline_value_and_grad``, which embeds on the first stage and
+    runs the head once, on the last."""
+    y = parallel.pipeline(lambda xb: model.trunk(xb)[0], model.embed(ids),
+                          mesh.group("pipeline"), num_layers=model.layers,
+                          num_microbatches=num_microbatches)
+    return model.head(y)
+
+
+def _sum_grads(params, group, loss: torch.Tensor) -> torch.Tensor:
+    """Each parameter's ``.grad`` (0 where it has none) and ``loss``,
+    summed over ``group`` in one fp32 all-reduce and written back: the
+    summed loss (fp32)."""
+    flat = torch.cat([(p.grad if p.grad is not None else
+                       torch.zeros_like(p)).reshape(-1).float()
+                      for p in params] + [loss.reshape(1).float()])
+    flat = parallel._all_reduce(flat, group)
+    at = 0
+    for p in params:
+        p.grad = flat[at : at + p.numel()].view_as(p).to(p.dtype)
+        at += p.numel()
+    return flat[-1]
+
+
+def make_pipeline_value_and_grad(model: Bert, mesh, num_microbatches: int,
+                                 head_loss, preprocess, *,
+                                 schedule: str = "gpipe",
+                                 batch_shards: int = 1):
+    """``vag(batch) -> loss``: one step's fused forward and backward of
+    the pipelined ``model`` (this rank's stage), its gradients left in
+    ``.grad``: the JAX package's ``make_1f1b_value_and_grad``, and its
+    GPipe path, on ``pipeline_schedule.pipeline_1f1b`` /
+    ``pipeline_gpipe`` over ``mesh``'s pipeline group.
+
+    ``preprocess(batch) -> (ids, extra)``: the trunk's input ids and the
+    ``[b, ...]`` tensors the loss needs; ``head_loss(logits, extra) ->
+    scalar``: under 1F1B a microbatch's loss, scaled so that the mean
+    over the microbatches is the rank's loss; under GPipe the whole
+    batch's (the workloads' ``make_f1b``).  Stage 0 embeds (under grad,
+    and runs the embedding's backward from the schedule's input
+    gradient); the last stage runs the head and the loss.  The 1F1B stage
+    does not checkpoint its blocks, its backward tick recomputing them
+    already; the GPipe stage does under ``model.remat``.
+
+    The gradients of the parameters every stage holds (the embeddings,
+    the LayerNorms outside the blocks) are each stage's own part, the
+    embedding's on the first and the head's on the last (the tied table
+    gets both), summed over the stages in one all-reduce, with the loss
+    beside them: every stage ends with one process's gradient and the
+    loss.  Then every gradient is averaged over the rank's data group
+    (the ranks of its stage that hold other rows: DDP's all-reduce,
+    divided by ``batch_shards``, the one shard decision the loss scaling
+    was made against).  A layer's gradient is never summed across
+    stages.  The returned loss is the rank's; the train step averages it
+    over the data group (``train_lib.global_mean``)."""
+    group, data = mesh.group("pipeline"), dist.token_group(mesh)
+    s = mesh.index("pipeline")
+    shared = [p for name, p in model.named_parameters()
+              if not name.startswith("layer_")]
+    hidden = model.token_embed.weight.shape[1]
+    if schedule == "1f1b":
+        run = pipeline_schedule.pipeline_1f1b
+        stage_fn = lambda xb: model.trunk(xb, remat=False)[0]  # noqa: E731
+    else:
+        run = pipeline_schedule.pipeline_gpipe
+        stage_fn = lambda xb: model.trunk(xb)[0]  # noqa: E731
+
+    def head_fn(y, extra):
+        return head_loss(model.head(y), extra)
+
+    def vag(batch):
+        ids, extra = preprocess(batch)
+        if s == 0:
+            x = model.embed(ids)
+        else:
+            x = torch.empty(*ids.shape, hidden, dtype=model.dtype,
+                            device=ids.device)
+        res = run(stage_fn, x, head_fn, extra, group, num_layers=model.layers,
+                  num_microbatches=num_microbatches)
+        if s == 0:
+            torch.autograd.backward(x, res.dx)
+        loss = _sum_grads(shared, group, res.loss)
+        if data is not None:
+            for p in model.parameters():
+                with parallel.counted(p.grad):
+                    tdist.all_reduce(p.grad, group=data)
+                p.grad.div_(batch_shards)
+        return loss
+
+    return vag
 
 
 # ---------------------------------------------------------------------------
@@ -584,9 +725,7 @@ def mask_batch(ids: np.ndarray, seed: int, rate: float = 0.15):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX package's flag surface.  Flags whose feature is not ported
-    yet are accepted and rejected at run time with a clear error (see
-    ``reject_unported``)."""
+    """The JAX package's flag surface."""
     p = argparse.ArgumentParser(description="BERT-large / GPT transformer "
                                             "pretrain (PyTorch port)")
     p.add_argument("--vocab", type=int, default=30522)
@@ -649,10 +788,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "split over it; needs --moe-experts divisible by "
                         "it)")
     p.add_argument("--pipeline-parallel", type=int, default=1,
-                   help="(not yet ported; must be 1)")
-    p.add_argument("--pipeline-microbatches", type=int, default=0)
+                   help="size of the pipeline axis (the layers split into "
+                        "that many stages, each rank holding its stage's)")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="microbatches a stage streams per step (0 = the "
+                        "stage count); must divide the per-rank batch")
     p.add_argument("--pipeline-schedule", choices=["gpipe", "1f1b"],
-                   default="gpipe")
+                   default="gpipe",
+                   help="gpipe (every forward, then every backward) or "
+                        "1f1b (interleaved: the activation stash bounded "
+                        "by the stage count)")
     p.add_argument("--fsdp", type=int, default=1,
                    help="size of the FSDP axis (ZeRO-3: parameters and "
                         "optimizer state sharded over it; it also splits "
@@ -681,25 +826,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED_STRATEGIES = ("pipeline_parallel",)
-
-
-def reject_unported(args) -> None:
-    """Raise for every requested strategy this port does not have yet —
-    never drop a requested flag silently.  (Data, sequence, tensor and
-    expert parallelism and FSDP are ported, and ``--moe-experts`` on any
-    of them; the pipeline is not.)"""
-    for name in _UNPORTED_STRATEGIES:
-        if getattr(args, name, 1) > 1:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} > 1 is not yet ported to "
-                "tpujob_torch (data, sequence, tensor and expert "
-                "parallelism and FSDP only)")
-    if getattr(args, "grad_accum", 1) < 1:
-        raise ValueError(f"grad accumulation must be >= 1, got "
-                         f"{args.grad_accum}")
-
-
 def moe_config_from(args) -> Optional[MoEConfig]:
     """Validate the MoE flag surface and build the config (None = dense),
     with the JAX package's rules."""
@@ -720,32 +846,58 @@ def moe_config_from(args) -> Optional[MoEConfig]:
                      capacity_factor=args.moe_capacity_factor)
 
 
-def validate_pipeline_flags(args) -> None:
+def validate_pipeline_flags(args) -> int:
+    """Coherence checks for --pipeline-parallel (the JAX package's, with
+    its ValueErrors); returns the stage count."""
+    pp = getattr(args, "pipeline_parallel", 1)
     micro = getattr(args, "pipeline_microbatches", 0)
+    sched = getattr(args, "pipeline_schedule", "gpipe")
     if micro < 0:
         raise ValueError(f"--pipeline-microbatches must be >= 0, got {micro}")
-    if micro > 0:
+    if micro > 0 and pp <= 1:
+        # never drop a requested flag silently
         raise ValueError("--pipeline-microbatches needs --pipeline-parallel > 1")
-    if getattr(args, "pipeline_schedule", "gpipe") != "gpipe":
+    if sched != "gpipe" and pp <= 1:
         raise ValueError("--pipeline-schedule needs --pipeline-parallel > 1")
+    if sched == "1f1b" and getattr(args, "tensor_parallel", 1) > 1:
+        raise ValueError(
+            "--pipeline-schedule=1f1b does not compose with "
+            "--tensor-parallel in this release; use the gpipe schedule "
+            "for TP x PP")
+    if pp > 1:
+        if getattr(args, "sequence_parallel", 1) > 1:
+            raise ValueError(
+                "--pipeline-parallel composes with data and tensor "
+                "parallelism (the Megatron TP x PP layout) and with "
+                "--attention=flash; not with --sequence-parallel in this "
+                "release (two nested manual regions over sequence and "
+                "pipeline)")
+        if getattr(args, "moe_experts", 0) > 0:
+            raise ValueError(
+                "--pipeline-parallel does not compose with --moe-experts "
+                "(the MoE metrics collection cannot cross the pipeline's "
+                "manual region)")
+        if args.layers % pp != 0:
+            raise ValueError(
+                f"--layers {args.layers} must divide over "
+                f"--pipeline-parallel {pp}")
+    if getattr(args, "fsdp", 1) > 1 and pp > 1:
+        raise ValueError(
+            "--fsdp does not compose with --pipeline-parallel (the "
+            "stage param stacks enter the pipeline's manual region "
+            "and would be re-gathered whole); pair --fsdp with "
+            "--tensor-parallel or --moe-experts instead")
+    return pp
 
 
 def validate_sp_flags(args, causal: Optional[bool] = None) -> None:
     """The JAX package's ValueErrors for the attention flags and for every
     combination with ``--sequence-parallel``, from the flags alone: its
-    ``validate_pipeline_flags``'s pipeline-with-SP rule, then
     ``build_model``'s window, Ulysses and flash rules (which it checks
     against the mesh, and the heads at the first Ulysses call).  The
     window's causal-only rule needs ``causal`` (skipped when None)."""
     window = getattr(args, "attention_window", 0)
     sp = getattr(args, "sequence_parallel", 1)
-    if sp > 1 and getattr(args, "pipeline_parallel", 1) > 1:
-        raise ValueError(
-            "--pipeline-parallel composes with data and tensor "
-            "parallelism (the Megatron TP x PP layout) and with "
-            "--attention=flash; not with --sequence-parallel in this "
-            "release (two nested manual regions over sequence and "
-            "pipeline)")
     if window:
         if window < 0:
             raise ValueError(
@@ -787,13 +939,13 @@ def validate_sp_flags(args, causal: Optional[bool] = None) -> None:
 
 
 def validate_tp_flags(args) -> None:
-    """The JAX package's ValueErrors for tensor parallelism and FSDP, from
-    the flags alone: flash with TP (its ``build_model``: no partitioning
-    rule for the kernel's call, so the JAX package refuses it; the port
-    keeps the refusal), then its ``validate_parallel_flags``' KV-head and
-    FSDP-with-pipeline rules.  Then the port's own rule: the heads, the
-    intermediate dim and the padded vocab must split over the tensor
-    ranks (the JAX package's placement of such a parameter fails)."""
+    """The JAX package's ValueErrors for tensor parallelism, from the
+    flags alone: flash with TP (its ``build_model``: no partitioning rule
+    for the kernel's call, so the JAX package refuses it; the port keeps
+    the refusal), then its ``validate_parallel_flags``' KV-head rule.
+    Then the port's own rule: the heads, the intermediate dim and the
+    padded vocab must split over the tensor ranks (the JAX package's
+    placement of such a parameter fails)."""
     tp = getattr(args, "tensor_parallel", 1)
     if (tp > 1 and getattr(args, "sequence_parallel", 1) <= 1
             and getattr(args, "attention", "dense") == "flash"):
@@ -809,13 +961,6 @@ def validate_tp_flags(args) -> None:
         raise ValueError(
             f"--kv-heads {kvh} must divide evenly over "
             f"--tensor-parallel {tp}")
-    if getattr(args, "fsdp", 1) > 1 \
-            and getattr(args, "pipeline_parallel", 1) > 1:
-        raise ValueError(
-            "--fsdp does not compose with --pipeline-parallel (the "
-            "stage param stacks enter the pipeline's manual region "
-            "and would be re-gathered whole); pair --fsdp with "
-            "--tensor-parallel or --moe-experts instead")
     if tp > 1:
         for what, n in (("--heads", args.heads),
                         ("--intermediate", args.intermediate),
@@ -825,19 +970,15 @@ def validate_tp_flags(args) -> None:
                                  f"--tensor-parallel {tp}")
 
 
-def validate_parallel_flags(args, causal: Optional[bool] = None) -> None:
-    """The flag-coherence rules of the ported strategies (data, sequence,
-    tensor and expert parallelism, FSDP, and MoE on any of them).  The
-    MoE flags' own rules come first, then the attention,
-    sequence-parallel, tensor-parallel and FSDP rules
-    (``validate_sp_flags``, ``validate_tp_flags``), so their errors are
-    the JAX package's ValueErrors; then an unported strategy (the
-    pipeline) is refused; ``--pipeline-parallel`` with ``--moe-experts``
-    is refused with it (the JAX package refuses it too)."""
+def validate_parallel_flags(args, causal: Optional[bool] = None) -> int:
+    """The flag-coherence rules of every strategy (data, sequence, tensor,
+    expert and pipeline parallelism, FSDP, and MoE), in the JAX package's
+    order so that its ValueErrors come first: the MoE flags', the RoPE
+    and KV-head rules, the pipeline's (``validate_pipeline_flags``, FSDP
+    with the pipeline among them), then its ``build_model``'s attention,
+    sequence-parallel and tensor-parallel rules (``validate_sp_flags``,
+    ``validate_tp_flags``).  Returns the pipeline stage count."""
     moe_config_from(args)
-    validate_sp_flags(args, causal)
-    validate_tp_flags(args)
-    reject_unported(args)
     if getattr(args, "position", "learned") == "rope" \
             and (args.hidden // args.heads) % 2 != 0:
         raise ValueError(
@@ -851,7 +992,13 @@ def validate_parallel_flags(args, causal: Optional[bool] = None) -> None:
         if args.heads % kvh != 0:
             raise ValueError(
                 f"--kv-heads {kvh} must divide --heads {args.heads}")
-    validate_pipeline_flags(args)
+    pp = validate_pipeline_flags(args)
+    validate_sp_flags(args, causal)
+    validate_tp_flags(args)
+    if getattr(args, "grad_accum", 1) < 1:
+        raise ValueError(f"grad accumulation must be >= 1, got "
+                         f"{args.grad_accum}")
+    return pp
 
 
 def make_mesh_for(args, pe=None) -> "dist.Mesh":
@@ -986,8 +1133,10 @@ def build_model(args, device, *, causal: bool = False,
     package's ring with ``head_axis="tensor"``.  A MoE model's FFN runs
     on ``mesh``'s expert, tensor and sequence groups
     (``parallel.moe_groups``), the rank holding its experts under
-    ``--expert-parallel``.  FSDP is applied by ``train`` (after any
-    weights are loaded into this module)."""
+    ``--expert-parallel``.  Under ``--pipeline-parallel`` the model
+    holds its stage's layers only (``parallel.stage_layers``).  FSDP is
+    applied by ``train`` (after any weights are loaded into this
+    module)."""
     from tpujob_torch.workloads import flash
 
     validate_parallel_flags(args, causal)
@@ -996,7 +1145,8 @@ def build_model(args, device, *, causal: bool = False,
     sp = getattr(args, "sequence_parallel", 1)
     tp = getattr(args, "tensor_parallel", 1)
     ep = getattr(args, "expert_parallel", 1)
-    if mesh is None and (sp > 1 or tp > 1 or ep > 1):
+    pp = getattr(args, "pipeline_parallel", 1)
+    if mesh is None and (sp > 1 or tp > 1 or ep > 1 or pp > 1):
         mesh = make_mesh_for(args)
     if use_flash and torch.device(device).type == "cuda":
         # fail at build, not at the first step
@@ -1050,6 +1200,7 @@ def build_model(args, device, *, causal: bool = False,
         moe_groups=parallel.moe_groups(mesh) if moe else None,
         # a MoE model's full-route decode forwards whole sequences
         whole_attention_fn=whole_fn if sp > 1 and moe else None,
+        stage=parallel.stage_layers(args.layers, mesh),
     )
     return model.to(device)
 
@@ -1058,7 +1209,8 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
           batch, *, tag: str = "bert",
           batch_provider: Optional[Callable] = None,
           on_step: Optional[Callable[[int], None]] = None,
-          capture: bool = True, mesh=None) -> Dict[str, Any]:
+          capture: bool = True, mesh=None,
+          make_f1b: Optional[Callable] = None) -> Dict[str, Any]:
     """The training loop: AdamW with the flag surface's schedule, gradient
     accumulation (``--grad-accum``, optax.MultiSteps), step-exact
     checkpoint/resume, ``--profile-dir``, and honest throughput (the clock
@@ -1095,11 +1247,18 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     moments are sharded too; a sharded state is checkpointed whole
     (``parallel.ParamShards`` over the tensor and expert groups).
     Without it, the whole world is one data axis, unless the flags name
-    another axis: then the flags' mesh (``make_mesh_for``)."""
-    validate_parallel_flags(args)
+    another axis: then the flags' mesh (``make_mesh_for``).
+
+    Under ``--pipeline-parallel`` ``model`` is this rank's stage and the
+    step is the schedule's fused forward and backward
+    (``make_pipeline_value_and_grad``, eager), its per-microbatch loss
+    from ``make_f1b(micro, shards) -> (preprocess, head_loss)`` (the
+    workloads' ``run``; under GPipe with ``micro`` 1, the whole batch's
+    loss); the checkpoint gathers the stages' layers whole."""
+    pp = validate_parallel_flags(args)
     if mesh is None and any(getattr(args, a, 1) > 1 for a in (
             "fsdp", "tensor_parallel", "sequence_parallel",
-            "expert_parallel")):
+            "expert_parallel", "pipeline_parallel")):
         mesh = make_mesh_for(args, pe)  # never a sharded run as data
     accum = getattr(args, "grad_accum", 1)
     if accum > 1 and args.steps % accum != 0:
@@ -1134,24 +1293,48 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     ckpt = None
     start_step = 0
     if args.checkpoint_interval > 0:
-        ckpt = train_lib.Checkpointer(args.dir + "/ckpt", shards=shards)
+        ckpt = train_lib.Checkpointer(
+            args.dir + "/ckpt", shards=shards,
+            stages=mesh.group("pipeline") if pp > 1 else None)
         latest = ckpt.latest_step()
         if latest is not None:
             state = ckpt.restore(latest, state)
             start_step = latest
             print(f"resumed from checkpoint step {latest}")
 
-    loss_fn = loss_of(train_lib.data_parallel(model, mesh))
+    loss_fn = vag = None
+    if pp > 1:
+        if make_f1b is None:
+            raise ValueError(
+                "--pipeline-parallel is not supported for this workload "
+                "(no per-microbatch loss decomposition)")
+        micro = getattr(args, "pipeline_microbatches", 0) or pp
+        schedule = getattr(args, "pipeline_schedule", "gpipe")
+        # ONE shard decision, shared by the loss scaling and the schedule
+        shards_of_batch = pipeline_schedule.batch_shard_count(
+            mesh, args.batch_size)
+        preprocess, head_loss = make_f1b(
+            micro if schedule == "1f1b" else 1, shards_of_batch)
+        vag = make_pipeline_value_and_grad(
+            model, mesh, micro, head_loss, preprocess, schedule=schedule,
+            batch_shards=shards_of_batch)
+    else:
+        loss_fn = loss_of(train_lib.data_parallel(model, mesh))
     train_step = train_lib.make_train_step(loss_fn, optimizer, lr_fn,
                                            accumulator, capture=capture,
-                                           mesh=mesh)
+                                           mesh=mesh, value_and_grad_fn=vag)
     if pe.process_id == 0:
         print(f"{tag}: step_mode={train_step.mode}")
     if start_step >= args.steps:
         # restarted after the final checkpoint (the preemption race):
         # report completion instead of training further
-        with torch.no_grad():
-            final_loss = float(train_lib.global_mean(loss_fn(batch), mesh))
+        if vag is not None:
+            final_loss = float(train_lib.global_mean(vag(batch), mesh))
+            optimizer.zero_grad(set_to_none=True)
+        else:
+            with torch.no_grad():
+                final_loss = float(train_lib.global_mean(loss_fn(batch),
+                                                         mesh))
         if pe.process_id == 0:
             print(f"already complete: resumed at step {start_step} >= "
                   f"--steps {args.steps}")
@@ -1263,12 +1446,35 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
     if provider is not None:
         bp = lambda step: masked(provider(step), args.seed + step)
     positions = None if pos is None else torch.from_numpy(pos).to(device)
+
+    def make_f1b(micro: int, shards: int):
+        """The masked LM a microbatch at a time, for the pipeline: each
+        microbatch's masked sum over the GLOBAL masked count (summed over
+        the data group, carried in ``extra`` as a row each), scaled by
+        ``micro * shards``, so that the mean over the microbatches is the
+        rank's ``mlm_loss`` and the data group's mean the global one."""
+
+        def preprocess(batch):
+            ids, mask = batch
+            total = torch.clamp(train_lib.global_sum(mask.sum(), mesh),
+                                min=1.0)
+            return (torch.where(mask > 0, mask_id, ids),
+                    (ids, mask, total.expand(ids.shape[0])))
+
+        def head_loss(logits, extra):
+            ids, mask, total = extra
+            logp = torch.log_softmax(logits, dim=-1)
+            tok_ll = torch.gather(logp, -1, ids[..., None])[..., 0]
+            return -(tok_ll * mask).sum() / total[0] * (micro * shards)
+
+        return preprocess, head_loss
+
     return train(args, pe, model,
                  lambda net: mlm_loss(net, mask_id=mask_id,
                                       positions=positions, mesh=mesh),
                  train_lib.put_batch(masked(ids0, args.seed), device),
                  batch_provider=bp, on_step=on_step, capture=capture,
-                 mesh=mesh)
+                 mesh=mesh, make_f1b=make_f1b)
 
 
 def main(argv=None) -> int:

@@ -20,6 +20,8 @@ parameter ``parallel.EP_RULES`` or ``parallel.TP_RULES`` splits is cut
 to this rank's block of it (its experts, its block of each), so a model
 under expert or tensor parallelism starts from the JAX package's
 weights at any layout (FSDP then shards the module it is loaded into).
+With a pipeline axis longer than 1 only this rank's stage's layers are
+kept (``parallel.stage_layers``).
 """
 from __future__ import annotations
 
@@ -53,8 +55,11 @@ def params_from_flax(tree: Dict[str, Any], mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> torch state dict: the whole
     parameters, or with ``mesh`` this rank's blocks of them
-    (``parallel.mesh_local``)."""
+    (``parallel.mesh_local``) and of a pipeline only its stage's layers."""
     out: Dict[str, torch.Tensor] = {}
+    stage = parallel.stage_layers(
+        sum(k.startswith("layer_") for _, sub in _collections(tree)
+            for k in sub), mesh)
     for collection, sub in _collections(tree):
         for path, value in _flatten(sub):
             parts = path.split("/")
@@ -76,6 +81,9 @@ def params_from_flax(tree: Dict[str, Any], mesh=None
                 parts[-1] = "weight"
             elif leaf in ("scale", "embedding"):
                 parts[-1] = "weight"
+            if stage is not None and parts[0].startswith("layer_") \
+                    and int(parts[0][len("layer_"):]) not in stage:
+                continue
             name = ".".join(parts)
             out[name] = parallel.mesh_local(
                 name, torch.from_numpy(np.ascontiguousarray(arr)),

@@ -26,7 +26,11 @@ KV heads), all ranks together, to the same tokens.  A MoE model decodes
 by the full route on every rank in lockstep, since its FFN exchanges
 over the expert and tensor groups (a rank that skipped a step would
 leave the others waiting); under ``--sequence-parallel`` each rank
-forwards the whole buffer (``Bert``'s ``whole_attention_fn``).
+forwards the whole buffer (``Bert``'s ``whole_attention_fn``).  Under
+``--pipeline-parallel`` a rank holds its stage's layers only: it trains
+through the schedule (``make_f1b`` is the loss a microbatch at a time)
+and decodes by the full route through the pipeline
+(``bert.pipeline_apply``), every stage to the same tokens.
 
 Entry point (on the card; ``--device cpu`` for the CPU):
     python -m tpujob_torch.workloads.gpt --attention flash --batch-size 8 --steps 5
@@ -36,6 +40,9 @@ Entry point (on the card; ``--device cpu`` for the CPU):
         --fsdp 2 --tensor-parallel 2 ...
     torchrun --nproc-per-node 2 -m tpujob_torch.workloads.gpt --device cpu \
         --moe-experts 4 --expert-parallel 2 ...
+    torchrun --nproc-per-node 2 -m tpujob_torch.workloads.gpt --device cpu \
+        --pipeline-parallel 2 --pipeline-microbatches 4 \
+        --pipeline-schedule 1f1b --attention flash ...
     python -m tpujob_torch.workloads.gpt --steps 1 --generate 32
     python -m tpujob_torch.workloads.gpt --attention flash \
         --data-file corpus.txt --tokenizer bpe:tok.json:512
@@ -96,6 +103,25 @@ def next_token_shard(rows: np.ndarray, pos: np.ndarray) -> tuple:
     return rows[:, pos], rows[:, np.minimum(pos + 1, last)], valid
 
 
+def make_f1b(micro: int, shards: int):
+    """The causal LM a microbatch at a time, for the pipeline
+    (``bert.train``): the shift-by-one token mean of each microbatch.
+    Their token counts are equal, so the mean over the microbatches is the
+    rank's mean and no scaling is needed (``micro`` and ``shards`` are
+    unused, as in the JAX package)."""
+
+    def preprocess(batch):
+        (ids,) = batch
+        return ids, (ids,)
+
+    def head_loss(logits, extra):
+        (ids,) = extra
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        return -torch.gather(logp, -1, ids[:, 1:, None])[..., 0].mean()
+
+    return preprocess, head_loss
+
+
 def sample_next(logit: torch.Tensor, rng: Optional[torch.Generator], *,
                 temperature: float = 0.0, top_k: int = 0,
                 top_p: float = 0.0) -> torch.Tensor:
@@ -151,15 +177,19 @@ def _decode_buffer(model, prompt: torch.Tensor, max_new_tokens: int,
 
 def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-             rng: Optional[torch.Generator] = None) -> torch.Tensor:
+             rng: Optional[torch.Generator] = None,
+             forward: Optional[Callable] = None) -> torch.Tensor:
     """Autoregressive decode by the full forward over a fixed buffer at
     every step: the causal mask makes the positions past the cursor inert.
     For a MoE model the attention mask is not enough (positions past the
     cursor would compete for expert capacity and could evict a realized
     token's assignment), so a validity mask stops routing there too.
     Under ``no_grad``, so with flash attention on the card each step is one
-    forward-kernel launch a layer and no backward.  Returns [b, prompt +
-    max_new_tokens] ids."""
+    forward-kernel launch a layer and no backward.  ``forward(ids,
+    valid=...)`` computes the logits (default ``model``; a pipeline stage
+    passes ``bert.pipeline_apply``'s, every stage then holding them).
+    Returns [b, prompt + max_new_tokens] ids."""
+    forward = forward or model
     buf = _decode_buffer(model, prompt, max_new_tokens, temperature, rng)
     b, total = buf.shape
     p = prompt.shape[1]
@@ -171,7 +201,7 @@ def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
                 # positions [0, p+i) are realized; the rest must not route
                 valid = (positions < p + i).float().expand(b, total)
             # token i is written at position p+i, predicted from p+i-1
-            logit = model(buf, valid=valid)[:, p + i - 1]
+            logit = forward(buf, valid=valid)[:, p + i - 1]
             buf[:, p + i] = sample_next(logit, rng, temperature=temperature,
                                         top_k=top_k, top_p=top_p)
     return buf
@@ -272,17 +302,24 @@ def run(args, *, on_step: Optional[Callable[[int], None]] = None,
                                                mesh=mesh),
                            train_lib.put_batch(shard(ids0), device),
                            tag="gpt", batch_provider=bp, on_step=on_step,
-                           capture=capture, mesh=mesh)
+                           capture=capture, mesh=mesh, make_f1b=make_f1b)
     if n_gen > 0:
         prompt = bertlib.batch_to_device(
             sample[:, : min(8, args.seq_len - n_gen)], device)
         rng = None
         if temp > 0:
             rng = torch.Generator(device=device).manual_seed(args.seed)
-        out = generate_cached(
-            model, prompt, n_gen, temperature=temp,
-            top_k=getattr(args, "generate_top_k", 0),
-            top_p=getattr(args, "generate_top_p", 0.0), rng=rng)
+        decode = dict(temperature=temp,
+                      top_k=getattr(args, "generate_top_k", 0),
+                      top_p=getattr(args, "generate_top_p", 0.0), rng=rng)
+        if mesh.size("pipeline") > 1:
+            # a stage holds its layers only: the full route through the
+            # pipeline, one microbatch (the prompt is one row)
+            out = generate(model, prompt, n_gen, **decode, forward=(
+                lambda ids, valid=None: bertlib.pipeline_apply(
+                    model, ids, mesh, 1)))
+        else:
+            out = generate_cached(model, prompt, n_gen, **decode)
         if getattr(model, "fsdp_mesh", None) is not None:
             # FSDP keeps the root's parameters gathered after a forward
             # with no backward: shard them again

@@ -15,16 +15,23 @@ The JAX package's ``PARTITION_RULES`` (``partition_spec_tree``,
 ``sanitize_spec``, ``shard_params``) are three things here.  Megatron's
 tensor parallelism by hand: ``TP_RULES`` names the dim of each
 parameter split over the tensor group (``tp_local``, ``tp_shard_``), and
-three exchanges carry the activations across it (``copy_to_tensor``,
-``reduce_from_tensor``, ``gather_from_tensor``).  Expert parallelism:
+exchanges carry the activations across it (``column_parallel``,
+``reduce_from_tensor``, ``gather_from_tensor``; ``copy_to_tensor``
+where no product follows).  Expert parallelism:
 ``EP_RULES`` splits the experts over the expert group (``ep_local``,
 ``ep_shard_``), and ``moe_ffn`` sums each token's partial outputs over
 the expert x tensor group.  ZeRO-3 is FSDP2's ``fully_shard`` over the
 fsdp group (``fully_shard_model``), which shards each parameter's dim 0
 (the experts' d dim) where the JAX rules pick another dim: the same 1/n
 of the parameters and moments a rank.  ``ParamShards`` gathers them
-whole for a checkpoint and slices them again.  The pipeline strategy is
-not ported.
+whole for a checkpoint and slices them again.
+
+Pipeline parallelism: the stage exchanges ``to_next`` / ``to_prev`` (the
+JAX schedules' ``ppermute``s, point to point where the timetable sends a
+tensor), ``stage_layers`` (a stage's share of the stack), and GPipe
+(``gpipe_forward`` / ``gpipe_backward``: explicit schedules both ways;
+``pipeline``, the differentiable form).  1F1B is in
+``pipeline_schedule``.
 
 Where the JAX package's attentions take global arrays and cut them with
 ``shard_map``, these take this rank's shard: its rows of the batch and
@@ -37,7 +44,7 @@ import contextlib
 import math
 import re
 import time
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,11 +110,12 @@ def reset_exchanges() -> None:
 
 
 @contextlib.contextmanager
-def counted(x: torch.Tensor):
-    """One exchange of ``x`` (its bytes sent) in ``EXCHANGES``, timed
-    with the card synced around it under ``EXCHANGE_TIMING``."""
+def counted(x: torch.Tensor, sent: bool = True):
+    """One exchange of ``x`` (its bytes sent; none when ``sent`` is False,
+    a receive only) in ``EXCHANGES``, timed with the card synced around it
+    under ``EXCHANGE_TIMING``."""
     EXCHANGES["calls"] += 1
-    EXCHANGES["bytes"] += x.numel() * x.element_size()
+    EXCHANGES["bytes"] += x.numel() * x.element_size() * sent
     if not EXCHANGE_TIMING:
         yield
         return
@@ -131,28 +139,41 @@ def group_rank(group) -> int:
     return 0 if group is None else tdist.get_rank(group)
 
 
-def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
-    """``x`` of the rank ``step`` places ahead in ``group`` (this rank's
-    goes to the rank ``step`` places behind): one send and one receive.
-    gloo's send and receive take host memory only (it reads a CUDA
-    tensor's address as a host one), so a CUDA tensor in a gloo group is
-    copied to the host, exchanged and copied back; NCCL exchanges the
-    device tensors.  The backend decides, never a caught failure."""
-    n, i = group_size(group), group_rank(group)
-    dst = tdist.get_global_rank(group, (i - step) % n)
-    src = tdist.get_global_rank(group, (i + step) % n)
+def _sendrecv(x: torch.Tensor, group, dst: Optional[int],
+              src: Optional[int]) -> torch.Tensor:
+    """``x`` sent to group rank ``dst`` and a tensor shaped like it
+    received from group rank ``src``, in one batch of point-to-point ops
+    (None: no send, or no receive and zeros back).  gloo's send and
+    receive take host memory only (it reads a CUDA tensor's address as a
+    host one), so a CUDA tensor in a gloo group is copied to the host,
+    exchanged and copied back; NCCL exchanges the device tensors.  The
+    backend decides, never a caught failure."""
     staged = (x.device.type == "cuda"
               and tdist.get_backend(group) == tdist.Backend.GLOO)
-    with counted(x):
-        send = x.detach().contiguous()
-        if staged:
-            send = send.cpu()
-        recv = torch.empty_like(send)
-        ops = [tdist.P2POp(tdist.isend, send, dst, group),
-               tdist.P2POp(tdist.irecv, recv, src, group)]
+    with counted(x, sent=dst is not None):
+        ops, recv = [], None
+        if dst is not None:
+            send = x.detach().contiguous()
+            send = send.cpu() if staged else send
+            ops.append(tdist.P2POp(tdist.isend, send,
+                                   tdist.get_global_rank(group, dst), group))
+        if src is not None:
+            recv = torch.empty(x.shape, dtype=x.dtype,
+                               device="cpu" if staged else x.device)
+            ops.append(tdist.P2POp(tdist.irecv, recv,
+                                   tdist.get_global_rank(group, src), group))
         for work in tdist.batch_isend_irecv(ops):
             work.wait()
-        return recv.to(x.device) if staged else recv
+    if recv is None:
+        return torch.zeros_like(x)
+    return recv.to(x.device) if staged else recv
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``x`` of the rank ``step`` places ahead in ``group`` (this rank's
+    goes to the rank ``step`` places behind): one send and one receive."""
+    n, i = group_size(group), group_rank(group)
+    return _sendrecv(x, group, (i - step) % n, (i + step) % n)
 
 
 class _Shift(torch.autograd.Function):
@@ -388,6 +409,49 @@ class _GatherFromTensor(torch.autograd.Function):
     def backward(ctx, g):
         n, i = group_size(ctx.group), group_rank(ctx.group)
         return g.chunk(n, ctx.dim)[i].contiguous(), None, None
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """``F.linear(x, w, b)`` for each pair, whose x-gradients, this
+    rank's partials, are computed in fp32, summed over ``group`` in one
+    fp32 all-reduce and rounded once each to x's dtype, then added in that
+    dtype, the last product's first."""
+
+    @staticmethod
+    def forward(ctx, x, group, *pairs):
+        ws, bs = pairs[0::2], pairs[1::2]
+        ctx.save_for_backward(x, *ws)
+        ctx.group, ctx.biased = group, [b is not None for b in bs]
+        return tuple(F.linear(x, w, b) for w, b in zip(ws, bs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        parts = torch.stack([g.float() @ w.float() for g, w in zip(gs, ws)])
+        parts = _all_reduce(parts, ctx.group).to(x.dtype)
+        gx = parts[-1]
+        for part in reversed(parts[:-1]):
+            gx = gx + part
+        x2 = x.reshape(-1, x.shape[-1])
+        grads = []
+        for g, biased in zip(gs, ctx.biased):
+            g2 = g.reshape(-1, g.shape[-1])
+            grads += [g2.t().mm(x2), g2.sum(0) if biased else None]
+        return (gx, None, *grads)
+
+
+def column_parallel(x: torch.Tensor, pairs, group) -> list:
+    """Column-parallel products of one input: ``F.linear(x, w, b)`` for
+    each ``(w, b)`` of ``pairs`` (this rank's block of each output dim; b
+    may be None).  Megatron's f: the backward sums x's gradient over the
+    tensor ``group``, as the JAX package's CPU partitioner transposes the
+    dots: each product's partial an fp32 dot, the partials all-reduced
+    together in fp32, each rounded once to x's dtype, then added in it
+    (q, k and v's: (v + k) + q).  One process: the plain products."""
+    if group_size(group) == 1:
+        return [F.linear(x, w, b) for w, b in pairs]
+    return list(_ColumnParallel.apply(x, group, *(t for pair in pairs
+                                                  for t in pair)))
 
 
 def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
@@ -728,6 +792,207 @@ def ulysses_attention(q, k, v, group, *, causal: bool = False,
     out = impl(q_, k_, v_, causal=causal, scale=scale)
     # [b, s, h/n, d] -> [b, s/n, h, d]
     return all_to_all(out, group, split_axis=1, concat_axis=2)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the stage exchanges and the GPipe schedule
+# ---------------------------------------------------------------------------
+
+
+def _to_neighbour(x: torch.Tensor, group, step: int, send: bool,
+                  recv: bool) -> torch.Tensor:
+    n, i = group_size(group), group_rank(group)
+    dst = i + step if send and 0 <= i + step < n else None
+    src = i - step if recv and 0 <= i - step < n else None
+    if dst is None and src is None:
+        return torch.zeros_like(x)
+    return _sendrecv(x, group, dst, src)
+
+
+def to_next(x: torch.Tensor, group, *, send: bool = True,
+            recv: bool = True) -> torch.Tensor:
+    """``jax.lax.ppermute`` with ``perm = [(i, i + 1)]`` over the pipeline
+    ``group``: this rank's ``x`` goes to the next stage (the last stage
+    sends nothing) and the previous stage's comes back (zeros on the first
+    stage).  ``send`` / ``recv`` False: this rank sends / receives nothing
+    at this call (zeros back).  Both ends of a transfer must agree, which
+    the schedules ensure by reading both from one timetable, so every rank
+    enters the same exchanges in the same order; a call with nothing to
+    send or receive exchanges nothing.  Not differentiable: the schedules
+    run their backward ticks themselves (``to_prev`` carries the
+    cotangents)."""
+    return _to_neighbour(x, group, 1, send, recv)
+
+
+def to_prev(x: torch.Tensor, group, *, send: bool = True,
+            recv: bool = True) -> torch.Tensor:
+    """``jax.lax.ppermute`` with ``perm = [(i, i - 1)]``: ``to_next`` the
+    other way (the first stage sends nothing, the last receives zeros)."""
+    return _to_neighbour(x, group, -1, send, recv)
+
+
+def check_pipeline(num_layers: int, n: int, b_local: int, m: int,
+                   axis: str = "pipeline") -> None:
+    """The JAX package's two ValueErrors of a pipeline: a layer stack that
+    does not divide over the stages, a per-rank batch that does not
+    divide into the microbatches."""
+    if num_layers % n != 0:
+        raise ValueError(
+            f"layer stack of {num_layers} does not divide over "
+            f"{axis!r} axis size {n}")
+    if b_local % m != 0:
+        raise ValueError(
+            f"per-device batch {b_local} does not divide into "
+            f"{m} microbatches")
+
+
+def stage_layers(layers: int, mesh) -> Optional[range]:
+    """The layers of a stack of ``layers`` this rank's pipeline stage
+    holds, stage s of n holding [s L / n, (s + 1) L / n); None off a
+    pipeline."""
+    n = mesh.size("pipeline") if mesh is not None else 1
+    if n == 1:
+        return None
+    per, i = layers // n, mesh.index("pipeline")
+    return range(i * per, (i + 1) * per)
+
+
+def _live(stage: int, tick: int, m: int) -> bool:
+    """Whether GPipe's stage ``stage`` holds a microbatch at forward tick
+    ``tick`` (microbatch ``tick - stage``)."""
+    return 0 <= tick - stage < m
+
+
+def gpipe_forward(stage_fn, x_mb: List[torch.Tensor], group, *,
+                  skip_idle: bool = True, grad: bool = True):
+    """GPipe's forward ticks on this rank: ``m + n - 1`` of them; at tick
+    t stage s applies ``stage_fn`` to microbatch t - s (stage 0 takes it
+    from ``x_mb``, a later stage what the one before sent at tick t - 1)
+    and sends the result on.  ``skip_idle`` False: the warm-up and drain
+    ticks run the stage on what the stage holds and discard it (the JAX
+    schedule's lock-step compute); the exchanges carry microbatches only.
+
+    Returns ``(outs, stash)``: the m outputs on the last stage (detached;
+    empty elsewhere) and, with ``grad``, each microbatch's ``(input leaf,
+    output)`` on this stage, the graph ``gpipe_backward`` runs backward."""
+    n, s = group_size(group), group_rank(group)
+    m = len(x_mb)
+    like = torch.empty_like(x_mb[0])
+    held = like
+    outs, stash = [], []
+    for tick in range(m + n - 1):
+        live = _live(s, tick, m)
+        y = None
+        if live:
+            cur = x_mb[tick] if s == 0 else held
+            if grad:
+                xi = cur.detach().requires_grad_()
+                with torch.enable_grad():
+                    y = stage_fn(xi)
+                stash.append((xi, y))
+            else:
+                with torch.no_grad():
+                    y = stage_fn(cur)
+            if s == n - 1:
+                outs.append(y.detach())
+        elif not skip_idle:
+            with torch.no_grad():
+                stage_fn(held)
+        held = to_next(like if y is None else y, group, send=live,
+                       recv=_live(s - 1, tick, m))
+    return outs, stash
+
+
+def gpipe_backward(stash, grads: List[torch.Tensor], group
+                   ) -> List[torch.Tensor]:
+    """GPipe's backward ticks: the forward ticks in reverse.  At each one
+    a stage takes its microbatch's output gradient (on the last stage
+    from ``grads``, elsewhere what the next stage sent at the tick
+    before), runs ``torch.autograd.backward`` on the stashed output (the
+    stage's parameters' gradients accumulate in ``.grad``) and sends its
+    input's gradient to the previous stage.  Each stashed graph is freed
+    after its backward.  Returns the m input gradients on stage 0 (empty
+    elsewhere)."""
+    n, s = group_size(group), group_rank(group)
+    m = len(stash)
+    like = torch.empty_like(stash[0][0])
+    held = like
+    dxs = []
+    for back in range(m + n - 1):
+        tick = m + n - 2 - back  # the forward tick this one reverses
+        live = _live(s, tick, m)
+        dx = None
+        if live:
+            j = tick - s
+            (xi, y), stash[j] = stash[j], None
+            torch.autograd.backward(y, grads[j] if s == n - 1 else held)
+            dx = xi.grad
+            if s == 0:
+                dxs.insert(0, dx)
+        held = to_prev(like if dx is None else dx, group, send=live,
+                       recv=_live(s + 1, tick, m))
+    return dxs
+
+
+class _Pipeline(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, stage_fn, group, m, skip_idle):
+        outs, ctx.stash = gpipe_forward(stage_fn, list(x.chunk(m)), group,
+                                        skip_idle=skip_idle)
+        ctx.group = group
+        return _from_last(outs, x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dxs = gpipe_backward(ctx.stash, list(g.chunk(len(ctx.stash))),
+                             ctx.group)
+        dx = torch.cat(dxs) if dxs else torch.zeros_like(g)
+        return dx, None, None, None, None
+
+
+def _from_last(outs: List[torch.Tensor], like: torch.Tensor, group
+               ) -> torch.Tensor:
+    """The last stage's outputs, concatenated, on every stage (a masked
+    all-reduce, the JAX schedule's broadcast: zeros elsewhere)."""
+    last = group_rank(group) == group_size(group) - 1
+    y = torch.cat(outs) if last else torch.zeros_like(like)
+    return _all_reduce(y, group) if group_size(group) > 1 else y
+
+
+def pipeline(stage_fn, x: torch.Tensor, group, *, num_layers: int,
+             num_microbatches: Optional[int] = None,
+             skip_idle: bool = True) -> torch.Tensor:
+    """A layer stack split over the pipeline ``group`` run as a GPipe
+    pipeline: the JAX package's ``parallel.pipeline``, differentiable.
+
+    ``stage_fn(x_mb)`` applies this rank's layers (the stage's share of
+    ``num_layers``, group rank s holding layers [s L / n, (s + 1) L / n))
+    to one microbatch.  ``x``: this rank's rows ``[b, ...]`` of the
+    pipeline input, the same on every stage (only stage 0 reads it); the
+    batch is cut into ``num_microbatches`` (default the stage count) and
+    streamed through the stages (``gpipe_forward``); the last stage's
+    output is returned on every stage, as the JAX schedule's masked psum
+    replicates it.  The (n - 1) / (m + n - 1) bubble is GPipe's cost.
+
+    The backward is an explicit schedule too (``gpipe_backward``): the
+    last stage's output gradient starts it (every stage's loss of the
+    replicated output is one copy of the same function, so the others'
+    are not summed in), and every stage runs the same exchanges in the
+    same order, which autograd across ranks would not promise.  The
+    stage's parameters' gradients accumulate in ``.grad``; ``x``'s is
+    stage 0's (zeros on the others, which do not read it).
+
+    Training runs the fused schedules instead
+    (``pipeline_schedule.pipeline_gpipe`` / ``pipeline_1f1b``), which
+    compute the head once, on the last stage."""
+    n = group_size(group)
+    m = num_microbatches or n
+    check_pipeline(num_layers, n, x.shape[0], m)
+    if torch.is_grad_enabled():
+        return _Pipeline.apply(x, stage_fn, group, m, skip_idle)
+    outs, _ = gpipe_forward(stage_fn, list(x.chunk(m)), group,
+                            skip_idle=skip_idle, grad=False)
+    return _from_last(outs, x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@
   counterpart of ``_step_body``), or with the ``GradAccum`` that
   ``with_grad_accum`` gives one update every ``every`` mini-steps
   (optax.MultiSteps); the loss it returns is the global batch's mean.
+  Its ``value_and_grad_fn`` takes a schedule's fused forward and backward
+  (the pipeline's) in place of the loss's backward.
   On one card it is the compiled step: the first call runs eagerly (it
   creates the optimizer's moments and picks the libraries' algorithms),
   the next ones replay a CUDA graph of the whole step (the counterpart of
@@ -31,7 +33,8 @@
   ``latest_step``/``restore``/``restore_latest``/``max_to_keep`` contract;
   process 0 writes, every process agrees on the latest step; a sharded
   state (tensor parallel, FSDP) is written whole and sliced again on
-  restore, so it resumes at any layout.
+  restore, so it resumes at any layout; a pipeline's stages are gathered
+  to one file the same way.
 - ``Profiler``, ``add_profile_flags``, ``profiler_from_args``: the
   ``--profile-*`` surface on ``torch.profiler`` (a Chrome trace where the
   JAX package writes an xplane one).
@@ -563,28 +566,42 @@ def make_eval_step(metric_fn: Callable[[Any], Tuple[torch.Tensor, ...]]):
     return eval_step
 
 
-def step_mode(optimizer: torch.optim.Optimizer, capture: bool = True) -> str:
+def step_mode(optimizer: torch.optim.Optimizer, capture: bool = True,
+              scheduled: bool = False) -> str:
     """How a train step runs: ``"graph"`` (captured once, replayed) when
     the optimizer's parameters are on a CUDA card and no process group of
     more than one rank exists, else ``"eager"``.  The one owner of that
     rule.  The CPU has no graphs; across ranks DDP's all-reduce runs on
     gloo's host copies (uncapturable) or NCCL, whose capture is not
     measured yet.  ``capture=False`` forces the eager step on the card
-    (to hold the graph against it)."""
+    (to hold the graph against it).  ``scheduled``: a step whose gradient
+    is a schedule across ranks (a pipeline's ``value_and_grad_fn``, host
+    control flow around point-to-point exchanges) is eager; a pipeline
+    runs at world > 1 anyway, so no CUDA graph is captured on it."""
     dev = optimizer.param_groups[0]["params"][0].device
-    if capture and dev.type == "cuda" and dist.group_size() == 1:
+    if capture and not scheduled and dev.type == "cuda" \
+            and dist.group_size() == 1:
         return "graph"
     return "eager"
 
 
-def _eager_step(loss_fn, optimizer, lr_fn, accum, count: int, batch):
+def _eager_step(loss_fn, optimizer, lr_fn, accum, count: int, batch,
+                vag=None):
     """One step as the JAX package's ``_step_body`` runs it: the loss
-    (detached) of ``batch`` after its backward and, unless ``accum``
-    holds the update back, one optimizer update at ``lr_fn(update)``;
-    and whether it updated."""
+    (detached) of ``batch`` after its backward (or ``vag(batch)``, which
+    leaves the gradients in ``.grad`` itself) and, unless ``accum`` holds
+    the update back, one optimizer update at ``lr_fn(update)``; and
+    whether it updated."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(batch)
-    loss.backward()
+    if vag is None:
+        loss = loss_fn(batch)
+        loss.backward()
+    else:
+        loss = vag(batch)
+        if loss_extras(vag) is not None:
+            raise ValueError(
+                "value_and_grad_fn does not support loss extras (it "
+                "returns the loss with no slot for extra outputs)")
     update = count if accum is None else accum.add()
     if update is not None:
         set_lr(optimizer, lr_fn(update))
@@ -711,11 +728,12 @@ def loss_extras(loss_fn) -> Optional[torch.Tensor]:
     return None if extras is None else extras.clone()
 
 
-def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
+def make_train_step(loss_fn: Optional[Callable[[Any], torch.Tensor]],
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
                     accum: Optional[GradAccum] = None,
-                    capture: bool = True, mesh=None):
+                    capture: bool = True, mesh=None,
+                    value_and_grad_fn: Optional[Callable] = None):
     """``step(state, batch) -> (state, loss)``: value and grad of
     ``loss_fn(batch)`` (which runs the model), one AdamW update at
     ``lr_fn(update count)``, and ``state['step'] + 1``.  The update is in
@@ -743,13 +761,25 @@ def make_train_step(loss_fn: Callable[[Any], torch.Tensor],
     (eager, in either mode) and refilled by every later call, so a
     captured step writes them as static outputs and each replay leaves its
     own.  Read them with ``loss_extras(loss_fn)`` right after the step:
-    any other call of ``loss_fn`` (an eval) overwrites them."""
-    mode = step_mode(optimizer, capture)
+    any other call of ``loss_fn`` (an eval) overwrites them.
+
+    ``value_and_grad_fn(batch) -> loss`` replaces ``loss_fn`` and its
+    backward when the gradient computation is itself a schedule (a
+    pipeline's fused forward and backward, which interleaves microbatches'
+    backwards between other microbatches' forwards: no backward of one
+    forward expresses it).  It leaves the gradients in ``.grad``, already
+    averaged over the data group; the update, the ``accum`` folding and
+    the ``global_mean`` of the loss are the step's own, and the step is
+    eager (``step_mode``).  Like the JAX package's, it has no slot for
+    extra outputs: a ``value_and_grad_fn`` that sets loss extras
+    raises."""
+    mode = step_mode(optimizer, capture,
+                     scheduled=value_and_grad_fn is not None)
 
     if mode == "eager":
         def step(state, batch):
             loss, _ = _eager_step(loss_fn, optimizer, lr_fn, accum,
-                                  state["step"], batch)
+                                  state["step"], batch, value_and_grad_fn)
             return dict(state, step=state["step"] + 1), global_mean(loss,
                                                                     mesh)
 
@@ -948,6 +978,102 @@ def _map_tensors(state: Dict[str, Any], saved: Dict[str, Any], fn
     return out
 
 
+def _whole_names(model_sd: Dict[str, torch.Tensor]) -> list:
+    """The parameter name of each index of a one-process ``adamw``'s state
+    dict over the whole model whose state dict is ``model_sd``: its decay
+    group (the >= 2-D tensors), then the rest, each in the model's
+    order."""
+    return ([n for n, t in model_sd.items() if t.ndim >= 2]
+            + [n for n, t in model_sd.items() if t.ndim < 2])
+
+
+def _named(state: Dict[str, Any], saved: Dict[str, Any]) -> Dict[str, Any]:
+    """``saved`` (``state``'s state dicts) with the optimizer's entries
+    and the accumulator's means keyed by parameter name, every tensor on
+    the host: what a pipeline stage contributes to a whole checkpoint."""
+    model = state["model"]
+    out = {}
+    for k, v in state.items():
+        sd = saved[k]
+        if isinstance(v, torch.optim.Optimizer):
+            names = _optimizer_names(v, model)
+            sd = dict(sd, state={names[i]: e for i, e in sd["state"].items()})
+        elif isinstance(v, GradAccum):
+            sd = dict(sd, acc=dict(zip(dict(model.named_parameters()),
+                                       sd["acc"])))
+        out[k] = _to_host(sd)
+    return out
+
+
+def _to_host(obj):
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_host(v) for v in obj]
+    return obj
+
+
+def _join_stages(parts: list) -> Dict[str, Any]:
+    """The one-process checkpoint from the stages' ``_named`` parts (in
+    stage order): the model's parameters every stage holds (stage 0's),
+    then each stage's layers in turn, which is one process's order; the
+    optimizer indexed as one process's ``adamw`` (``_whole_names``)."""
+    out = dict(parts[0])
+    model = {n: t for n, t in parts[0]["model"].items()
+             if not n.startswith("layer_")}
+    for part in parts:
+        model.update((n, t) for n, t in part["model"].items()
+                     if n.startswith("layer_"))
+    out["model"] = model
+    names = _whole_names(model)
+    decay = sum(t.ndim >= 2 for t in model.values())
+    for k, sd in parts[0].items():
+        if isinstance(sd, dict) and "param_groups" in sd:
+            entries = {}
+            for part in parts:
+                entries.update(part[k]["state"])
+            g0, g1 = sd["param_groups"]
+            out[k] = dict(sd, state={i: entries[n] for i, n in
+                                     enumerate(names) if n in entries},
+                          param_groups=[
+                              dict(g0, params=list(range(decay))),
+                              dict(g1, params=list(range(decay,
+                                                         len(names))))])
+        elif isinstance(sd, dict) and "acc" in sd:
+            acc = {}
+            for part in parts:
+                acc.update(part[k]["acc"])
+            out[k] = dict(sd, acc=[acc[n] for n in model])
+    return out
+
+
+def _stage_of(like: Dict[str, Any], saved: Dict[str, Any]) -> Dict[str, Any]:
+    """A one-process checkpoint cut to the stage ``like`` holds: its
+    parameters, their optimizer entries reindexed as its optimizer holds
+    them, their accumulated means."""
+    model = like["model"]
+    whole = saved["model"]
+    out = dict(saved, model={n: whole[n] for n in model.state_dict()})
+    for k, v in like.items():
+        if isinstance(v, torch.optim.Optimizer):
+            by_name = dict(zip(_whole_names(whole), range(len(whole))))
+            entries = saved[k]["state"]
+            live = v.state_dict()["param_groups"]
+            out[k] = dict(saved[k], state={
+                i: entries[by_name[n]]
+                for i, n in enumerate(_optimizer_names(v, model))
+                if by_name[n] in entries},
+                param_groups=[dict(g, params=mine["params"]) for g, mine
+                              in zip(saved[k]["param_groups"], live)])
+        elif isinstance(v, GradAccum):
+            acc = dict(zip(whole, saved[k]["acc"]))
+            out[k] = dict(saved[k], acc=[acc[n] for n, _ in
+                                         model.named_parameters()])
+    return out
+
+
 class Checkpointer:
     """Step-numbered save/restore for the train state.
 
@@ -970,14 +1096,24 @@ class Checkpointer:
     tensor to this rank's shard again (``shards.local``), as orbax restores
     into the live sharded template in the JAX package.  So a checkpoint
     written at one layout resumes at another, one process included.
+
+    Under pipeline parallelism (``stages``: the pipeline's process group)
+    each rank holds its stage's layers: the stages' parts, keyed by
+    parameter name (``_named``), are gathered to the group's first rank
+    and joined into the one-process form (``_join_stages``), and a
+    restore keeps this stage's share of it (``_stage_of``).  These assume
+    the optimizer is ``adamw``'s, whose state dict is indexed by its two
+    groups in the model's order.
     """
 
     FILE = "state.pt"
 
-    def __init__(self, directory: str, max_to_keep: int = 3, shards=None):
+    def __init__(self, directory: str, max_to_keep: int = 3, shards=None,
+                 stages=None):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.shards = shards
+        self.stages = stages
         os.makedirs(self._dir, exist_ok=True)
 
     def _steps(self):
@@ -993,6 +1129,14 @@ class Checkpointer:
         if self.shards is not None:  # every rank takes part in the gathers
             saveable = _map_tensors(state, saveable,
                                     lambda n, t, like: self.shards.full(n, t))
+        ranks = tdist.get_process_group_ranks(self.stages) \
+            if self.stages is not None else []
+        if 0 in ranks:  # the stages holding what rank 0 writes
+            parts = [None] * len(ranks) if tdist.get_rank() == 0 else None
+            tdist.gather_object(_named(state, saveable), parts, dst=0,
+                                group=self.stages)
+            if parts is not None:
+                saveable = _join_stages(parts)
         if not tdist.is_initialized() or tdist.get_rank() == 0:
             d = os.path.join(self._dir, str(step))
             os.makedirs(d, exist_ok=True)
@@ -1017,6 +1161,8 @@ class Checkpointer:
         optimizers in ``like`` are loaded in place, plain values replaced."""
         saved = torch.load(os.path.join(self._dir, str(step), self.FILE),
                            map_location="cpu", weights_only=True)
+        if self.stages is not None:
+            saved = _stage_of(like, saved)
         if self.shards is not None:
             saved = _map_tensors(like, saved, self.shards.local)
         out = dict(like)
