@@ -13,8 +13,9 @@ Phases, one JSON line each on stdout:
    for sm_90a (all sources at once), with ptxas' register/spill report and
    each warpgroup role's ``setmaxnreg`` budget; a spill fails the phase, and
    so does ptxas' C7518 ("wgmma serialized") or C7517 ("warpgroup.wait
-   injected"): all three kernels are wgmma kernels, and either note means
-   the products of one no longer overlap.
+   injected"): the three tuned kernels are wgmma kernels, and either note
+   means the products of one no longer overlap (the ``_any`` kernels use
+   no tensor core).
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
    length (s=1000), with a sliding window (256), at the BERT-large
@@ -32,7 +33,14 @@ Phases, one JSON line each on stdout:
    inputs, the rate over the visible pairs' FLOPs (``tflops``) and
    ``bound_share`` (bound / time); ``backward``: B2 and B3 launched back
    to back, timed together, beside SDPA's backward (one call for dQ, dK
-   and dV).
+   and dV).  Then the general kernels B1a-B3a (``flash_*_any``, fp32 or
+   bf16 at any head dim, FFMA): fp32 at GPT's shape (``any_gpt_f32``,
+   timed), fp32 at the dryrun's head dim 16 without the mask, bf16 at
+   head dim 128 (timed; and with a 256 window) and 80 (timed), fp32 at
+   head dim 256 and a ragged s=1000, each within ANY_TOL of its plain
+   version; their bound takes the TF32 peak for fp32 (a redesign's
+   reach) with the FFMA peak's beside it (``ffma_bound_ms``), and SDPA is
+   timed in the case's dtype.
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error); ``model_bert``: the
@@ -63,7 +71,16 @@ Phases, one JSON line each on stdout:
    bf16, remat, flash attention) for 10 steps from a seed: losses finite
    and falling, every kernel launched, each launch without the causal
    mask; tokens/s and the per-step ms.
-8. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
+8. ``fp32``: the general kernels' path — ``gpt.run`` trains GPT-2-medium
+   in fp32 (``--no-bf16 --attention flash``, full width and depth, batch
+   8, remat, captured) for 2 + 6 steps, TF32 off: every step launches
+   the ``_any`` kernels 48 / 24 / 24 times and no tuned one; losses finite
+   and falling; its step-1 loss within FP32_LOSS_RTOL of one step of the
+   same seed at ``--attention dense`` in fp32; tokens/s and ms a step over
+   the last 6 steps, peak memory.  Then a 2-layer GPT at hidden 1024 and 8
+   heads (head dim 128, bf16, flash), 4 steps through the ``_any``
+   kernels (16 / 8 / 8 launches), losses falling.
+9. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
    GPT-2-medium, then on that model, from a batch-8 prompt of 16 synthetic
    tokens, 48 greedy new tokens by each route: ``generate_cached`` (dense
    attention on the KV cache) launches no kernel, ``generate`` (full
@@ -75,7 +92,7 @@ Phases, one JSON line each on stdout:
    through its cache, the full route's flash forward) match it by normwise
    error; decode tokens/s and ms per new token for each route.
 
-9. ``corpus``: the trainers on a real corpus, the ``.py`` and ``.md``
+10. ``corpus``: the trainers on a real corpus, the ``.py`` and ``.md``
    files under ``tpujob/`` and ``docs/`` concatenated in sorted path order
    into a temporary directory outside the repo (about 1.38 MB).  A 512-id
    BPE tokenizer is trained on its first 256 KB and the corpus encoded
@@ -85,7 +102,7 @@ Phases, one JSON line each on stdout:
    step.  The batch each step copied to the card must equal the
    provider's for that step, losses must be finite, and each run must
    launch B1, B2 and B3 (GPT with the causal mask, BERT without).
-10. ``moe``: the sparse MoE path (``--moe-experts 8 --moe-k 2
+11. ``moe``: the sparse MoE path (``--moe-experts 8 --moe-k 2
    --moe-capacity-factor 1.25``, one card), one line a part.  ``gpt``:
    GPT-2-medium at full width and depth with every FFN 8 experts of its
    width, through ``gpt.run`` (flash, bf16, remat, batch 8, captured) for
@@ -103,16 +120,16 @@ Phases, one JSON line each on stdout:
    its 24 layers, every launch without the mask.  ``dispatch``: one layer's
    ``moe_ffn`` against its routing and dense one-hot dispatch/combine
    alone, device ms forward and forward + backward.
-11. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
+12. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
    10,000 images, batch 64, 1 epoch; cuDNN/cuBLAS, no hand-written
    kernel): accuracy above 0.9, samples/s over the run.
-12. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
+13. ``resnet``: ``resnet.run`` at ResNet-50 (width 64, 224x224, batch
     256, bf16, channels-last), 2 warm-up and 10 timed steps: losses finite
     and falling, samples/s over the timed steps, peak device memory;
     ``resnet_profile``: a second run traces 4 steps after its warm-up
     through ``--profile-dir``, and the trace gives the kernels' ms a step
     by class and the device's busy share of the kernels' span.
-13. ``ddp``: the multi-process path, after the others and with the
+14. ``ddp``: the multi-process path, after the others and with the
     parent's models freed.  ``smoke_dist`` at world 1 over NCCL on
     ``cuda:0`` (the only NCCL group one card allows), then two ranks on
     the one card over gloo (NCCL refuses two ranks on one card; gloo
@@ -127,16 +144,17 @@ Phases, one JSON line each on stdout:
     once).  Each is held to the parent's own one-process run of the same
     seed; per-rank ms a step are a record of this layout (gloo's host
     copies included), not a DDP speed.
-14. ``sp``: sequence parallelism, two ranks on the one card over gloo
+15. ``sp``: sequence parallelism, two ranks on the one card over gloo
     (as ``ddp``; gloo's all-to-all takes the CUDA tensors, its send and
     receive do not, so the ring's shift stages through the host), one
     line a part, each against the parent's own one-process run of the
-    same seed and global batch (8): ``ulysses``, GPT-2-medium (full width
-    and depth) through ``gpt.run --sequence-parallel 2 --sp-mode ulysses
-    --attention flash``, 3 steps: losses within SP_LOSS_RTOL, the first
-    and last layers' and ``ln_f``'s params after step 1 within
-    SP_UPDATE_RTOL (``update_err``), and each rank launching B1/B2/B3 as
-    often as the one process (48 / 24 / 24 a step) on the re-sharded
+    same seed and global batch (8): ``ulysses``, GPT-2-medium (full width,
+    12 of its 24 layers: ``CUT_LAYERS``) through ``gpt.run
+    --sequence-parallel 2 --sp-mode ulysses --attention flash``, 3 steps:
+    losses within SP_LOSS_RTOL, the first and last layers' and ``ln_f``'s
+    params after step 1 within SP_UPDATE_RTOL (``update_err``), and each
+    rank launching B1/B2/B3 as often as the one process (24 / 12 / 12 a
+    step) on the re-sharded
     [8, 1024, 8, 64] heads; ``ring``, the same model with ``--sp-mode
     ring`` (dense per hop, zigzag layout) against one process on dense
     attention; ``mlm``, BERT-large MLM under Ulysses on the non-causal
@@ -145,13 +163,14 @@ Phases, one JSON line each on stdout:
     rank's ms a step (steps 2-3) and the share of it in the exchanges
     (the card synced around each): a record of gloo on one card, not a
     speed of sequence parallelism.
-15. ``shard``: FSDP and tensor parallelism, two ranks on the one card
+16. ``shard``: FSDP and tensor parallelism, two ranks on the one card
    over gloo (as ``sp``; gloo takes the CUDA tensors in every collective
    FSDP2 and the Megatron exchanges make), one line a part, each against
    the parent's own one-process captured run of the same seed and global
-   batch (8), GPT-2-medium at full width and depth through ``gpt.run``, 3
-   steps: ``fsdp``, ``--fsdp 2 --attention flash`` (each rank 4 rows into
-   B1-B3, 48 / 24 / 24 launches a rank-step, and half of every parameter
+   batch (8), GPT-2-medium at full width and 12 layers (``CUT_LAYERS``)
+   through ``gpt.run``, 3 steps: ``fsdp``, ``--fsdp 2 --attention flash``
+   (each rank 4 rows into B1-B3, 24 / 12 / 12 launches a rank-step, and
+   half of every parameter
    and AdamW moment); ``tp``, ``--tensor-parallel 2`` with dense
    attention (the JAX package refuses flash with TP; each rank 8 heads,
    half the FFN and vocab, all 8 rows).  Losses within SHARD_LOSS_RTOL
@@ -162,15 +181,15 @@ Phases, one JSON line each on stdout:
    (FSDP's all-gathers and reduce-scatters counted around
    ``torch.distributed``'s calls, ``counted_collectives``): a record of
    correctness and memory, not a speed of FSDP or TP.
-16. ``ep``: expert parallelism and MoE under sequence parallelism, two
+17. ``ep``: expert parallelism and MoE under sequence parallelism, two
    ranks on the one card over gloo (as ``shard``), one line a part, each
    against the parent's own one-process captured run of the same seed
    and global batch (8), the ``moe`` phase's experts (8, top-2, capacity
-   1.25), 3 steps; the one process's memory (about 33 GB at full depth)
-   is freed before the ranks start.  ``ep``: GPT-2-medium at full width
-   and depth through ``gpt.run --expert-parallel 2 --attention flash``,
-   each rank 4 of the 8 experts of every layer and all 8 rows into
-   B1-B3 (48 / 24 / 24 launches a rank-step); ``moe_sp``: the same model
+   1.25), 3 steps; the one process's memory is freed before the ranks
+   start.  ``ep``: GPT-2-medium at full width and 12 layers
+   (``CUT_LAYERS``) through ``gpt.run --expert-parallel 2 --attention
+   flash``, each rank 4 of the 8 experts of every layer and all 8 rows
+   into B1-B3 (24 / 12 / 12 launches a rank-step); ``moe_sp``: the same model
    at 8 of its 24 layers under ``--sequence-parallel 2 --sp-mode ulysses
    --attention flash`` (each rank 512 of each row's positions, the slots
    of each whole sequence).  Losses within SHARD_LOSS_RTOL (or one bf16
@@ -183,7 +202,7 @@ Phases, one JSON line each on stdout:
    whole bit-equal on both ranks, peak memory, and the exchanges' calls,
    bytes and share of a rank-step: a record of correctness and memory,
    not a speed of expert parallelism.
-17. ``pipe``: pipeline parallelism, two ranks on the one card over gloo
+18. ``pipe``: pipeline parallelism, two ranks on the one card over gloo
    (as ``shard``; the stage exchanges stage through the host, as the
    ring's shift does), one line a part, GPT-2-medium at full width and
    depth through ``gpt.run --pipeline-parallel 2 --attention flash``,
@@ -203,15 +222,31 @@ Phases, one JSON line each on stdout:
    stages); ``mlm``, BERT-large MLM under 1F1B at 8 of its 24 layers (the
    non-causal kernels on the pipeline).  B1-B3 are held to their plain
    versions at a microbatch's shape first (kernel case ``pipe_b2``).
-18. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
+19. ``dryrun``: ``graft_entry.dryrun_multichip(8)``, the root entry's:
+    the JAX package's multi-device matrix (data x tensor x sequence on
+    the ring, Ulysses, EP, GPipe, 1F1B, FSDP x TP, TP x PP, FSDP x SP; a
+    2-layer BERT, one step each) at 8 gloo ranks sharing the card, then
+    at 8 ranks on the CPU: every case's loss finite, 1F1B's within 1e-3
+    of GPipe's, each within DRYRUN_LOSS_RTOL of the CPU's; the phase's
+    seconds; then ``graft_entry.entry()`` (BERT-large's bf16 forward on
+    [4, 128] as a function of its parameters): logits [4, 128, 30522],
+    finite, and its ms.
+20. ``bench``: ``python -m tpujob_torch.bench``, ``python -m
     tpujob_torch.bench_models --models resnet50,bert-large,gpt`` and
     ``python -m tpujob_torch.bench_models --quick --models gpt`` (head dim
-    32) as child processes on the card; their JSON lines are printed as
-    they are, and held to their contract: one headline line with the JAX
-    line's keys, accuracy above 0.8; one line a row with ``mfu_vs_spec`` at
-    most 1; every line on the captured step, on this card.
+    32) and ``python -m tpujob_torch.bench_models --models scaling`` (the
+    DP-scaling row: one eager step of a small BERT in one process and in 8
+    gloo ranks sharing the card) as child processes on the card; their
+    JSON lines are printed as they are, and held to their contract: one
+    headline line with the JAX line's keys, accuracy above 0.8; one line a
+    row with ``mfu_vs_spec`` at most 1; every flagship line on the
+    captured step, on this card; the scaling row with the JAX row's keys,
+    ``platform`` gpu, 8 ranks a card over gloo, and the 8 ranks' first
+    loss within SCALING_LOSS_RTOL of one process's.
 
-Then the ``kernels`` summary line (each kernel's ``paths``: the phases that
+Then the ``kernels`` summary line, six kernels (each kernel's
+``main_path``: ``train`` for the tuned three, ``fp32`` for the ``_any``
+three, whose run gives ``launches``; its ``paths``: the phases that
 launched it; its ``cases``: every timed shape's numbers, the head-dim-32
 and Ulysses-local ones included), the card's ``name, power.limit`` as nvidia-smi prints them,
 and last ``{"ok": true, "device": {...}}``.  Any failure (no card, no
@@ -227,7 +262,6 @@ import math
 import os
 import re
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -311,11 +345,18 @@ SP_WORLD = 2
 SP_STEPS = 3
 SP_BASE_ARGV = ["--batch-size", "8", "--steps", str(SP_STEPS),
                 "--log-interval", "1", "--seed", "0"]
+# GPT-2-medium's depth cut from 24 to 12 layers in the sp, shard and ep
+# phases' GPT parts (full width): with the fp32, dryrun and scaling
+# phases the script kept to about 700 s (the exchanges through the host
+# take most of a rank-step, layer by layer)
+CUT_LAYERS = ["--layers", "12"]
 SP_PARTS = {
     # part: (module, the ranks' flags, the one process's flags)
-    "ulysses": ("gpt", ["--sequence-parallel", "2", "--sp-mode", "ulysses",
-                        "--attention", "flash"], ["--attention", "flash"]),
-    "ring": ("gpt", ["--sequence-parallel", "2", "--sp-mode", "ring"], []),
+    "ulysses": ("gpt", CUT_LAYERS + ["--sequence-parallel", "2", "--sp-mode",
+                                     "ulysses", "--attention", "flash"],
+                CUT_LAYERS + ["--attention", "flash"]),
+    "ring": ("gpt", CUT_LAYERS + ["--sequence-parallel", "2", "--sp-mode",
+                                  "ring"], CUT_LAYERS),
     # BERT-large's depth cut from 24 to 8 layers to keep the phase short
     "mlm": ("bert", ["--layers", "8", "--sequence-parallel", "2",
                      "--sp-mode", "ulysses", "--attention", "flash"],
@@ -331,7 +372,7 @@ SP_LOSS_RTOL = 1e-2
 # the rounding that tells two layouts apart flips the near-zero ones.
 SP_UPDATE_RTOL = 0.25
 # shard: FSDP and tensor parallelism, two ranks on the one card (gloo),
-# GPT-2-medium at full width and depth, global batch 8, 3 steps, each part
+# GPT-2-medium at full width and 12 layers, global batch 8, 3 steps, each part
 # against one process's captured step on the same batch from the seed
 SHARD_WORLD = 2
 SHARD_STEPS = 3
@@ -339,9 +380,9 @@ SHARD_BASE_ARGV = ["--batch-size", "8", "--steps", str(SHARD_STEPS),
                    "--log-interval", "1", "--seed", "0"]
 SHARD_PARTS = {
     # part: (module, the ranks' flags, the one process's flags)
-    "fsdp": ("gpt", ["--fsdp", "2", "--attention", "flash"],
-             ["--attention", "flash"]),
-    "tp": ("gpt", ["--tensor-parallel", "2"], []),
+    "fsdp": ("gpt", CUT_LAYERS + ["--fsdp", "2", "--attention", "flash"],
+             CUT_LAYERS + ["--attention", "flash"]),
+    "tp": ("gpt", CUT_LAYERS + ["--tensor-parallel", "2"], CUT_LAYERS),
 }
 # Losses against one process: 5e-3 relative, or one bf16 ulp of the loss
 # where that is more (a bf16 scalar near 11: 0.0625, 5.7e-3 relative).
@@ -363,8 +404,9 @@ EP_BASE_ARGV = ["--batch-size", "8", "--steps", str(EP_STEPS),
                 "--moe-k", "2", "--moe-capacity-factor", "1.25"]
 EP_PARTS = {
     # part: (module, the ranks' flags, the one process's flags)
-    "ep": ("gpt", ["--expert-parallel", "2", "--attention", "flash"],
-           ["--attention", "flash"]),
+    "ep": ("gpt", CUT_LAYERS + ["--expert-parallel", "2", "--attention",
+                                "flash"], CUT_LAYERS + ["--attention",
+                                                        "flash"]),
     # GPT-2-medium's depth cut from 24 to 8 layers to keep the phase short
     "moe_sp": ("gpt", ["--layers", "8", "--sequence-parallel", "2",
                        "--sp-mode", "ulysses", "--attention", "flash"],
@@ -483,10 +525,65 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "accuracy",
 BENCH_MODELS_KEYS = {"metric", "value", "unit", "global_batch", "chips",
                      "steps", "step_ms", "step_ms_std", "platform",
                      "flops_per_step", "achieved_tflops_per_chip"}
+# ...and the DP-scaling row: 8 gloo ranks sharing the card against one
+# process, the same global batch; the JAX row's keys and the 8 ranks'
+# first loss within SCALING_LOSS_RTOL of one process's (fp32, the masked
+# sums taken per rank and summed by gloo)
+BENCH_SCALING_ARGV = ["tpujob_torch.bench_models", "--models", "scaling"]
+BENCH_SCALING_KEYS = {"metric", "value", "unit", "step_ms_1dev",
+                      "step_ms_8dev", "global_batch", "platform"}
+SCALING_LOSS_RTOL = 1e-5
+
+# The _any kernels (fp32 or bf16 at any head dim, fp32 arithmetic like the
+# plain versions) against their plain versions, element by element as
+# ``compare`` with (rtol, atol of the row rms, floor of the rms): in fp32
+# the two differ in summation order and the exp/log approximations only;
+# in bf16 by one ulp of the rounded output (at most 2^-7 relative) where
+# the fp32 results straddle a rounding.  lse within ANY_LSE_TOL.
+ANY_TOL = {torch.float32: (1e-5, 1e-5, 1e-6),
+           torch.bfloat16: (1e-2, 1e-3, 1e-4)}
+ANY_LSE_TOL = 1e-5
+# fp32: GPT-2-medium (full width and depth) through gpt.run with
+# --no-bf16 --attention flash, captured, 2 + 6 steps; its step-1 loss
+# against one step of the same seed at --attention dense in fp32 (the two
+# attentions differ in summation order only, TF32 off for both); then a
+# 2-layer GPT at hidden 1024 and 8 heads (head dim 128, bf16, flash)
+FP32_ARGV = ["--no-bf16", "--attention", "flash", "--batch-size", "8",
+             "--log-interval", "1", "--seed", "0"]
+FP32_WARMUP, FP32_TIMED = 2, 6
+FP32_LOSS_RTOL = 1e-5
+FP32_D128_STEPS = 4
+FP32_D128_ARGV = ["--layers", "2", "--heads", "8", "--attention", "flash",
+                  "--batch-size", "8", "--log-interval", "1", "--seed", "0",
+                  "--steps", str(FP32_D128_STEPS)]
+# dryrun: the JAX package's multi-device matrix at 8 gloo ranks sharing
+# the card (graft_entry.dryrun_multichip), then at 8 ranks on the CPU; each
+# case's loss on the card within DRYRUN_LOSS_RTOL of the CPU's (fp32 both,
+# TF32 off: summation order only)
+DRYRUN_N = 8
+DRYRUN_LOSS_RTOL = 1e-4
+H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak: a redesign's reach
+H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: what the _any kernels run on
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+TUNED = ("flash_fwd", "flash_dq", "flash_dkv")
+ANY = ("flash_fwd_any", "flash_dq_any", "flash_dkv_any")
+
+
+def launched(want: dict) -> dict:
+    """Every kernel's launches: ``want``'s, 0 for the others."""
+    return {**dict.fromkeys(TUNED + ANY, 0), **want}
+
+
+def on_tuned(launches: dict) -> bool:
+    """A bf16 path at head dim 64 or 32: each tuned kernel launched, no
+    _any one."""
+    return (all(launches.get(k, 0) > 0 for k in TUNED)
+            and not any(launches.get(k, 0) for k in ANY))
 
 
 def smi_line() -> str:
@@ -538,21 +635,22 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return total
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, peak: float = H100_BF16_FLOPS):
     t_mem = nbytes / H100_BYTES_S
-    t_ops = flops / H100_BF16_FLOPS
+    t_ops = flops / peak
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def compare(got, ref) -> dict:
-    """max |got - ref| and its worst ratio to RTOL*|ref| + ATOL*rms_row(ref)
-    + FLOOR*rms(ref) (ok when <= 1), with where it is and max|ref| for the
-    record."""
+def compare(got, ref, tol=(RTOL, ATOL, FLOOR)) -> dict:
+    """max |got - ref| and its worst ratio to rtol*|ref| + atol*rms_row(ref)
+    + floor*rms(ref) (``tol``; ok when <= 1), with where it is and max|ref|
+    for the record."""
+    rtol, atol, floor = tol
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     rms_row = ref.square().mean(-1, keepdim=True).sqrt()
     rms = ref.square().mean().sqrt()
-    ratio = diff / (RTOL * ref.abs() + ATOL * rms_row + FLOOR * rms)
+    ratio = diff / (rtol * ref.abs() + atol * rms_row + floor * rms)
     worst = ratio.argmax().item()
     at = list(torch.unravel_index(torch.tensor(worst), ratio.shape))
     r = ratio.flatten()[worst].item()
@@ -596,84 +694,91 @@ def ptxas_report(build) -> list:
 
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                   case: str = "", b: int = MAIN["b"], h: int = MAIN["h"],
-                  d: int = MAIN["d"]) -> dict:
-    """B1-B3 against their plain versions on one shape."""
+                  d: int = MAIN["d"], dtype=torch.bfloat16,
+                  suffix: str = "") -> dict:
+    """B1-B3 (``suffix`` "") or B1a-B3a (``suffix`` "_any", with
+    ``ANY_TOL`` and the FFMA-peak bound beside) against their plain
+    versions on one shape; timed, each kernel's ms beside its plain
+    version's, SDPA's in the same dtype and its bound: bytes over the
+    card's rate or FLOPs over the bf16 peak, or the TF32 peak for fp32 (a
+    redesign's reach)."""
     from tpujob_torch.workloads import flash
 
+    fwd_k, dq_k_fn, dkv_k_fn = (getattr(flash, f"flash_{k}{suffix}_cuda")
+                                for k in ("fwd", "dq", "dkv"))
+    names = [n + suffix for n in TUNED]
+    tol = ANY_TOL[dtype] if suffix else (RTOL, ATOL, FLOOR)
+    lse_tol = ANY_LSE_TOL if suffix else LSE_TOL
     gen = torch.Generator(device=DEVICE).manual_seed(1234 + s + window)
 
     def rnd():
-        return torch.randn(b, s, h, d, device=DEVICE, dtype=torch.bfloat16,
+        return torch.randn(b, s, h, d, device=DEVICE, dtype=dtype,
                            generator=gen)
 
     q, k, v, do = rnd(), rnd(), rnd(), rnd()
     kw = dict(causal=causal, scale=d ** -0.5, window=window)
     case = case or f"s{s}" + (f"_w{window}" if window else "")
 
-    o_k, lse_k = flash.flash_fwd_cuda(q, k, v, **kw)
+    o_k, lse_k = fwd_k(q, k, v, **kw)
     o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
     delta = flash.attention_delta(o_r, do)
-    dq_k = flash.flash_dq_cuda(q, k, v, do, lse_r, delta, **kw)
+    dq_k = dq_k_fn(q, k, v, do, lse_r, delta, **kw)
     dq_r = flash.flash_dq_ref(q, k, v, do, lse_r, delta, **kw)
-    dk_k, dv_k = flash.flash_dkv_cuda(q, k, v, do, lse_r, delta, **kw)
+    dk_k, dv_k = dkv_k_fn(q, k, v, do, lse_r, delta, **kw)
     dk_r, dv_r = flash.flash_dkv_ref(q, k, v, do, lse_r, delta, **kw)
     torch.cuda.synchronize()
     e_l = (lse_k - lse_r).abs().max().item()
-    c_o, c_dq = compare(o_k, o_r), compare(dq_k, dq_r)
-    c_dk, c_dv = compare(dk_k, dk_r), compare(dv_k, dv_r)
+    c_o, c_dq = compare(o_k, o_r, tol), compare(dq_k, dq_r, tol)
+    c_dk, c_dv = compare(dk_k, dk_r, tol), compare(dv_k, dv_r, tol)
     out = {
-        "flash_fwd": dict(c_o, lse_err=e_l, lse_tol=LSE_TOL,
-                          ok=c_o["ok"] and e_l <= LSE_TOL),
-        "flash_dq": c_dq,
-        "flash_dkv": {"max_abs_err": max(c_dk["max_abs_err"],
-                                         c_dv["max_abs_err"]),
-                      "dk": c_dk, "dv": c_dv,
-                      "ok": c_dk["ok"] and c_dv["ok"]},
+        names[0]: dict(c_o, lse_err=e_l, lse_tol=lse_tol,
+                       ok=c_o["ok"] and e_l <= lse_tol),
+        names[1]: c_dq,
+        names[2]: {"max_abs_err": max(c_dk["max_abs_err"],
+                                      c_dv["max_abs_err"]),
+                   "dk": c_dk, "dv": c_dv, "ok": c_dk["ok"] and c_dv["ok"]},
     }
     ok = all(r["ok"] for r in out.values())
     if timed:
         pairs = b * h * visible_pairs(s, s, causal, window)
-        qkv = q.numel() * 2
+        qkv = q.numel() * q.element_size()
         rows = b * h * s * 4  # one fp32 per row (lse or delta)
-        shapes = {
-            "flash_fwd": (4 * qkv + rows, 4 * d * pairs),
-            "flash_dq": (5 * qkv + 2 * rows, 6 * d * pairs),
-            "flash_dkv": (6 * qkv + 2 * rows, 8 * d * pairs),
-        }
-        ms = {
-            "flash_fwd": time_ms(lambda: flash.flash_fwd_cuda(q, k, v, **kw)),
-            "flash_dq": time_ms(lambda: flash.flash_dq_cuda(
-                q, k, v, do, lse_r, delta, **kw)),
-            "flash_dkv": time_ms(lambda: flash.flash_dkv_cuda(
-                q, k, v, do, lse_r, delta, **kw)),
-        }
-        plain_ms = {
-            "flash_fwd": time_ms(lambda: flash.flash_forward_ref(
-                q, k, v, **kw), iters=5),
-            "flash_dq": time_ms(lambda: flash.flash_dq_ref(
+        shapes = dict(zip(names, [(4 * qkv + rows, 4 * d * pairs),
+                                  (5 * qkv + 2 * rows, 6 * d * pairs),
+                                  (6 * qkv + 2 * rows, 8 * d * pairs)]))
+        ms = dict(zip(names, [
+            time_ms(lambda: fwd_k(q, k, v, **kw)),
+            time_ms(lambda: dq_k_fn(q, k, v, do, lse_r, delta, **kw)),
+            time_ms(lambda: dkv_k_fn(q, k, v, do, lse_r, delta, **kw))]))
+        plain_ms = dict(zip(names, [
+            time_ms(lambda: flash.flash_forward_ref(q, k, v, **kw), iters=5),
+            time_ms(lambda: flash.flash_dq_ref(
                 q, k, v, do, lse_r, delta, **kw), iters=5),
-            "flash_dkv": time_ms(lambda: flash.flash_dkv_ref(
-                q, k, v, do, lse_r, delta, **kw), iters=5),
-        }
+            time_ms(lambda: flash.flash_dkv_ref(
+                q, k, v, do, lse_r, delta, **kw), iters=5)]))
         bwd_ms = time_ms(lambda: (
-            flash.flash_dq_cuda(q, k, v, do, lse_r, delta, **kw),
-            flash.flash_dkv_cuda(q, k, v, do, lse_r, delta, **kw)))
+            dq_k_fn(q, k, v, do, lse_r, delta, **kw),
+            dkv_k_fn(q, k, v, do, lse_r, delta, **kw)))
+        peak = H100_TF32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
         lib = library_ms(q, k, v, do, causal) if not window else {}
-        backward = {"kernels": ["flash_dq", "flash_dkv"], "ms": bwd_ms,
+        backward = {"kernels": names[1:], "ms": bwd_ms,
                     "library_ms": lib.get("flash_dq"),
                     "library_fn": lib.get("fn_flash_dq")}
-        for name, (nbytes, flops) in shapes.items():
-            bms, by = bound(nbytes, flops)
+        for name, base in zip(names, TUNED):
+            nbytes, flops = shapes[name]
+            bms, by = bound(nbytes, flops, peak)
             out[name].update(ms=ms[name], plain_ms=plain_ms[name],
                              bound_ms=bms, bound_by=by, bytes=nbytes,
                              flops=flops, tflops=flops / ms[name] / 1e9,
                              bound_share=bms / ms[name],
-                             library_ms=lib.get(name),
-                             library_fn=lib.get("fn_" + name))
+                             library_ms=lib.get(base),
+                             library_fn=lib.get("fn_" + base))
+            if suffix:
+                out[name]["ffma_bound_ms"] = flops / H100_FP32_FLOPS * 1e3
     emit({"phase": "kernel", "case": case, "shape": [b, s, h, d],
-          "causal": causal, "window": window, "rtol": RTOL, "atol_of_row_rms": ATOL,
-          "floor_of_rms": FLOOR, "ok": ok,
-          "kernels": out, **({"backward": backward} if timed else {})})
+          "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+          "window": window, "tol": list(tol), "ok": ok, "kernels": out,
+          **({"backward": backward} if timed else {})})
     if not ok:
         raise AssertionError(f"kernel mismatch in case {case}: {out}")
     return out
@@ -781,7 +886,8 @@ def kernel_class(name: str) -> str:
     """The hand-written flash kernels by name, convolutions, matrix
     products, the rest."""
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for kernel in ("flash_fwd_any", "flash_dq_any", "flash_dkv_any",
+                   "flash_fwd", "flash_dq", "flash_dkv"):
         if kernel + "_kernel" in low:
             return kernel
     if any(m in low for m in ("conv", "fprop", "dgrad", "wgrad")):
@@ -911,7 +1017,7 @@ def run_train() -> dict:
     busy_ms, host_over_busy = (r["device_busy_ms_per_step"],
                                r["host_over_device_busy"])
     ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
-          and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
+          and losses[-1] < losses[0] and on_tuned(launches)
           and busy_ms > 0 and res["step_mode"] == "graph"
           and host_over_busy <= HOST_OVER_BUSY_MAX)
     n_params = sum(p.numel() for p in res["state"]["model"].parameters())
@@ -957,19 +1063,21 @@ def step_stats(stamps: list, first: int) -> dict:
 @contextmanager
 def causal_flags():
     """Record the ``causal`` argument of every kernel launch, by kernel
-    (the wrappers still launch and count as before)."""
+    (the wrappers still launch and count as before); a kernel that did not
+    launch has no entry."""
     from tpujob_torch.workloads import flash
 
-    seen = {name: set() for name in flash.LAUNCHES}
-    originals = {name: getattr(flash, name + "_cuda") for name in seen}
+    seen = {}
+    originals = {name: getattr(flash, name + "_cuda")
+                 for name in flash.LAUNCHES}
 
     def recording(name):
         def wrapper(*args, **kw):
-            seen[name].add(kw["causal"])
+            seen.setdefault(name, set()).add(kw["causal"])
             return originals[name](*args, **kw)
         return wrapper
 
-    for name in seen:
+    for name in originals:
         setattr(flash, name + "_cuda", recording(name))
     try:
         yield seen
@@ -1002,7 +1110,7 @@ def run_mlm() -> dict:
     launches = dict(flash.LAUNCHES)
     losses = res["losses"]
     ok = (len(losses) == MLM_STEPS and all(math.isfinite(x) for x in losses)
-          and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
+          and losses[-1] < losses[0] and on_tuned(launches)
           and all(v == {False} for v in seen.values())
           and res["step_mode"] == "graph")
     n_params = sum(p.numel() for p in res["state"]["model"].parameters())
@@ -1018,6 +1126,105 @@ def run_mlm() -> dict:
         raise AssertionError(f"mlm path failed: losses {losses}, launches "
                              f"{launches}, causal flags {seen}, mode "
                              f"{res['step_mode']}")
+    return launches
+
+
+def run_fp32() -> dict:
+    """The _any kernels' path: GPT-2-medium in fp32 (``--no-bf16
+    --attention flash``) through gpt.run, captured, launches counted from
+    0; its step-1 loss against one step at ``--attention dense`` in fp32
+    from the same seed (TF32 off for matrix products and convolutions);
+    then a 2-layer GPT at head dim 128 in bf16.  Tokens/s and ms a step
+    over the timed steps, peak memory."""
+    import gc
+
+    from tpujob_torch.workloads import flash, gpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logdir = os.path.join("build", "chip_smoke", "fp32")
+    shutil.rmtree(logdir, ignore_errors=True)
+    steps = FP32_WARMUP + FP32_TIMED
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def parse(argv, n):
+        return gpt.build_parser().parse_args(
+            argv + ["--steps", str(n), "--device", DEVICE, "--dir", logdir])
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
+        res = gpt.run(parse(FP32_ARGV, steps), on_step=on_step)
+        launches = dict(flash.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in res["state"]["model"].parameters())
+        del res["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_argv = [("dense" if a == "flash" else a) for a in FP32_ARGV]
+        flash.reset_launches()
+        dense = gpt.run(parse(dense_argv, 1))
+        dense_launches = dict(flash.LAUNCHES)
+        del dense["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash.reset_launches()
+        d128 = gpt.run(gpt.build_parser().parse_args(
+            FP32_D128_ARGV + ["--device", DEVICE, "--dir", logdir]))
+        d128_launches = dict(flash.LAUNCHES)
+        d128_head_dim = d128["state"]["model"].layer_0.attn.d
+        del d128["state"]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    losses = res["losses"]
+    loss_rel = abs(losses[0] - dense["losses"][0]) / abs(dense["losses"][0])
+    ms = [(y - x) * 1e3 for x, y in zip(stamps[FP32_WARMUP - 1:],
+                                       stamps[FP32_WARMUP:])]
+    tokens = flag(FP32_ARGV, "--batch-size") * 1024
+    layers = 24
+
+    def finite_falling(xs, n):
+        return (len(xs) == n and all(math.isfinite(x) for x in xs)
+                and xs[-1] < xs[0])
+
+    checks = {
+        "losses": finite_falling(losses, steps),
+        "captured": res["step_mode"] == "graph",
+        "launches": launches == launched({
+            "flash_fwd_any": 2 * layers * steps,
+            "flash_dq_any": layers * steps,
+            "flash_dkv_any": layers * steps}),
+        "dense_launches": dense_launches == launched({}),
+        "step1_vs_dense": loss_rel <= FP32_LOSS_RTOL,
+        "d128_losses": finite_falling(d128["losses"], FP32_D128_STEPS),
+        "d128_head_dim": d128_head_dim == 128,
+        "d128_launches": d128_launches == launched({
+            "flash_fwd_any": 4 * FP32_D128_STEPS,
+            "flash_dq_any": 2 * FP32_D128_STEPS,
+            "flash_dkv_any": 2 * FP32_D128_STEPS}),
+    }
+    ok = all(checks.values())
+    emit({"phase": "fp32", "ok": ok, "checks": checks, "argv": FP32_ARGV,
+          "params": n_params, "step_mode": res["step_mode"],
+          "losses": losses, "dense_step1_loss": dense["losses"][0],
+          "step1_rel_diff": loss_rel, "step1_rtol": FP32_LOSS_RTOL,
+          "launches": launches,
+          "window_tokens_per_sec": FP32_TIMED * tokens * 1e3 / sum(ms),
+          "step_ms_median": statistics.median(ms), "step_ms_all": ms,
+          "peak_mem_gb": peak_gb, "d128_argv": FP32_D128_ARGV,
+          "d128_losses": d128["losses"], "d128_launches": d128_launches,
+          "d128_step_mode": d128["step_mode"]})
+    if not ok:
+        raise AssertionError(f"fp32 phase failed: {checks}")
     return launches
 
 
@@ -1051,8 +1258,9 @@ def run_decode(p: int, new: int) -> dict:
     layers = args.layers
     entry_ok = (tuple(gen.shape) == (1, 8 + 32)
                 and bool(((gen >= 0) & (gen < args.vocab)).all())
-                and entry == {"flash_fwd": 2 * layers, "flash_dq": layers,
-                              "flash_dkv": layers})
+                and entry == launched({"flash_fwd": 2 * layers,
+                                       "flash_dq": layers,
+                                       "flash_dkv": layers}))
 
     model = res["state"]["model"]
     ids, _, _ = bertlib.token_batches(args, distributed.process_env({}))
@@ -1102,10 +1310,8 @@ def run_decode(p: int, new: int) -> dict:
     agree = (routes["cached"]["out"][:, p:]
              == routes["full"]["out"][:, p:]).float().mean().item()
     ok = (entry_ok
-          and launches["cached"] == {"flash_fwd": 0, "flash_dq": 0,
-                                     "flash_dkv": 0}
-          and launches["full"] == {"flash_fwd": new * layers, "flash_dq": 0,
-                                   "flash_dkv": 0}
+          and launches["cached"] == launched({})
+          and launches["full"] == launched({"flash_fwd": new * layers})
           and all(torch.equal(r["out"][:, :p], prompt)
                   for r in routes.values())
           and all(c["chosen_gap_over_rms"] <= MODEL_TOL
@@ -1190,8 +1396,9 @@ def run_moe(p: int, new: int) -> dict:
     res, args, steps = r["res"], r["args"], r["steps"]
     model = res["state"]["model"]
     layers, losses, aux = args.layers, res["losses"], res["moe_metrics"]
-    want = {"flash_fwd": 2 * layers * steps, "flash_dq": layers * steps,
-            "flash_dkv": layers * steps}
+    want = launched({"flash_fwd": 2 * layers * steps,
+                     "flash_dq": layers * steps,
+                     "flash_dkv": layers * steps})
     assignments = layers * args.batch_size * args.seq_len * args.moe_k
     checks = {
         "mode": res["step_mode"] == "graph",
@@ -1268,7 +1475,7 @@ def run_moe(p: int, new: int) -> dict:
         "in_vocab": bool(((routes["full"] >= 0)
                           & (routes["full"] < args.vocab)).all()),
         "full_launches": {k: route_launches["full"][k] for k in want}
-        == {"flash_fwd": new * layers, "flash_dq": 0, "flash_dkv": 0},
+        == launched({"flash_fwd": new * layers}),
         "masked_suffix_invariant": masked_diff <= MOE_SUFFIX_MAX * rms,
         "unmasked_suffix_sensitive": raw_diff > MOE_SUFFIX_MIN * rms,
     }
@@ -1287,8 +1494,9 @@ def run_moe(p: int, new: int) -> dict:
     # (b) eager against captured, bit for bit
     eager = graph_run("moe", gpt, MOE_GRAPH_ARGV, False, gpt_leaves)
     graph = graph_run("moe", gpt, MOE_GRAPH_ARGV, True, gpt_leaves)
-    two = {"flash_fwd": 4 * MOE_GRAPH_STEPS, "flash_dq": 2 * MOE_GRAPH_STEPS,
-           "flash_dkv": 2 * MOE_GRAPH_STEPS}
+    two = launched({"flash_fwd": 4 * MOE_GRAPH_STEPS,
+                    "flash_dq": 2 * MOE_GRAPH_STEPS,
+                    "flash_dkv": 2 * MOE_GRAPH_STEPS})
     gchecks = {
         "modes": [eager["step_mode"], graph["step_mode"]] == ["eager", "graph"],
         "bit_equal": bit_equal(eager, graph),
@@ -1328,10 +1536,10 @@ def run_moe(p: int, new: int) -> dict:
         and all(math.isfinite(x) for x in mlosses)
         and mlosses[-1] < mlosses[0],
         "aux": all(math.isfinite(v) for m in maux for v in m.values()),
-        "launches": mlaunches == {
+        "launches": mlaunches == launched({
             "flash_fwd": 2 * mlayers * MOE_MLM_STEPS,
             "flash_dq": mlayers * MOE_MLM_STEPS,
-            "flash_dkv": mlayers * MOE_MLM_STEPS},
+            "flash_dkv": mlayers * MOE_MLM_STEPS}),
         "non_causal": all(v == {False} for v in seen.values()),
     }
     emit({"phase": "moe", "part": "mlm", "ok": all(mchecks.values()),
@@ -1485,7 +1693,7 @@ def run_corpus() -> dict:
     want_causal = {"gpt_bpe": [True], "bert_bytes": [False]}
     ok = all(r["stream_ok"] and r["finite"] and r["step_mode"] == "graph"
              and r["distinct_step_batches"] == CORPUS_STEPS
-             and all(n > 0 for n in r["launches"].values())
+             and on_tuned(r["launches"])
              and all(v == want_causal[name]
                      for v in r["causal_flags"].values())
              for name, r in runs.items())
@@ -1570,12 +1778,6 @@ def run_resnet() -> None:
           "step_mode": pres["step_mode"], "steps": RESNET_PROFILED_STEPS,
           "unprofiled_step_ms": res["wall_s"] * 1e3 / args.steps,
           "profiled_run_losses": pres["losses"], **trace})
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @contextmanager
@@ -1674,10 +1876,11 @@ def ddp_plan() -> dict:
             "mnist": DDP_MNIST_ARGV}
 
 
-def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
-    """One rank of the ``ddp`` phase: the group over gloo on the card,
-    then the smoke, GPT-2-medium, ResNet-50 and MNIST through their entry
-    points; what the parent checks goes to ``out_dir``."""
+def ddp_rank(rank: int, out_dir: str, plan: dict) -> dict:
+    """One rank of the ``ddp`` phase (``distributed.spawn_local``): the
+    group over gloo on the card, then the smoke, GPT-2-medium, ResNet-50
+    and MNIST through their entry points, logging under ``out_dir``; what
+    the parent checks."""
     import datetime
 
     import torch.distributed as tdist
@@ -1685,7 +1888,6 @@ def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
     from tpujob_torch.workloads import distributed as dist
     from tpujob_torch.workloads import flash, mnist, resnet, smoke_dist
 
-    os.environ.update(envs[rank])
     device = plan["device"]
     pe = dist.initialize(device=torch.device(device), backend="gloo",
                          timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S // 2))
@@ -1724,38 +1926,7 @@ def ddp_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
                     "rows_tested": int(counted.item()),
                     "steps": res["state"]["step"], "wall_s": res["wall_s"]}
     dist.shutdown()
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
-
-
-def spawn_ranks(world: int, out_dir: str, fn, plan: dict) -> list:
-    """``fn(rank, envs, out_dir, plan)`` (``ddp_rank``, ``mesh_rank``) in
-    ``world`` spawned processes with the operator's env
-    (``TPUJOB_*`` and the torch.distributed spelling, as it writes them
-    for a job with no ``tpu`` field); a rank that fails or a spawn that
-    outlives ``DDP_TIMEOUT_S`` raises, and no process outlives this."""
-    import torch.multiprocessing as tmp
-
-    port = free_port()
-    envs = [{"TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-             "TPUJOB_NUM_PROCESSES": str(world),
-             "TPUJOB_PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
-             "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
-             "RANK": str(rank)} for rank in range(world)]
-    ctx = tmp.start_processes(fn, args=(envs, out_dir, plan), nprocs=world,
-                              join=False, start_method="spawn")
-    deadline = time.monotonic() + DDP_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=1.0):  # raises if a rank failed
-            if time.monotonic() > deadline:
-                raise AssertionError(
-                    f"ddp: {world} ranks outlived {DDP_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    return [torch.load(os.path.join(out_dir, f"rank{rank}.pt"),
-                       weights_only=False) for rank in range(world)]
+    return out
 
 
 def run_ddp() -> dict:
@@ -1763,7 +1934,8 @@ def run_ddp() -> dict:
     parent's one-process runs of the same seeds."""
     import gc
 
-    from tpujob_torch.workloads import gpt, mnist, resnet, smoke_dist
+    from tpujob_torch.workloads import (distributed, gpt, mnist, resnet,
+                                        smoke_dist)
 
     out_dir = os.path.join("build", "chip_smoke", "ddp")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1794,12 +1966,14 @@ def run_ddp() -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn_ranks(DDP_WORLD, out_dir, ddp_rank, ddp_plan())
+    ranks = distributed.spawn_local(ddp_rank, DDP_WORLD, out_dir, ddp_plan(),
+                                    timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     steps = flag(DDP_GPT_ARGV, "--steps")
-    want_launches = {"flash_fwd": 48 * steps, "flash_dq": 24 * steps,
-                     "flash_dkv": 24 * steps}
+    want_launches = launched({"flash_fwd": 48 * steps,
+                              "flash_dq": 24 * steps,
+                              "flash_dkv": 24 * steps})
 
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -2032,10 +2206,11 @@ def mesh_plan(base: list, parts: dict) -> dict:
             "base": base, "parts": parts}
 
 
-def mesh_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
-    """One rank of the ``sp``, ``shard`` or ``ep`` phase: the group over
-    gloo on the card, then each part's run (``mesh_run``); what the
-    parent checks goes to ``out_dir``."""
+def mesh_rank(rank: int, out_dir: str, plan: dict) -> dict:
+    """One rank of the ``sp``, ``shard``, ``ep`` or ``pipe`` phase
+    (``distributed.spawn_local``): the group over gloo on the card, then
+    each part's run (``mesh_run``), logging under ``out_dir``; what the
+    parent checks."""
     import datetime
     import faulthandler
     import importlib
@@ -2045,7 +2220,6 @@ def mesh_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
     from tpujob_torch.workloads import distributed as dist
 
     faulthandler.enable()  # a crash inside a collective prints its stack
-    os.environ.update(envs[rank])
     device = plan["device"]
     pe = dist.initialize(device=torch.device(device), backend="gloo",
                          timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S // 2))
@@ -2056,7 +2230,7 @@ def mesh_rank(rank: int, envs: list, out_dir: str, plan: dict) -> None:
         out[part] = mesh_run(module, plan["base"] + flags, device,
                              os.path.join(out_dir, f"rank{rank}", part))
     dist.shutdown()
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    return out
 
 
 def run_sp() -> dict:
@@ -2065,7 +2239,7 @@ def run_sp() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import flash
+    from tpujob_torch.workloads import distributed, flash
 
     # Ulysses's local attention: [b, S, h / 2, d] after the all-to-all
     local = check_kernels(s=MAIN["s"], window=0, timed=True,
@@ -2087,7 +2261,8 @@ def run_sp() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(SP_WORLD, out_dir, mesh_rank, plan)
+    ranks = distributed.spawn_local(mesh_rank, SP_WORLD, out_dir, plan,
+                                    timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2102,7 +2277,7 @@ def run_sp() -> dict:
         # and B3 once; none on the ring (dense per hop)
         n = (flag(flags, "--layers") if "--layers" in flags else 24) \
             * SP_STEPS * ("flash" in flags)
-        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        want = launched({"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n})
         checks = {
             "gloo_groups": all(r["backend"] == "gloo"
                                and r["pe"] == [i, SP_WORLD]
@@ -2153,7 +2328,7 @@ def run_shard() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import flash
+    from tpujob_torch.workloads import distributed, flash
 
     out_dir = os.path.join("build", "chip_smoke", "shard")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2167,7 +2342,8 @@ def run_shard() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(SHARD_WORLD, out_dir, mesh_rank, plan)
+    ranks = distributed.spawn_local(mesh_rank, SHARD_WORLD, out_dir, plan,
+                                    timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2180,8 +2356,8 @@ def run_shard() -> dict:
                            ref["leaves"]["init"]) for r in runs]
         # B1 twice a layer a step (the forward and its remat replay), B2
         # and B3 once; none under TP (dense attention)
-        n = 24 * SHARD_STEPS * ("flash" in flags)
-        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        n = flag(flags, "--layers") * SHARD_STEPS * ("flash" in flags)
+        want = launched({"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n})
         checks = {
             "gloo_groups": all(r["backend"] == "gloo"
                                and r["pe"] == [i, SHARD_WORLD]
@@ -2251,7 +2427,7 @@ def run_ep() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import flash
+    from tpujob_torch.workloads import distributed, flash
 
     out_dir = os.path.join("build", "chip_smoke", "ep")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2266,7 +2442,8 @@ def run_ep() -> dict:
         torch.cuda.empty_cache()
     parent_gb = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
-    ranks = spawn_ranks(EP_WORLD, out_dir, mesh_rank, plan)
+    ranks = distributed.spawn_local(mesh_rank, EP_WORLD, out_dir, plan,
+                                    timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2279,7 +2456,7 @@ def run_ep() -> dict:
                            ref["leaves"]["init"]) for r in runs]
         layers = flag(flags, "--layers") if "--layers" in flags else 24
         n = layers * EP_STEPS
-        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        want = launched({"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n})
         # an expert rank routes every row (its drops are one process's);
         # a sequence rank routes its half of each row
         dropped = [[m["dropped"] for m in r["moe_metrics"]] for r in runs]
@@ -2386,7 +2563,7 @@ def run_pipe() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import flash
+    from tpujob_torch.workloads import distributed, flash
 
     b_mb = (flag(PIPE_BASE_ARGV, "--batch-size")
             // flag(PIPE_PARTS["gpipe"][1], "--pipeline-microbatches"))
@@ -2407,7 +2584,8 @@ def run_pipe() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(PIPE_WORLD, out_dir, mesh_rank, plan)
+    ranks = distributed.spawn_local(mesh_rank, PIPE_WORLD, out_dir, plan,
+                                    timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {k: 0 for k in flash.LAUNCHES}
     peaks, failed = {}, []
@@ -2421,7 +2599,7 @@ def run_pipe() -> dict:
         # layer (GPipe's remat replay, 1F1B's recomputing backward tick),
         # B2 and B3 once
         n = layers // PIPE_WORLD * micro
-        want = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n}
+        want = launched({"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n})
         params = rank_params(name, argv)
         exchanged = steps - 1  # counted from the end of step 1 on
         checks = {
@@ -2593,9 +2771,10 @@ def run_graph() -> dict:
         "resnet": (resnet, GRAPH_RESNET_ARGV, lambda m: ("head.",), None),
         "mnist": (mnist, GRAPH_MNIST_ARGV, lambda m: ("",), None),
     }
-    want = {"flash_fwd": 48 * GRAPH_STEPS, "flash_dq": 24 * GRAPH_STEPS,
-            "flash_dkv": 24 * GRAPH_STEPS}
-    none = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    want = launched({"flash_fwd": 48 * GRAPH_STEPS,
+                     "flash_dq": 24 * GRAPH_STEPS,
+                     "flash_dkv": 24 * GRAPH_STEPS})
+    none = launched({})
     runs, checks = {}, {}
     for key, (module, argv, whole, steps) in cases.items():
         eager = graph_run(key, module, argv, False, whole)
@@ -2661,6 +2840,60 @@ def graph_resume() -> tuple:
                     "resumed_at": GRAPH_RESUME_AT, "lr_devices": lr_devices}
 
 
+def run_dryrun() -> None:
+    """``graft_entry`` on the card: ``graft_entry.dryrun_multichip`` at 8
+    gloo ranks sharing the card (every case of the JAX package's matrix,
+    one full step each), then at 8 ranks on the CPU, each case's loss on
+    the card held to the CPU's; then ``graft_entry.entry`` (BERT-large's
+    bf16 forward as a function of its parameters) on the card."""
+    import gc
+
+    from tpujob_torch import graft_entry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        card = graft_entry.dryrun_multichip(DRYRUN_N, DEVICE)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = graft_entry.dryrun_multichip(DRYRUN_N, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cases = [c.name for c in graft_entry.dryrun_cases(DRYRUN_N)]
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    fn, (params, ids) = graft_entry.entry(DEVICE)
+    with torch.no_grad():
+        logits = fn(params, ids)
+        entry_ms = time_ms(lambda: fn(params, ids), iters=5)
+    checks = {
+        "cases": list(card) == list(cpu) == cases,
+        "finite": all(math.isfinite(x) for x in card.values()),
+        "1f1b_vs_gpipe": abs(card["1f1b"] - card["gpipe"])
+        < graft_entry.F1B_ATOL,
+        "card_vs_cpu": max(rel.values()) <= DRYRUN_LOSS_RTOL,
+        "entry": tuple(logits.shape) == (4, 128, 30522)
+        and logits.dtype == torch.bfloat16
+        and bool(torch.isfinite(logits).all()),
+    }
+    ok = all(checks.values())
+    emit({"phase": "dryrun", "ok": ok, "checks": checks, "n": DRYRUN_N,
+          "losses": card, "cpu_losses": cpu, "rel_diff": rel,
+          "rtol": DRYRUN_LOSS_RTOL, "seconds": card_s, "cpu_seconds": cpu_s,
+          "entry_logits_shape": list(logits.shape),
+          "entry_forward_ms": entry_ms,
+          "entry_params": sum(p.numel() for p in params.values())})
+    del fn, params, logits
+    if not ok:
+        raise AssertionError(f"dryrun phase failed: {checks}")
+
+
 def bench_child(argv: list) -> list:
     """``python -m <argv>`` from the repo root: its JSON lines, each
     printed here on a line of its own.  A nonzero exit raises."""
@@ -2690,6 +2923,7 @@ def run_bench() -> dict:
     headline = bench_child(BENCH_ARGV)
     models = bench_child(BENCH_MODELS_ARGV)
     quick = bench_child(BENCH_QUICK_ARGV)
+    scaling = bench_child(BENCH_SCALING_ARGV)
     seconds = time.perf_counter() - t0
     line = headline[0] if len(headline) == 1 else {}
     names = BENCH_MODELS.split(",")
@@ -2701,6 +2935,7 @@ def run_bench() -> dict:
         and r["step_ms_std"] >= 0 for r in models)
     gpt_row = models[-1] if models else {}
     quick_row = quick[0] if len(quick) == 1 else {}
+    srow = scaling[0] if len(scaling) == 1 else {}
     checks = {
         "headline_one_line": len(headline) == 1,
         "headline_keys": BENCH_KEYS <= set(line),
@@ -2708,19 +2943,25 @@ def run_bench() -> dict:
         "headline_card": line.get("platform") == card
         and line.get("step_mode") == "graph" and line.get("value", 0) > 0,
         "rows": rows_ok,
-        "gpt_row_kernels": all(
-            n > 0 for n in gpt_row.get("kernel_launches", {"": 0}).values()),
+        "gpt_row_kernels": on_tuned(gpt_row.get("kernel_launches", {})),
         "quick_gpt_row": len(quick) == 1 and quick_row.get("value", 0) > 0
         and quick_row.get("platform") == card
         and quick_row.get("step_mode") == "graph"
-        and all(n > 0 for n in
-                quick_row.get("kernel_launches", {"": 0}).values()),
+        and on_tuned(quick_row.get("kernel_launches", {})),
+        "scaling_row": len(scaling) == 1 and BENCH_SCALING_KEYS <= set(srow)
+        and srow["metric"] == "dp_sharding_overhead_8dev_vs_1dev"
+        and srow["platform"] == "gpu" and srow["device_name"] == card
+        and srow.get("ranks_per_card") == 8 and srow["backend"] == "gloo"
+        and srow["value"] > 0 and srow["step_mode"] == "eager"
+        and abs(srow["loss_8dev"] - srow["loss_1dev"])
+        <= SCALING_LOSS_RTOL * abs(srow["loss_1dev"]),
     }
     ok = all(checks.values())
     emit({"phase": "bench", "ok": ok, "checks": checks, "seconds": seconds,
           "headline_metric": line.get("metric"),
           "rows": [r.get("metric") for r in models],
-          "quick_gpt_row_argv": BENCH_QUICK_ARGV})
+          "quick_gpt_row_argv": BENCH_QUICK_ARGV,
+          "scaling_row_argv": BENCH_SCALING_ARGV})
     if not ok:
         raise AssertionError(f"bench phase failed: {checks}")
     return gpt_row["kernel_launches"], quick_row["kernel_launches"]
@@ -2733,6 +2974,12 @@ KERNELS = {
                  "tpujob/workloads/flash.py:163"),
     "flash_dkv": ("tpujob_torch/csrc/flash_dkv.cu",
                   "tpujob/workloads/flash.py:197"),
+    "flash_fwd_any": ("tpujob_torch/csrc/flash_fwd_any.cu",
+                      "tpujob/workloads/flash.py:74"),
+    "flash_dq_any": ("tpujob_torch/csrc/flash_dq_any.cu",
+                     "tpujob/workloads/flash.py:163"),
+    "flash_dkv_any": ("tpujob_torch/csrc/flash_dkv_any.cu",
+                      "tpujob/workloads/flash.py:197"),
 }
 
 
@@ -2800,10 +3047,29 @@ def main(argv=None) -> int:
             case = "gpt_d32" + ("" if causal else "_noncausal")
             timed[case] = check_kernels(s=MAIN["s"], window=0, timed=True,
                                         causal=causal, d=32, case=case)
+        # the _any kernels: GPT-2-medium's shape in fp32 (the fp32 path),
+        # the dryrun's width, head dims 128 (the window too) and 80 in
+        # bf16, and the largest head dim at a ragged length
+        f32, bf16 = torch.float32, torch.bfloat16
+        anyk = dict(suffix="_any", window=0)
+        any_timed = {"any_gpt_f32": check_kernels(
+            case="any_gpt_f32", dtype=f32, timed=True, **anyk, **MAIN)}
+        check_kernels(case="any_dryrun_d16", dtype=f32, b=4, s=64, h=4, d=16,
+                      causal=False, timed=False, **anyk)
+        any_timed["any_d128_bf16"] = check_kernels(
+            case="any_d128_bf16", dtype=bf16, b=8, s=1024, h=8, d=128,
+            timed=True, **anyk)
+        check_kernels(case="any_d128_bf16_w256", dtype=bf16, b=8, s=1024, h=8,
+                      d=128, suffix="_any", window=256, timed=False)
+        any_timed["any_d80_bf16"] = check_kernels(
+            case="any_d80_bf16", dtype=bf16, b=8, s=1024, h=16, d=80,
+            timed=True, **anyk)
+        check_kernels(case="any_d256_f32_s1000", dtype=f32, b=2, s=1000, h=4,
+                      d=256, timed=False, **anyk)
         check_model()
         check_model_bert()
         by_path = {"graph": run_graph(), "train": run_train(),
-                   "mlm": run_mlm(),
+                   "mlm": run_mlm(), "fp32": run_fp32(),
                    "decode": run_decode(args.decode_prompt, args.decode_new),
                    "corpus": run_corpus(),
                    "moe": run_moe(args.decode_prompt, args.decode_new)}
@@ -2814,23 +3080,29 @@ def main(argv=None) -> int:
         by_path["shard"] = run_shard()
         by_path["ep"] = run_ep()
         by_path["pipe"] = run_pipe()
+        run_dryrun()
         by_path["bench"], by_path["bench_quick_d32"] = run_bench()
-        launches = by_path["train"]
 
         rows = []
         for name, (source, replaces) in KERNELS.items():
-            m = main_case[name]
+            # each kernel's main path: GPT-2-medium in bf16 for the tuned
+            # kernels, in fp32 for the _any ones
+            main_path, cases = (("fp32", any_timed) if name in ANY
+                                else ("train", timed))
+            m = cases[next(iter(cases))][name]
             rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "launches": launches[name],
+                         "replaces": replaces, "main_path": main_path,
+                         "launches": by_path[main_path][name],
                          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                          "bound_by": m["bound_by"], "tflops": m["tflops"],
                          "bound_share": m["bound_share"],
                          "library_ms": m["library_ms"],
-                         "cases": {case: {k: c[name][k] for k in (
+                         "ffma_bound_ms": m.get("ffma_bound_ms"),
+                         "cases": {case: {k: c[name].get(k) for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "max_abs_err")}
-                             for case, c in timed.items()},
+                             "library_ms", "max_abs_err", "ffma_bound_ms")}
+                             for case, c in cases.items()},
                          "paths": [path for path, n in by_path.items()
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n

@@ -94,8 +94,8 @@ def test_bench_models_rows_at_a_tiny_size_carry_the_jax_keys(two_threads):
     }
     row_keys["gpt"] = row_keys["bert-large"] | {"attention"}
     perf = _printed_keys(ROOT / "bench_models.py", "perf_fields")
-    for name, bench in bench_models.BENCHES.items():
-        row = bench(True, "cpu", TINY[name])
+    for name in TINY:  # the scaling row: test_scaling_row_*
+        row = bench_models.BENCHES[name](True, "cpu", TINY[name])
         assert row_keys[name] - {"attention"} <= set(row), name
         assert {"flops_per_step", "achieved_tflops_per_chip"} <= set(row)
         # no card, no peak: no utilization is claimed for a CPU number
@@ -106,8 +106,9 @@ def test_bench_models_rows_at_a_tiny_size_carry_the_jax_keys(two_threads):
         assert row["value"] > 0 and row["step_ms_std"] >= 0
         json.dumps(row)
     assert row["attention"] == "flash"
-    assert row["kernel_launches"] == {"flash_fwd": 0, "flash_dq": 0,
-                                      "flash_dkv": 0}  # plain versions
+    assert row["kernel_launches"] == {  # plain versions
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_any": 0,
+        "flash_dq_any": 0, "flash_dkv_any": 0}
 
 
 @pytest.mark.parametrize("card,peak", [
@@ -133,9 +134,58 @@ def test_a_rate_above_the_peak_is_not_called_mfu():
 
 
 def test_bench_models_refuses_a_row_it_does_not_have(capsys):
-    assert bench_models.main(["--models", "resnet50,scaling",
+    """Every row of the JAX package's ``bench_models.py`` is ported (its
+    ``scaling`` too);
+    a name it does not know is refused before any row runs."""
+    assert set(bench_models.BENCHES) == {"resnet50", "bert-large", "gpt",
+                                         "scaling"}
+    assert bench_models.main(["--models", "resnet50,nope",
                               "--device", "cpu"]) == 2
-    assert "'scaling' is not ported" in capsys.readouterr().err
+    assert "unknown benchmark 'nope'" in capsys.readouterr().err
+
+
+# The 8 ranks' first step against one process's: the same global batch
+# and weights, the masked sums taken per rank and summed by gloo (another
+# order of fp32 additions; 1.2e-7 relative read)
+SCALING_LOSS_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def scaling_row():
+    out = subprocess.run(
+        [sys.executable, "-m", "tpujob_torch.bench_models", "--models",
+         "scaling", "--quick", "--device", "cpu"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert len(lines) == 1, out.stdout
+    return json.loads(lines[0])
+
+
+def test_scaling_row_prints_the_reference_keys(scaling_row):
+    """``--models scaling --quick --device cpu``: one JSON line with the
+    JAX row's keys (read from ``bench_models.py``'s ``_scaling_child``),
+    t8 / t1 from two eager steps, 8 ranks over gloo."""
+    jax_keys = _printed_keys(ROOT / "bench_models.py", "_scaling_child")
+    assert {"metric", "step_ms_1dev", "step_ms_8dev", "platform"} <= jax_keys
+    row = scaling_row
+    assert jax_keys <= set(row)
+    assert row["metric"] == "dp_sharding_overhead_8dev_vs_1dev"
+    assert row["platform"] == "cpu" and row["backend"] == "gloo"
+    assert row["global_batch"] == 32 and row["step_mode"] == "eager"
+    assert "ranks_per_card" not in row  # a card's field
+    assert len(row["step_ms_8dev_by_rank"]) == 8
+    # value is t8 / t1 before the step ms were rounded
+    assert abs(row["value"] - row["step_ms_8dev"] / row["step_ms_1dev"]) \
+        < 2e-3
+
+
+def test_scaling_row_8_ranks_give_one_process_loss(scaling_row):
+    """The 8-rank step computes the one-process step's loss (the global
+    batch's), within SCALING_LOSS_RTOL."""
+    rel = abs(scaling_row["loss_8dev"] - scaling_row["loss_1dev"]) / abs(
+        scaling_row["loss_1dev"])
+    assert rel <= SCALING_LOSS_RTOL, scaling_row
 
 
 @pytest.mark.parametrize("module", ["tpujob_torch.bench",

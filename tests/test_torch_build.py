@@ -7,9 +7,12 @@ pointer bound as an int is silently cut.  So every ``extern "C" int
 tpujob_*(...)`` must be in ``build.SIGNATURES`` under its source's stem,
 with as many arguments and ``c_void_p`` / ``c_int`` / ``c_float`` for each
 pointer / int / float; and every binding must name an entry point that
-exists.  All three kernels (B1 ``flash_fwd.cu``, B2 ``flash_dq.cu``, B3
-``flash_dkv.cu``) must keep their wgmma + TMA + mbarrier design, and no
-source or header may hold the mma.sync pieces of the first port.
+exists.  The three tuned kernels (B1 ``flash_fwd.cu``, B2 ``flash_dq.cu``,
+B3 ``flash_dkv.cu``) must keep their wgmma + TMA + mbarrier design, and no
+source or header may hold the mma.sync pieces of the first port.  The
+three general kernels (``flash_*_any.cu`` on ``flash_any.cuh``) are FFMA
+kernels: no tensor-core instruction, and a C entry point that takes the
+dtype (``is_bf16``).
 """
 import ctypes
 import re
@@ -106,7 +109,23 @@ def test_hopper_kernels_use_wgmma_tma_and_mbarriers(stem):
     assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
 
 
-@pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh"])
+ANY_STEMS = ["flash_fwd_any", "flash_dq_any", "flash_dkv_any"]
+
+
+@pytest.mark.parametrize("stem", ANY_STEMS)
+def test_general_kernels_are_ffma_kernels_on_their_header(stem):
+    src = (CSRC / f"{stem}.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert '#include "flash_any.cuh"' in src
+    assert "fmaf(" in code and "is_bf16" in code
+    for piece in ("wgmma", "mma.sync", "hopper.cuh", "tma_load"):
+        assert piece not in code, f"{stem}.cu uses {piece}"
+    assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
+    assert [sym for s, sym, _ in ENTRIES if s == stem] == [f"tpujob_{stem}"]
+
+
+@pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh",
+                                  "flash_any.cuh"])
 def test_headers_hold_no_mma_sync_pieces(name):
     src = (CSRC / name).read_text()
     assert not mma_sync_pieces(src), f"{name} holds {mma_sync_pieces(src)}"

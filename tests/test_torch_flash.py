@@ -8,7 +8,10 @@ against the same plain versions on the card (``tests/test_torch_kernels.py``
 and ``chip_smoke.py``).
 
 Tolerances: fp32 2e-5 for o and lse, 2e-4 for grads (two fp32 summation
-orders: blockwise in Pallas, dense in the plain version); bf16 2e-2.
+orders: blockwise in Pallas, dense in the plain version); bf16 2e-2.  The
+head dims the ``_any`` kernels add on the card (16, 80, 128, 256, fp32)
+are held the same way (``test_any_head_dim_matches_pallas``): the
+wrappers take the same plain versions here, at every head dim.
 """
 import jax
 import jax.numpy as jnp
@@ -157,35 +160,90 @@ def test_validation_matches_reference():
         flash.flash_attention(q, torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4))
 
 
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_any",
+           "flash_dq_any", "flash_dkv_any")
+
+
 def test_cpu_path_launches_no_kernel():
+    """Every kernel is counted under its own name, and the CPU path (the
+    plain versions) launches none of them, in bf16 or fp32."""
     flash.reset_launches()
-    q = torch.randn(1, 64, 2, 64, requires_grad=True)
-    flash.flash_attention(q, q, q, causal=True).sum().backward()
-    assert flash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 64, 2, 64, dtype=dtype, requires_grad=True)
+        flash.flash_attention(q, q, q, causal=True).sum().backward()
+    assert flash.LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 
-@pytest.mark.parametrize("wrapper", ["flash_fwd_cuda", "flash_dq_cuda",
-                                     "flash_dkv_cuda"])
+@pytest.mark.parametrize("wrapper", [k + "_cuda" for k in KERNELS])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A wrapper never runs the plain version for a tensor it was handed
-    directly: CPU tensors are refused before any build or launch."""
-    x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    directly: CPU tensors are refused before any build or launch (bf16
+    for the tuned kernels, fp32 for the _any ones)."""
+    dtype = torch.float32 if "_any" in wrapper else torch.bfloat16
+    x = torch.zeros(1, 64, 2, 64, dtype=dtype)
     r = torch.zeros(1, 2, 64)
-    args = (x, x, x) if wrapper == "flash_fwd_cuda" else (x, x, x, x, r, r)
+    fwd = wrapper.startswith("flash_fwd")
+    args = (x, x, x) if fwd else (x, x, x, x, r, r)
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(flash, wrapper)(*args, causal=True, scale=0.125)
 
 
-@pytest.mark.parametrize("dtype,head_dim,supported", [
-    (torch.bfloat16, 64, True), (torch.float32, 64, False),
-    (torch.float16, 64, False), (torch.bfloat16, 128, False),
-    (torch.bfloat16, 32, True)])
-def test_check_supported_owns_the_kernel_limits(dtype, head_dim, supported):
-    """The kernels take bf16 at head dim 32 or 64; anything else raises
-    "not yet ported" from the one check that model builders and launches
-    share."""
+@pytest.mark.parametrize("dtype,head_dim,supported,tuned", [
+    (torch.bfloat16, 64, True, True), (torch.bfloat16, 32, True, True),
+    (torch.float32, 64, True, False), (torch.float32, 32, True, False),
+    (torch.bfloat16, 128, True, False), (torch.bfloat16, 80, True, False),
+    (torch.float32, 1, True, False), (torch.float32, 256, True, False),
+    (torch.bfloat16, 16, True, False), (torch.float32, 257, False, False),
+    (torch.bfloat16, 257, False, False), (torch.float32, 0, False, False),
+    (torch.float16, 64, False, False), (torch.float64, 64, False, False)])
+def test_check_supported_owns_the_kernel_limits(dtype, head_dim, supported,
+                                                tuned):
+    """The kernels take fp32 or bf16 at head dim 1 to 256 (the tuned ones
+    bf16 at 64 or 32, the ``_any`` ones the rest); anything else raises
+    from the one check that model constructors and launches share."""
+    assert flash.tuned(dtype, head_dim) == tuned
     if supported:
         flash.check_supported(dtype, head_dim)
     else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match="head dim 1 to 256"):
             flash.check_supported(dtype, head_dim)
+
+
+# the head dims the _any kernels add: the dryrun's width (16), two that
+# are not powers of two or not the tuned ones (80, 128) and the largest
+# (256); fp32 causal, and one non-causal
+ANY_CASES = {"d16": (16, True), "d80": (80, True), "d128": (128, False),
+             "d256": (256, True)}
+
+
+@pytest.fixture(scope="module", params=sorted(ANY_CASES))
+def any_case(request):
+    """The JAX package's flash attention (Pallas, interpret mode) and the
+    port's at one head dim in fp32: forward and grads of sum(o * ct)."""
+    d, causal = ANY_CASES[request.param]
+    rng = np.random.RandomState(d)
+    q, k, v, ct = (rng.randn(1, 256, 2, d).astype(np.float32)
+                   for _ in range(4))
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash.flash_attention(q, k, v, causal=causal) * ct)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jo = jflash.flash_attention(jq, jk, jv, causal=causal)
+    jgrads = jax.grad(jloss, (0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    to = flash.flash_attention(tq, tk, tv, causal=causal)
+    (to * torch.from_numpy(ct)).sum().backward()
+    return (np.asarray(jo), [np.asarray(g) for g in jgrads],
+            to.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)])
+
+
+def test_any_head_dim_matches_pallas(any_case):
+    """fp32 at the ``_any`` kernels' head dims: o within 2e-5, grads
+    within 2e-4, as the fp32 cases above."""
+    jo, jgrads, to, tgrads = any_case
+    fwd_tol, grad_tol = TOL["float32"]
+    np.testing.assert_allclose(to, jo, rtol=fwd_tol, atol=fwd_tol)
+    for got, want, name in zip(tgrads, jgrads, "qkv"):
+        np.testing.assert_allclose(got, want, rtol=grad_tol, atol=grad_tol,
+                                   err_msg=f"d{name}")

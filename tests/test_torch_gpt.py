@@ -214,9 +214,12 @@ def test_flag_coherence_checks():
     with pytest.raises(ValueError, match="needs --pipeline-parallel"):
         tgpt.build_model(p.parse_args(ARGV + ["--pipeline-microbatches", "2"]),
                          "cpu")
-    # checked before the model touches the card, so no card is needed here
-    with pytest.raises(NotImplementedError, match="bf16 at head dim 64"):
-        tgpt.build_model(p.parse_args(ARGV + ["--no-bf16"]), "cuda")
+    # checked before the model touches the card, so no card is needed here:
+    # a head dim past the kernels' 256 (fp32 and bf16 at 1-256 train)
+    with pytest.raises(NotImplementedError, match="head dim 1 to 256"):
+        tgpt.build_model(p.parse_args(
+            ARGV + ["--no-bf16", "--hidden", "1028", "--heads", "2"]),
+            "cuda")
     with pytest.raises(ValueError, match="causal family"):
         tbert.build_model(p.parse_args(ARGV + ["--attention-window", "8"]),
                           "cpu", causal=False)

@@ -55,7 +55,7 @@ def test_scan_covers_every_port_module():
     for module in ("smoke_dist", "distributed", "train_lib", "bert", "gpt",
                    "mnist", "resnet", "benchlib"):
         assert f"tpujob_torch/workloads/{module}.py" in names
-    for bench in ("bench", "bench_models"):
+    for bench in ("bench", "bench_models", "graft_entry"):
         assert f"tpujob_torch/{bench}.py" in names
     assert "chip_smoke.py" in names
     assert set(FORBIDDEN) == {"jax", "flax", "optax", "orbax", "tpujob"}

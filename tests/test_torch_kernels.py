@@ -9,7 +9,12 @@ Tolerance, element by element: |kernel - plain| <= 2e-2 x |plain| +
 2e-2 x rms_row(plain) + 1e-3 x rms(plain), with rms_row the rms over the
 element's row of head_dim values and the last term a floor for rows that
 are exactly 0 (bf16 outputs, P and dS rounded to bf16 for the tensor
-cores); lse 1e-3 (fp32 in both).
+cores); lse 1e-3 (fp32 in both).  The ``_any`` kernels (fp32 or bf16 at
+any head dim, fp32 arithmetic like the plain versions) are held tighter:
+in fp32 1e-5 x |plain| + 1e-5 x rms_row + 1e-6 x rms (the two differ only
+in summation order and the exp/log approximations), in bf16 1e-2 x |plain|
++ 1e-3 x rms_row + 1e-4 x rms (one bf16 ulp of the rounded output, at
+most 2^-7 relative); lse 1e-5.
 """
 import pytest
 import torch
@@ -130,7 +135,9 @@ def test_train_step_launches_each_kernel(cuda, tmp_path):
         "--dir", str(tmp_path)])
     flash.reset_launches()
     res = gpt.run(args)
-    assert flash.LAUNCHES == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
+    assert flash.LAUNCHES == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2,
+                              "flash_fwd_any": 0, "flash_dq_any": 0,
+                              "flash_dkv_any": 0}
     assert all(torch.isfinite(torch.tensor(res["losses"])))
 
 
@@ -150,9 +157,87 @@ def test_generate_launches_the_forward_kernel_only(cuda):
                            generator=torch.Generator(device=cuda).manual_seed(0))
     flash.reset_launches()
     out = gpt.generate(model, prompt, 6)
-    assert flash.LAUNCHES == {"flash_fwd": 12, "flash_dq": 0, "flash_dkv": 0}
+    assert flash.LAUNCHES == dict(dict.fromkeys(flash.LAUNCHES, 0),
+                                  flash_fwd=12)
     flash.reset_launches()
     cached = gpt.generate_cached(model, prompt, 6)
-    assert flash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert flash.LAUNCHES == dict.fromkeys(flash.LAUNCHES, 0)
     assert out.shape == cached.shape == (2, 14)
     assert torch.equal(out[:, :8], prompt)
+
+
+ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
+                               floor_of_rms=1e-6),
+           torch.bfloat16: dict(rtol=1e-2, atol_of_row_rms=1e-3,
+                                floor_of_rms=1e-4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,seq,causal,window", [
+    # chip_smoke's cases at a smaller batch: GPT's fp32 shape, the
+    # dryrun's width, the d=128 and d=80 bf16 GPTs (the window at 128),
+    # the largest head dim at a ragged length
+    (torch.float32, 64, 1024, True, 0), (torch.float32, 16, 64, False, 0),
+    (torch.bfloat16, 128, 1024, True, 256), (torch.bfloat16, 80, 1024, True, 0),
+    (torch.float32, 256, 1000, True, 0),
+    # the tiles' edges: one head-dim column, a head dim past a bucket by
+    # one, one row past a 64-row tile, a window narrower than a tile
+    (torch.float32, 1, 130, True, 0), (torch.float32, 33, 65, False, 0),
+    (torch.bfloat16, 64, 200, True, 17), (torch.float32, 32, 96, True, 0),
+    (torch.bfloat16, 256, 40, False, 0)])
+def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
+                                          window):
+    """The _any forward, dQ and dK/dV kernels against flash_forward_ref /
+    flash_dq_ref / flash_dkv_ref on the same inputs, element by element.
+    In fp32 they can agree bit for bit, so each kernel's outputs are
+    allocated where blocks of their sizes filled with NaN were just freed
+    (the caching allocator hands them back): an element a kernel skipped
+    stays NaN and fails."""
+    gen = torch.Generator(device=cuda).manual_seed(seq + d + window)
+    q, k, v, do = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
+                               dtype=dtype) for _ in range(4))
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    tol = ANY_TOL[dtype]
+    o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
+    delta = flash.attention_delta(o_r, do)
+    runs = {
+        ("o", "lse"): (lambda: flash.flash_fwd_any_cuda(q, k, v, **kw),
+                       (o_r, lse_r)),
+        ("dq",): (lambda: (flash.flash_dq_any_cuda(q, k, v, do, lse_r,
+                                                   delta, **kw),),
+                  (flash.flash_dq_ref(q, k, v, do, lse_r, delta, **kw),)),
+        ("dk", "dv"): (lambda: flash.flash_dkv_any_cuda(
+            q, k, v, do, lse_r, delta, **kw),
+            flash.flash_dkv_ref(q, k, v, do, lse_r, delta, **kw)),
+    }
+    for names, (run, refs) in runs.items():
+        junk = [torch.full_like(r, float("nan")) for r in refs]
+        del junk
+        for name, got, ref in zip(names, run(), refs):
+            assert got.dtype == ref.dtype, name
+            if name == "lse":
+                assert (got - ref).abs().max().item() <= 1e-5
+            else:
+                assert_close(got, ref, name=name, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,heads", [(torch.float32, 2),
+                                         (torch.bfloat16, 1)])
+def test_train_step_takes_the_any_kernels(cuda, tmp_path, dtype, heads):
+    """One remat step of a 2-layer GPT in fp32 (head dim 64) or in bf16 at
+    head dim 128 launches the _any kernels only, 4 / 2 / 2."""
+    from tpujob_torch.workloads import gpt
+
+    args = gpt.build_parser().parse_args([
+        "--hidden", "128", "--heads", str(heads), "--layers", "2",
+        "--intermediate", "256", "--vocab", "211", "--seq-len", "128",
+        "--batch-size", "2", "--steps", "1", "--attention", "flash",
+        "--dir", str(tmp_path)] + (["--no-bf16"] if dtype == torch.float32
+                                   else []))
+    flash.reset_launches()
+    res = gpt.run(args)
+    assert flash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                              "flash_fwd_any": 4, "flash_dq_any": 2,
+                              "flash_dkv_any": 2}
+    assert all(torch.isfinite(torch.tensor(res["losses"])))

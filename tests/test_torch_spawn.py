@@ -502,6 +502,45 @@ def shard_trainer_ranks(rank, runs):
     return out
 
 
+def dryrun_ranks(rank, n, trees, logdir):
+    """``graft_entry.run_cases`` (the port's dryrun matrix) on this rank,
+    each case's model loading its JAX package's initial weights from
+    ``trees`` (one flax tree a case, in the matrix's order; this rank's
+    blocks of them, ``convert.params_from_flax`` over the case's mesh):
+    ``{case: loss}`` and, for each case, its losses and the parameters
+    after the step, gathered whole (``parallel.ParamShards``; a pipeline
+    rank's stage only)."""
+    from tpujob_torch import graft_entry
+    from tpujob_torch.workloads import bert, convert, parallel
+
+    join()
+    build, pending, meshes, out = bert.build_model, list(trees), [], {}
+
+    def built(args, device, *, mesh=None, **kw):
+        model = build(args, device, mesh=mesh, **kw)
+        model.load_state_dict(convert.params_from_flax(pending.pop(0), mesh),
+                              strict=True)
+        meshes.append(mesh)
+        return model
+
+    def record(case, res):
+        mesh, model = meshes[-1], res["state"]["model"]
+        shards = parallel.ParamShards(mesh.group("tensor"),
+                                      mesh.group("expert"))
+        out[case.name] = {
+            "losses": res["losses"],
+            "whole": {name: shards.full(name, p).float().numpy()
+                      for name, p in model.named_parameters()}}
+
+    bert.build_model = built
+    try:
+        losses = graft_entry.run_cases(n, "cpu", logdir, on_case=record)
+    finally:
+        bert.build_model = build
+    leave()
+    return losses, out
+
+
 def pipeline_stack_ranks(rank, cases):
     """Each case of ``cases`` (name -> dict of the mesh ``axes``, numpy
     ``ws`` [L, d, d], ``x`` [B, d], ``h`` [d, k], ``y`` [B, k], the

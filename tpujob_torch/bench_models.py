@@ -10,6 +10,7 @@ and times the calls with ``benchlib.measure_windows``.
 
     python -m tpujob_torch.bench_models --models resnet50,bert-large,gpt
     python -m tpujob_torch.bench_models --quick          # smaller shapes
+    python -m tpujob_torch.bench_models --models scaling --device cpu
 
 Prints one JSON line per row:
     {"metric": "...", "value": N, "unit": "...", ...}
@@ -18,15 +19,26 @@ FLOPs are analytic, as the JAX rows' fallbacks: 3 x 4.09 GFLOP a 224px
 image for ResNet-50, 8 x params x tokens for the transformers (remat runs
 the forward twice).  ``mfu_vs_spec`` is their rate over the card's dense
 bf16 peak, reported only where it is at most 1.  The ``--quick`` GPT row
-has head dim 32 (the kernels' second instantiation).  The JAX package's
-DP-scaling row (8 virtual CPU devices) is not ported.
+has head dim 32 (the kernels' second instantiation).
+
+The DP-scaling row (``scaling``, the JAX package's ``_scaling_child`` /
+``bench_scaling``): one BERT step (vocab 1024, hidden 256, 4 layers, 8
+heads, fp32) on a global batch of 32, timed in one process and in 8 gloo
+ranks of 4 rows each (``distributed.spawn_local``), both eager, so that
+``t8/t1`` measures the batch split and the gradient all-reduce and not a
+CUDA graph against eager; the captured one-process step is recorded
+beside them.  The reference's 8 devices are virtual CPU devices sharing
+one CPU's cores; the port's 8 ranks share the device named by
+``--device``: on the card, all 8 on the one card over gloo, a record of
+that layout, not a speed of data parallelism across cards.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 # Peak dense bf16 FLOP/s of one card, by name (NVIDIA's data sheets):
 # the H100 SXM (HBM3) and the H100 PCIe.  Any other card: no peak.
@@ -245,17 +257,158 @@ def bench_gpt_medium(quick: bool, device: str = "cuda",
         extra_fields={"attention": args.attention})
 
 
+# ---------------------------------------------------------------------------
+# DP scaling: the same global batch in one process and in 8 gloo ranks
+# ---------------------------------------------------------------------------
+
+SCALING_RANKS = 8
+SCALING_BATCH = 32
+SCALING_ARGV = ["--vocab", "1024", "--hidden", "256", "--layers", "4",
+                "--heads", "8", "--intermediate", "1024", "--no-bf16",
+                "--batch-size", str(SCALING_BATCH)]
+SCALING_TIMEOUT_S = 900.0
+
+
+def _scaling_step(quick: bool, device: str, pe, capture: bool):
+    """The scaling row's BERT MLM step on this process's rows of the
+    global batch (all of it at world 1; DDP over the world otherwise):
+    (step, state, batch)."""
+    from tpujob_torch.workloads import bert as bertlib
+    from tpujob_torch.workloads import data as datalib
+    from tpujob_torch.workloads import distributed as dist
+    from tpujob_torch.workloads import train_lib
+
+    dev = dist.local_device(device)
+    seq = 64 if quick else 128
+    args = bertlib.build_parser().parse_args(
+        SCALING_ARGV + ["--seq-len", str(seq)])
+    mesh = dist.make_mesh({"data": -1}, env=pe)
+    model = bertlib.build_model(args, dev, mesh=mesh)
+    ids = datalib.synthetic_token_batch(SCALING_BATCH, seq, args.vocab)
+    ids, mask = bertlib.mask_batch(ids, 0)
+    lo, sz = dist.local_batch_slice(SCALING_BATCH, pe, mesh)
+    batch = train_lib.put_batch((ids[lo : lo + sz], mask[lo : lo + sz]),
+                                dev)
+    optimizer = train_lib.adamw(model.parameters(), args.lr)
+    state = train_lib.init_state(model, optimizer)
+    step = train_lib.make_train_step(
+        bertlib.mlm_loss(train_lib.data_parallel(model, mesh), mesh=mesh),
+        optimizer, lambda count: args.lr, capture=capture, mesh=mesh)
+    return step, state, batch
+
+
+def _time_ranks(step, state, batch, seconds: float) -> float:
+    """``time_steps`` for the ranks of a group: every rank must run the
+    same steps (a wall-clock-bounded loop queues unequal collective counts
+    per rank, and the group hangs), so each window runs a fixed count of
+    steps, rank 0's estimate of a window's worth from a 3-step probe,
+    broadcast to all.  Returns the mean s a step."""
+    import math
+
+    import torch
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads.benchlib import drain, measure_windows
+
+    for _ in range(2):
+        state, out = step(state, batch)
+    drain(out)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, out = step(state, batch)
+    drain(out)
+    per_step = (time.perf_counter() - t0) / 3
+    n_windows = max(2, int(seconds))
+    count = torch.tensor([max(-(-5 // n_windows),
+                              math.ceil(seconds / n_windows / per_step))])
+    tdist.broadcast(count, src=0)
+
+    def run_one():
+        nonlocal state
+        state, out = step(state, batch)
+        return out
+
+    return measure_windows(run_one, min_windows=n_windows,
+                           fixed_steps=int(count)).mean_s
+
+
+def _time_scaling_step(quick: bool, device: str, pe, capture: bool
+                       ) -> Tuple[float, float, str]:
+    """(first step's loss, mean s a step, step mode): the first
+    step from the seed's weights, then the reference's windows (1 s under
+    ``--quick``, else 3 s); in a group, windows of a count of steps all
+    ranks share (``_time_ranks``)."""
+    step, state, batch = _scaling_step(quick, device, pe, capture)
+    state, loss = step(state, batch)
+    first = float(loss)
+    seconds = 1.0 if quick else 3.0
+    if pe.num_processes > 1:
+        return first, _time_ranks(step, state, batch, seconds), step.mode
+    sec, _, _, mode = time_steps(step, state, batch, seconds)
+    return first, sec, mode
+
+
+def _scaling_rank(rank: int, quick: bool, device: str) -> dict:
+    """One of the 8 spawned ranks: the group over gloo (on the card too:
+    NCCL refuses two ranks on one card), then its timed step."""
+    import torch.distributed as tdist
+
+    from tpujob_torch.workloads import distributed as dist
+
+    pe = dist.initialize(device=dist.local_device(device), backend="gloo")
+    first, sec, _ = _time_scaling_step(quick, device, pe, False)
+    tdist.barrier()
+    dist.shutdown()
+    return {"loss": first, "sec": sec}
+
+
+def bench_scaling(quick: bool, device: str = "cuda") -> dict:
+    """DP sharding overhead: t8 / t1 of one step of the same global batch,
+    eager in both, on ``device`` (8 gloo ranks sharing it)."""
+    from tpujob_torch.workloads import distributed as dist
+    from tpujob_torch.workloads.benchlib import platform_name
+
+    dev = dist.local_device(device)
+    one = dist.process_env({})
+    loss1, t1, mode1 = _time_scaling_step(quick, device, one, False)
+    ranks = dist.spawn_local(_scaling_rank, SCALING_RANKS, quick, device,
+                             timeout_s=SCALING_TIMEOUT_S)
+    t8 = ranks[0]["sec"]
+    out = {
+        "metric": "dp_sharding_overhead_8dev_vs_1dev",
+        "value": round(t8 / t1, 3),
+        "unit": "t8/t1 (1.0 = free sharding)",
+        "step_ms_1dev": round(t1 * 1e3, 2),
+        "step_ms_8dev": round(t8 * 1e3, 2),
+        "global_batch": SCALING_BATCH,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "device_name": platform_name(dev),
+        "backend": "gloo",
+        "step_mode": mode1,
+        "step_ms_8dev_by_rank": [round(r["sec"] * 1e3, 2) for r in ranks],
+        "loss_1dev": loss1,
+        "loss_8dev": ranks[0]["loss"],
+    }
+    if dev.type == "cuda":
+        _, tg, mode_g = _time_scaling_step(quick, device, one, True)
+        out.update(ranks_per_card=SCALING_RANKS,
+                   step_ms_1dev_captured=round(tg * 1e3, 2),
+                   step_mode_captured=mode_g)
+    return out
+
+
 BENCHES = {
     "resnet50": bench_resnet50,
     "bert-large": bench_bert_large,
     "gpt": bench_gpt_medium,
+    "scaling": bench_scaling,
 }
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="flagship model benchmarks "
                                             "of the port")
-    p.add_argument("--models", default="resnet50,bert-large,gpt",
+    p.add_argument("--models", default="resnet50,bert-large,gpt,scaling",
                    help=f"comma list from {sorted(BENCHES)}")
     p.add_argument("--quick", action="store_true",
                    help="small shapes and short timing (a smoke)")
@@ -266,8 +419,7 @@ def main(argv=None) -> int:
     for name in names:
         if name not in BENCHES:
             print(f"unknown benchmark {name!r} (the port has "
-                  f"{sorted(BENCHES)}; 'scaling' is not ported)",
-                  file=sys.stderr)
+                  f"{sorted(BENCHES)})", file=sys.stderr)
             return 2
     for name in names:
         print(json.dumps(BENCHES[name](args.quick, args.device)), flush=True)

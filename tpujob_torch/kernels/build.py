@@ -4,11 +4,20 @@ Each source is one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in
 ``<repo>/build/tpujob_torch_kernels/<hash>/``, where the hash covers every
 source and header and the compiler flags, so an edited kernel is rebuilt
-and an unchanged one is reused.  Each flash source instantiates its
-kernel template for every head dim it takes (32 and 64, the C entry
-point's ``switch`` on ``D``), so the hash of the sources covers the
-instantiations too.  All sources compile at once, one ``nvcc``
-process each.
+and an unchanged one is reused.  Six sources, one library each:
+
+- ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the tuned wgmma/TMA kernels
+  (B1-B3), templates on the head dim instantiated for 32 and 64 in bf16
+  (the C entry point's ``switch`` on ``D``);
+- ``flash_fwd_any``, ``flash_dq_any``, ``flash_dkv_any``: the general
+  FFMA kernels (B1-B3 in fp32 or bf16 at head dim 1-256), templates on
+  the dtype and on the padded head dim 32/64/128/256, the entry point
+  taking ``D`` and ``is_bf16``.
+
+``workloads/flash.py`` chooses between the two sets by dtype and head
+dim before the launch.  The hash of the sources covers the
+instantiations too.  All sources compile at once, one ``nvcc`` process
+each.
 
     from tpujob_torch.kernels import build
     lib = build.load("flash_fwd")      # ctypes.CDLL, argtypes set
@@ -54,6 +63,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # window, stream
         "tpujob_flash_dkv": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                              _i, _f, _i, _i, _p],
+    },
+    "flash_fwd_any": {
+        # q, k, v, o, lse, B, H, D, Sq, Sk, scale, causal, window, is_bf16,
+        # stream
+        "tpujob_flash_fwd_any": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                                 _i, _i, _i, _p],
+    },
+    "flash_dq_any": {
+        # q, k, v, dO, lse, delta, dq, B, H, D, Sq, Sk, scale, causal,
+        # window, is_bf16, stream
+        "tpujob_flash_dq_any": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                _i, _f, _i, _i, _i, _p],
+    },
+    "flash_dkv_any": {
+        # q, k, v, dO, lse, delta, dk, dv, B, H, D, Sq, Sk, scale, causal,
+        # window, is_bf16, stream
+        "tpujob_flash_dkv_any": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                                 _i, _i, _f, _i, _i, _i, _p],
     },
 }
 

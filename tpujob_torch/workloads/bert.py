@@ -1003,10 +1003,17 @@ def validate_parallel_flags(args, causal: Optional[bool] = None) -> int:
 
 def make_mesh_for(args, pe=None) -> "dist.Mesh":
     """The job's mesh from the flags (after the flag checks, so a wrong
-    world reports the actionable error): data soaks up the ranks the
-    other axes leave.  Every process calls it together (one process group
-    an axis)."""
+    world reports the actionable error): ``mesh_axes``, data soaking up
+    the ranks the other axes leave.  Every process calls it together (one
+    process group an axis)."""
     validate_parallel_flags(args)
+    return dist.make_mesh(mesh_axes(args), env=pe)
+
+
+def mesh_axes(args) -> Dict[str, int]:
+    """The mesh axes the flags ask for (``make_mesh`` takes them; data is
+    the ``-1`` wildcard): the port takes its strategy from the flags, where
+    the JAX package's ``run`` takes it from the mesh it is handed."""
     axes = {"data": -1}
     if getattr(args, "fsdp", 1) > 1:
         axes["fsdp"] = args.fsdp
@@ -1018,7 +1025,7 @@ def make_mesh_for(args, pe=None) -> "dist.Mesh":
         axes["expert"] = args.expert_parallel
     if getattr(args, "pipeline_parallel", 1) > 1:
         axes["pipeline"] = args.pipeline_parallel
-    return dist.make_mesh(axes, env=pe)
+    return axes
 
 
 def seq_positions(args, mesh, causal: bool) -> Optional[np.ndarray]:

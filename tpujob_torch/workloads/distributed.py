@@ -821,3 +821,79 @@ def progress_publisher_from_env(env: Optional[Dict[str, str]] = None,
         host = f"[{host}]"
     return pod_patch_publisher(f"https://{host}:{port}", namespace, pod,
                                token_file=token_file, context=context)
+
+
+# ---------------------------------------------------------------------------
+# local spawns: a job's ranks as processes of this host (the dryrun, the
+# DP-scaling bench)
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    """A localhost TCP port nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def local_envs(world: int, port: int) -> List[Dict[str, str]]:
+    """Each rank's env on one host, as the operator writes it for a job
+    with no ``tpu`` field: the ``TPUJOB_*`` variables and the
+    torch.distributed spelling, one coordinator at ``127.0.0.1:port``."""
+    return [{"TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+             "TPUJOB_NUM_PROCESSES": str(world),
+             "TPUJOB_PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+             "RANK": str(rank)} for rank in range(world)]
+
+
+def _spawned(rank, fn, envs, args, out_dir, threads):
+    os.environ.update(envs[rank])
+    torch.set_num_threads(threads)
+    if rank:
+        import sys
+
+        sys.stdout = open(os.devnull, "w")
+    result = fn(rank, *args)
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn_local(fn: Callable, world: int, *args, timeout_s: float) -> list:
+    """``fn(rank, *args)`` in ``world`` new processes (start method
+    ``spawn``, so ``fn`` is a module-level function) with ``local_envs``'
+    env, the host's cores shared out among them, only rank 0's standard
+    output kept.  Their results in rank order.  A rank that raises or dies
+    takes the others down and raises here with its traceback; a spawn
+    that outlives ``timeout_s`` is killed and raises; no process outlives
+    the call."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    envs = local_envs(world, free_port())
+    threads = max(1, (os.cpu_count() or 1) // world)
+    out_dir = tempfile.mkdtemp(prefix="tpujob_spawn_")
+    try:
+        ctx = tmp.start_processes(
+            _spawned, args=(fn, envs, args, out_dir, threads),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"{world} spawned ranks outlived "
+                                       f"{timeout_s} s")
+        except (tmp.ProcessRaisedException, tmp.ProcessExitedException) as e:
+            raise RuntimeError(f"a spawned rank failed:\n{e}") from None
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        return [torch.load(os.path.join(out_dir, f"rank{rank}.pt"),
+                           weights_only=False) for rank in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)

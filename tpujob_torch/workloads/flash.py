@@ -1,25 +1,38 @@
 """Flash attention: the port of ``tpujob/workloads/flash.py``.
 
-Three hand-written CUDA kernels for Hopper replace the three Pallas ones:
+Six hand-written CUDA kernels for Hopper replace the three Pallas ones,
+two for each:
 
-====================  ==============================  =========================
-kernel (wrapper)      source                          replaces
-====================  ==============================  =========================
-``flash_fwd_cuda``    ``csrc/flash_fwd.cu``           ``_flash_kernel``
-``flash_dq_cuda``     ``csrc/flash_dq.cu``            ``_dq_kernel``
-``flash_dkv_cuda``    ``csrc/flash_dkv.cu``           ``_dkv_kernel``
-====================  ==============================  =========================
+=========================  ===========================  =================
+kernel (wrapper)           source                       replaces
+=========================  ===========================  =================
+``flash_fwd_cuda``         ``csrc/flash_fwd.cu``        ``_flash_kernel``
+``flash_dq_cuda``          ``csrc/flash_dq.cu``         ``_dq_kernel``
+``flash_dkv_cuda``         ``csrc/flash_dkv.cu``        ``_dkv_kernel``
+``flash_fwd_any_cuda``     ``csrc/flash_fwd_any.cu``    ``_flash_kernel``
+``flash_dq_any_cuda``      ``csrc/flash_dq_any.cu``     ``_dq_kernel``
+``flash_dkv_any_cuda``     ``csrc/flash_dkv_any.cu``    ``_dkv_kernel``
+=========================  ===========================  =================
 
-Beside each kernel sits its plain PyTorch version with the same math
-(``flash_forward_ref``, ``flash_dq_ref``, ``flash_dkv_ref``).  A wrapper
-takes the plain version only for tensors on the CPU; on a CUDA tensor it
-launches its kernel or raises — it never falls back.  ``LAUNCHES`` counts
-kernel launches, one per launch, so a run can show that it went through
-the kernels.
+The first three are the tuned wgmma/TMA kernels and take bf16 at head
+dim 64 or 32 (``KERNEL_HEAD_DIMS``).  The ``_any`` three take fp32 or
+bf16 at any head dim from 1 to ``MAX_HEAD_DIM`` (256), in fp32 on the
+CUDA cores (FFMA: wgmma has no fp32 input).  ``flash_forward`` and
+``flash_backward`` choose by dtype and head dim before the launch
+(``tuned``): bf16 at 64 or 32 takes the tuned kernels, anything else the
+``_any`` ones.  No wrapper gives way to another kernel, or to the plain
+version, when a build or a launch fails: it raises.
+
+Beside the kernels sits their plain PyTorch version with the same math
+(``flash_forward_ref``, ``flash_dq_ref``, ``flash_dkv_ref``).  The
+dispatch takes it only for tensors on the CPU; a kernel wrapper on a
+tensor off the card raises.  ``LAUNCHES`` counts kernel launches under
+each kernel's own name, one per launch, so a run can show which kernels
+it went through.
 
 Unlike the Pallas path, a sequence that does not tile is not sent to dense
 attention: the kernels mask the ragged edge themselves, so a CUDA tensor
-always takes the kernel.  Grouped-query K/V are repeated up to the query
+always takes a kernel.  Grouped-query K/V are repeated up to the query
 heads before the kernels, as the JAX wrapper does.
 
 Layouts: q, k, v, o are ``[batch, seq, heads, head_dim]``; the logsumexp is
@@ -37,23 +50,32 @@ from tpujob_torch.workloads.parallel import _gqa_repeat
 NEG_INF = -1e30  # finite, as in the reference kernels
 
 # kernel launches since the last reset_launches(), by kernel
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_fwd_any": 0, "flash_dq_any": 0, "flash_dkv_any": 0}
 
-# the head dims the CUDA kernels are instantiated for (each source's
+# the head dims the tuned bf16 kernels are instantiated for (each source's
 # template on D, launched by its C entry point's switch)
 KERNEL_HEAD_DIMS = (64, 32)
+# the largest head dim the _any kernels take (their shared-memory tiles)
+MAX_HEAD_DIM = 256
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_supported(dtype: torch.dtype, head_dim: int) -> None:
-    """Raise unless the CUDA kernels take this dtype and head dim (bf16 at
-    64 or 32; other variants are not ported yet).  The one owner of that
-    limit: model builders call it before touching the card, and every
-    kernel launch calls it again."""
-    if dtype != torch.bfloat16 or head_dim not in KERNEL_HEAD_DIMS:
+    """Raise unless a CUDA kernel takes this dtype and head dim: fp32 or
+    bf16 at head dim 1 to ``MAX_HEAD_DIM``.  The one owner of that limit:
+    model constructors call it before touching the card, and every kernel
+    launch calls it again."""
+    if dtype not in DTYPES or not 1 <= head_dim <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the flash kernels take bf16 at head dim "
-            f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {dtype} at "
-            f"head dim {head_dim}: not yet ported")
+            f"the flash kernels take fp32 or bf16 at head dim 1 to "
+            f"{MAX_HEAD_DIM}, got {dtype} at head dim {head_dim}")
+
+
+def tuned(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the tuned wgmma kernels take this input (bf16 at head dim 64
+    or 32); every other supported input takes the ``_any`` kernels."""
+    return dtype == torch.bfloat16 and head_dim in KERNEL_HEAD_DIMS
 
 
 def reset_launches() -> None:
@@ -149,17 +171,25 @@ def flash_backward_ref(q, k, v, o, lse, do, *, causal: bool, scale: float,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(name: str, *tensors) -> None:
+def _check_kernel_args(name: str, *tensors, any_kernel: bool = False) -> None:
+    """Raise unless ``name``'s kernel takes these tensors: on the card,
+    contiguous (16-byte aligned for the tuned kernels' TMA), q/k/v/dO of
+    one dtype the kernel takes at this head dim, lse and delta fp32."""
     for x in tensors:
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                              f"{x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if x.data_ptr() % 16:
+        if not any_kernel and x.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
     q = tensors[0]
     check_supported(q.dtype, q.shape[-1])
+    if not any_kernel and not tuned(q.dtype, q.shape[-1]):
+        raise NotImplementedError(
+            f"{name}: the tuned kernel takes bf16 at head dim "
+            f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {q.dtype} at "
+            f"head dim {q.shape[-1]} (the _any kernels take it)")
     if any(x.dtype != q.dtype for x in tensors[1:4]):
         raise TypeError(f"{name}: q/k/v/dO must share one dtype, got "
                         f"{[x.dtype for x in tensors[:4]]}")
@@ -172,7 +202,7 @@ def _stream(x) -> int:
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
-    """Launch the forward kernel: (o [b, sq, h, d] bf16, lse [b, h, sq] fp32)."""
+    """Launch the tuned forward kernel: (o [b, sq, h, d] bf16, lse [b, h, sq] fp32)."""
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_fwd", q, k, v)
@@ -193,7 +223,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
 
 def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   window: int = 0):
-    """Launch the dQ kernel: dq [b, sq, h, d] bf16."""
+    """Launch the tuned dQ kernel: dq [b, sq, h, d] bf16."""
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_dq", q, k, v, do, lse, delta)
@@ -213,7 +243,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                    window: int = 0):
-    """Launch the dK/dV kernel: (dk, dv) [b, sk, h, d] bf16."""
+    """Launch the tuned dK/dV kernel: (dk, dv) [b, sk, h, d] bf16."""
     from tpujob_torch.kernels import build
 
     _check_kernel_args("flash_dkv", q, k, v, do, lse, delta)
@@ -233,6 +263,74 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     return dk, dv
 
 
+def flash_fwd_any_cuda(q, k, v, *, causal: bool, scale: float,
+                       window: int = 0):
+    """Launch the general forward kernel (fp32 or bf16, head dim 1-256):
+    (o [b, sq, h, d] in q's dtype, lse [b, h, sq] fp32)."""
+    from tpujob_torch.kernels import build
+
+    _check_kernel_args("flash_fwd_any", q, k, v, any_kernel=True)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_fwd_any")
+    with torch.cuda.device(q.device):
+        rc = lib.tpujob_flash_fwd_any(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, d, sq, sk, float(scale), int(causal),
+            int(window), int(q.dtype == torch.bfloat16), _stream(q))
+    build.check(rc, "flash_fwd_any")
+    LAUNCHES["flash_fwd_any"] += 1
+    return o, lse
+
+
+def flash_dq_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                      scale: float, window: int = 0):
+    """Launch the general dQ kernel: dq [b, sq, h, d] in q's dtype."""
+    from tpujob_torch.kernels import build
+
+    _check_kernel_args("flash_dq_any", q, k, v, do, lse, delta,
+                       any_kernel=True)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q)
+    lib = build.load("flash_dq_any")
+    with torch.cuda.device(q.device):
+        rc = lib.tpujob_flash_dq_any(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, d, sq, sk,
+            float(scale), int(causal), int(window),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    build.check(rc, "flash_dq_any")
+    LAUNCHES["flash_dq_any"] += 1
+    return dq
+
+
+def flash_dkv_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                       scale: float, window: int = 0):
+    """Launch the general dK/dV kernel: (dk, dv) [b, sk, h, d] in k's
+    dtype."""
+    from tpujob_torch.kernels import build
+
+    _check_kernel_args("flash_dkv_any", q, k, v, do, lse, delta,
+                       any_kernel=True)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = build.load("flash_dkv_any")
+    with torch.cuda.device(q.device):
+        rc = lib.tpujob_flash_dkv_any(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, d, sq, sk, float(scale), int(causal), int(window),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    build.check(rc, "flash_dkv_any")
+    LAUNCHES["flash_dkv_any"] += 1
+    return dk, dv
+
+
 # ---------------------------------------------------------------------------
 # dispatch + autograd
 # ---------------------------------------------------------------------------
@@ -249,23 +347,30 @@ def _on_cpu(*tensors) -> bool:
 
 
 def flash_forward(q, k, v, *, causal: bool, scale: float, window: int = 0):
-    """(o, lse): the plain version on CPU tensors, the kernel on CUDA ones."""
+    """(o, lse): the plain version on CPU tensors; on CUDA ones the tuned
+    kernel where it takes the input (``tuned``), else the ``_any`` one."""
     if _on_cpu(q, k, v):
         return flash_forward_ref(q, k, v, causal=causal, scale=scale,
                                  window=window)
-    return flash_fwd_cuda(q, k, v, causal=causal, scale=scale, window=window)
+    fwd = flash_fwd_cuda if tuned(q.dtype, q.shape[-1]) else flash_fwd_any_cuda
+    return fwd(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool, scale: float,
                    window: int = 0):
-    """(dq, dk, dv): plain versions on CPU tensors, the kernels on CUDA."""
+    """(dq, dk, dv): plain versions on CPU tensors; on CUDA ones the tuned
+    kernels or the ``_any`` ones, chosen as ``flash_forward`` chooses."""
     if _on_cpu(q, k, v, o, lse, do):
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal,
                                   scale=scale, window=window)
     delta = attention_delta(o, do)
     kw = dict(causal=causal, scale=scale, window=window)
-    dq = flash_dq_cuda(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    if tuned(q.dtype, q.shape[-1]):
+        dq_fn, dkv_fn = flash_dq_cuda, flash_dkv_cuda
+    else:
+        dq_fn, dkv_fn = flash_dq_any_cuda, flash_dkv_any_cuda
+    dq = dq_fn(q, k, v, do, lse, delta, **kw)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
 
 
