@@ -9,10 +9,14 @@ with as many arguments and ``c_void_p`` / ``c_int`` / ``c_float`` for each
 pointer / int / float; and every binding must name an entry point that
 exists.  The three tuned kernels (B1 ``flash_fwd.cu``, B2 ``flash_dq.cu``,
 B3 ``flash_dkv.cu``) must keep their wgmma + TMA + mbarrier design, and no
-source or header may hold the mma.sync pieces of the first port.  The
-three general kernels (``flash_*_any.cu`` on ``flash_any.cuh``) are FFMA
-kernels: no tensor-core instruction, and a C entry point that takes the
-dtype (``is_bf16``).
+source or header may hold the mma.sync pieces of the first port.  Of the
+three general kernels, each with a C entry point that takes the dtype
+(``is_bf16``), the forward (``flash_fwd_any.cu`` on ``flash_any.cuh``) is
+an FFMA kernel with no tensor-core instruction; dQ and dK/dV
+(``flash_dq_any.cu``, ``flash_dkv_any.cu`` on ``flash_tc.cuh``) run their
+products on wgmma with split precision (tf32 in three passes, bf16 with a
+high and a low part) and copy tiles by TMA or a producer warpgroup, the
+FFMA body kept for fp32 at padded head dim 256 only.
 """
 import ctypes
 import re
@@ -114,18 +118,47 @@ ANY_STEMS = ["flash_fwd_any", "flash_dq_any", "flash_dkv_any"]
 
 @pytest.mark.parametrize("stem", ANY_STEMS)
 def test_general_kernels_are_ffma_kernels_on_their_header(stem):
+    """B1a is an FFMA kernel; B2a/B3a issue wgmma (tf32 and bf16) with the
+    split, from TMA or the producer's copies, their FFMA body only for
+    fp32 at padded head dim 256."""
     src = (CSRC / f"{stem}.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
-    assert '#include "flash_any.cuh"' in src
-    assert "fmaf(" in code and "is_bf16" in code
-    for piece in ("wgmma", "mma.sync", "hopper.cuh", "tma_load"):
-        assert piece not in code, f"{stem}.cu uses {piece}"
+    assert "is_bf16" in code
     assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
     assert [sym for s, sym, _ in ENTRIES if s == stem] == [f"tpujob_{stem}"]
+    if stem == "flash_fwd_any":
+        assert '#include "flash_any.cuh"' in src
+        assert "fmaf(" in code
+        for piece in ("wgmma", "mma.sync", "hopper.cuh", "tma_load"):
+            assert piece not in code, f"{stem}.cu uses {piece}"
+        return
+    header = re.sub(r"//[^\n]*", "", (CSRC / "flash_tc.cuh").read_text())
+    assert '#include "flash_tc.cuh"' in src
+    for piece in ("first_product<T, ", "second_product<T, ", "put_w<T, ",
+                  "produce<T, kRows, C>(", "encode_panels<T>(",
+                  "tma_takes<T>(", "__grid_constant__ CUtensorMap"):
+        assert piece in code, f"{stem}.cu lacks {piece}"
+    for piece in ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
+                  "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
+                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
+                  "cp.async.bulk.tensor.4d", "fence.proxy.async",
+                  "mma_tf32(part, big[u], dxs +",   # big x small
+                  "mma_tf32(part, small[u], dx +",  # small x big
+                  "mma_tf32(part, big[u], dx +",    # big x big
+                  "mma_bf16(z, a[u], dw1 +",        # P / dS low part
+                  "mma_bf16(z, a[u], dw0 +"):       # P / dS high part
+        assert piece in header, f"flash_tc.cuh lacks {piece}"
+    # the FFMA body for fp32 at 256 alone, chosen before the launch
+    kind = stem.split("_")[1]
+    assert f"flash_{kind}_any_kernel_ffma<float, 256>" in code
+    assert (f"if constexpr (sizeof(T) == 4) return launch_{kind}_ffma"
+            in code)
+    assert "atomicAdd" not in code + header
 
 
 @pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh",
-                                  "flash_any.cuh"])
+                                  "flash_any.cuh", "flash_tc.cuh"])
 def test_headers_hold_no_mma_sync_pieces(name):
     src = (CSRC / name).read_text()
     assert not mma_sync_pieces(src), f"{name} holds {mma_sync_pieces(src)}"

@@ -10,11 +10,12 @@ Tolerance, element by element: |kernel - plain| <= 2e-2 x |plain| +
 element's row of head_dim values and the last term a floor for rows that
 are exactly 0 (bf16 outputs, P and dS rounded to bf16 for the tensor
 cores); lse 1e-3 (fp32 in both).  The ``_any`` kernels (fp32 or bf16 at
-any head dim, fp32 arithmetic like the plain versions) are held tighter:
-in fp32 1e-5 x |plain| + 1e-5 x rms_row + 1e-6 x rms (the two differ only
-in summation order and the exp/log approximations), in bf16 1e-2 x |plain|
-+ 1e-3 x rms_row + 1e-4 x rms (one bf16 ulp of the rounded output, at
-most 2^-7 relative); lse 1e-5.
+any head dim, fp32 arithmetic like the plain versions; dQ and dK/dV with
+their products on the tensor cores in split precision) are held tighter:
+in fp32 1e-5 x |plain| + 1e-5 x rms_row + 1e-6 x rms (the two differ in
+summation order, the exp/log approximations and the split's 22 of 24
+bits), in bf16 1e-2 x |plain| + 1e-3 x rms_row + 1e-4 x rms (one bf16 ulp
+of the rounded output, at most 2^-7 relative); lse 1e-5.
 """
 import pytest
 import torch
@@ -184,7 +185,10 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     # one, one row past a 64-row tile, a window narrower than a tile
     (torch.float32, 1, 130, True, 0), (torch.float32, 33, 65, False, 0),
     (torch.bfloat16, 64, 200, True, 17), (torch.float32, 32, 96, True, 0),
-    (torch.bfloat16, 256, 40, False, 0)])
+    (torch.bfloat16, 256, 40, False, 0),
+    # bf16 at a head dim whose rows (72 bytes) TMA cannot take: the
+    # producer's plain copies
+    (torch.bfloat16, 36, 200, True, 0)])
 def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                                           window):
     """The _any forward, dQ and dK/dV kernels against flash_forward_ref /
@@ -219,6 +223,27 @@ def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                 assert (got - ref).abs().max().item() <= 1e-5
             else:
                 assert_close(got, ref, name=name, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,seq", [
+    (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
+    (torch.float32, 33, 200), (torch.bfloat16, 36, 130)])
+def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
+    """Two launches of the _any dQ and dK/dV kernels on the same inputs
+    give the same bits (no atomics: the captured step's bit-equality with
+    the eager one rests on it), by TMA and by the producer's copies."""
+    gen = torch.Generator(device=cuda).manual_seed(seq + d)
+    q, k, v, do = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
+                               dtype=dtype) for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = flash.flash_forward_ref(q, k, v, **kw)
+    delta = flash.attention_delta(o, do)
+    runs = [(flash.flash_dq_any_cuda(q, k, v, do, lse, delta, **kw),
+             *flash.flash_dkv_any_cuda(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -1,0 +1,134 @@
+"""The numerics plan of the general backward kernels B2a/B3a
+(``tpujob_torch/csrc/flash_tc.cuh``), on the CPU: their products emulated
+on the plain backward at a small shape, held to the card tests' ``ANY_TOL``
+against ``flash_dq_ref`` / ``flash_dkv_ref``.
+
+- fp32 (3xTF32): every product as big.big + big.small + small.big, big =
+  the operand rounded to tf32 (low 13 mantissa bits cleared, to nearest),
+  small = the rest rounded to tf32; one pass reads each raw fp32 operand as
+  the tensor core does, its low 13 bits cleared.
+- bf16: S and dP are exact products of bf16 inputs; P and dS enter the
+  last products as a bf16 high part plus a bf16 low part; one pass takes
+  the high part alone.
+
+Each term is summed exactly (float64) and rounded to fp32 once, as the
+kernels' per-batch fp32 adds keep their sums near that.  As in the
+kernels, query 0's one dP under the causal mask (the row whose dS is the
+rounding noise of dP - D) is the plain version's.  The split lands within
+ANY_TOL everywhere.  One pass misses it in fp32 by two orders of
+magnitude; in bf16 it stays under 2x of it at these sizes (one rounding of
+P and dS to bf16 against the output's own), so there the test holds the
+split to no worse than one pass and prints both (``-s``).
+"""
+import pytest
+import torch
+
+from test_torch_kernels import ANY_TOL
+from tpujob_torch.workloads import flash
+
+
+def tf32_round(x):
+    """x rounded to tf32 (11 significant bits), to nearest."""
+    u = x.float().contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x):
+    """What the tensor core reads of an fp32 word: the low 13 bits cleared."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+
+
+def parts(x, split: bool):
+    """x as the parts the kernels feed the tensor cores: fp32 as tf32 big
+    and small (one pass: the raw word as read), bf16-rounded P or dS as a
+    high and a low part (one pass: the high part)."""
+    if x.dtype == torch.float32 and not split:
+        return [tf32_read(x)]
+    if not split:
+        return [x.to(torch.bfloat16).float()]
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()]
+
+
+def tf32_parts(x, split: bool):
+    if not split:
+        return [tf32_read(x)]
+    big = tf32_round(x)
+    return [big, tf32_round(x.float() - big)]
+
+
+def tc_product(eq, a, b, *, split: bool, first: bool):
+    """einsum(eq, a, b) as B2a/B3a's wgmmas compute it: a is an input
+    tensor (q, k, v or dO), b an input (first products) or P / dS.  fp32:
+    the tf32 passes of both (3xTF32, or one); bf16: a exact, b exact in
+    the first products, else its high + low parts (or the high one).  Each
+    term exact, the sum rounded to fp32 once."""
+    if a.dtype == torch.float32:
+        pa, pb = tf32_parts(a, split), tf32_parts(b, split)
+        pairs = [(0, 0), (0, 1), (1, 0)] if split else [(0, 0)]
+    else:
+        pa = [a.float()]
+        pb = [b.float()] if first else parts(b, split)
+        pairs = [(0, j) for j in range(len(pb))]
+    return sum(torch.einsum(eq, pa[i].double(), pb[j].double())
+               for i, j in pairs).float()
+
+
+def emulated_backward(q, k, v, do, lse, delta, *, causal, scale, split):
+    """(dq, dk, dv) with B2a/B3a's products on the plain backward."""
+    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True) * scale
+    dp = tc_product("bqhd,bkhd->bhqk", do, v, split=split, first=True)
+    if causal:  # query 0's one dP in the plain version's arithmetic
+        dp[:, :, 0, 0] = torch.einsum(
+            "bqhd,bkhd->bhqk", do.float(), v.float())[:, :, 0, 0]
+    p = torch.exp(s - lse[..., None])
+    vis = flash._visible(q.shape[1], k.shape[1], causal, 0, q.device)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
+    ds = p * (dp - delta[..., None]) * scale
+    out = (tc_product("bkhd,bhqk->bqhd", k, ds, split=split, first=False),
+           tc_product("bqhd,bhqk->bkhd", q, ds, split=split, first=False),
+           tc_product("bqhd,bhqk->bkhd", do, p, split=split, first=False))
+    return tuple(x.to(q.dtype) for x in out)
+
+
+def worst_ratio(got, ref, tol) -> float:
+    """The card tests' element-wise ratio to rtol*|ref| + atol*rms_row(ref)
+    + floor*rms(ref), its worst (<= 1 passes)."""
+    got, ref = got.float(), ref.float()
+    bound = (tol["rtol"] * ref.abs()
+             + tol["atol_of_row_rms"] * ref.square().mean(-1, keepdim=True)
+             .sqrt() + tol["floor_of_rms"] * ref.square().mean().sqrt())
+    return ((got - ref).abs() / bound).max().item()
+
+
+CASES = [(torch.float32, 64, 128, True), (torch.float32, 16, 64, False),
+         (torch.bfloat16, 128, 128, True), (torch.bfloat16, 80, 96, False),
+         (torch.bfloat16, 36, 200, True)]
+
+
+def ratios(dtype, d, seq, causal):
+    """Worst ratios (dq, dk, dv) of the split and of one pass."""
+    gen = torch.Generator().manual_seed(seq + d)
+    q, k, v, do = (torch.randn(1, seq, 2, d, generator=gen).to(dtype)
+                   for _ in range(4))
+    kw = dict(causal=causal, scale=d ** -0.5)
+    o, lse = flash.flash_forward_ref(q, k, v, **kw)
+    delta = flash.attention_delta(o, do)
+    ref = (flash.flash_dq_ref(q, k, v, do, lse, delta, **kw),
+           *flash.flash_dkv_ref(q, k, v, do, lse, delta, **kw))
+    return [[worst_ratio(g, r, ANY_TOL[dtype]) for g, r in zip(
+        emulated_backward(q, k, v, do, lse, delta, split=split, **kw), ref)]
+        for split in (True, False)]
+
+
+@pytest.mark.parametrize("dtype,d,seq,causal", CASES)
+def test_split_meets_any_tol_and_one_pass_does_not(dtype, d, seq, causal):
+    split, one_pass = ratios(dtype, d, seq, causal)
+    print(f"{dtype} d={d} s={seq} causal={causal}: worst ratio to ANY_TOL "
+          f"(dq, dk, dv) split {split}, one pass {one_pass}")
+    assert max(split) <= 1, split
+    assert max(split) <= max(one_pass), (split, one_pass)
+    if dtype == torch.float32:  # a clear margin: one pass misses ANY_TOL
+        assert min(one_pass) > 2, one_pass

@@ -1,13 +1,18 @@
 // Shared pieces of the general flash-attention kernels (flash_fwd_any.cu,
 // flash_dq_any.cu, flash_dkv_any.cu): fp32 or bf16 inputs at any head dim
-// from 1 to 256, fp32 arithmetic on the CUDA cores (FFMA).  They run
-// wherever the tuned wgmma kernels (bf16 at head dim 32 and 64) do not
-// apply: wgmma takes no fp32 input, and its tf32 keeps about three digits.
+// from 1 to 256, where the tuned kernels (bf16 at head dim 32 and 64) do
+// not apply.  Their arguments, masks and head-dim buckets, and the FFMA
+// body (fp32 arithmetic on the CUDA cores) below: the forward's, and the
+// backward's for fp32 at padded head dim 256 only.  FFMA was the first
+// design because wgmma takes no fp32 input and one tf32 pass keeps about
+// three digits; the backward (flash_tc.cuh) now splits each fp32 operand
+// into two tf32 parts (3xTF32) and keeps fp32's accuracy on the tensor
+// cores.
 //
 // Layout as flash_common.cuh: q, k, v, o, dO, dQ, dK, dV contiguous
 // [B, S, H, d] in the input's dtype; lse and delta flat fp32 [B, H, S].
 //
-// Tiling: each block owns BR rows of one (batch, head) and walks the other
+// Tiling of the FFMA body: each block owns BR rows of one (batch, head) and walks the other
 // sequence in steps of BC; 256 threads as a 16 x 16 grid, thread (ty, tx)
 // holding rows ty*RT .. ty*RT+RT-1 of the block and, of a step's scores,
 // columns tx + 16 j (j < CT); of the head dim, columns tx + 16 j (j < DT).

@@ -1,33 +1,198 @@
-// Flash-attention dK and dV for any head dim 1-256, fp32 or bf16 in, fp32
-// arithmetic on the CUDA cores (sm_90a).
+// Flash-attention dK and dV for any head dim 1-256, fp32 or bf16 in, on
+// Hopper's tensor cores (wgmma, sm_90a) with split precision (B3a).
 //
 // Replaces the Pallas kernel tpujob/workloads/flash.py:_dkv_kernel for every
 // input the tuned flash_dkv.cu does not take: dV = P^T dO and
 // dK = scale * dS^T Q with dS = P o (dO V^T - D), summed over the query
 // tiles, P recomputed from the forward's logsumexp (0 where masked); dk and
-// dv in the input's dtype.
+// dv in the input's dtype.  The reference sums every product in fp32.
 //
 // Bound on an H100 SXM at the GPT-2-medium shape in fp32 (b=8, s=1024,
 // h=16, d=64, causal): it reads q, k, v, dO, lse and delta and writes dk
 // and dv, 6 x 33.6 MB + 1 MB = 202 MB, 60 us; its causal FLOPs (S, dP,
-// P^T dO and dS^T Q) are 34.4 G, 70 us at tf32's 495 TFLOP/s, 514 us at
-// fp32 FFMA's 67 TFLOP/s, which this kernel runs on: bound by operations.
+// P^T dO and dS^T Q) are 34.4 G, 70 us at tf32's 495 TFLOP/s in one pass:
+// bound by operations.  The split's reach is three tf32 passes, 209 us
+// (fp32 FFMA's 67 TFLOP/s: 514 us).  In bf16 S and dP take one pass and
+// P^T dO, dS^T Q two: 1.5x the bf16 bound.
 //
-// Design (flash_any.cuh): one block of 256 threads per (BR-key tile,
-// batch*head), the keys' K and V staged once; the TPU grid's sequential q
-// axis is a loop over the live q-tiles (flash_common.cuh's q_range: dead
-// tiles skipped), staging Q, dO and the tile's lse and delta.  Each thread
-// computes an RT x CT block of S^T = K Q^T and dP^T = V dO^T (rows = keys),
-// forms P^T and dS^T in registers and hands its rows of both to its own
-// warp through shared memory for dV += P^T dO and dK += dS^T Q, DT columns
-// a thread of each.
-#include "flash_any.cuh"
+// Design (flash_tc.cuh, which also says how each trouble of the design is
+// met): one block per (F-key tile, batch*head), a producer warpgroup and
+// F / 32 consumer warpgroups of 32 keys each (two at F = 64: while one
+// loads fragments or forms P and dS, the other's wgmmas run).  The
+// producer copies K and V once (TMA, or plain loads where TMA cannot take
+// the strides), then streams (Q, dO, lse, D) for each live 64-row q-tile
+// (flash_common.cuh's q_range: dead tiles skipped) through a 2-stage
+// ring.  Each consumer, per q-tile:
+//   S = Q K^T (64 queries x 32 keys; A = Q from registers, B = K K-major
+//     in shared memory), and dP = dO V^T likewise;
+//   P = exp(scale S - lse) in registers, masked only on tiles crossing the
+//     diagonal, the window or the ragged edge, written to shared memory as
+//     [key][query] in two parts; dV^T += dO^T P (head dim x 32, in 64-row
+//     blocks; A = dO^T read transposed into registers, B = P);
+//   then dS = P o (dP - D) scale the same way, P read back from shared
+//     memory, and dK^T += Q^T dS.  S and dP are never live together: with
+//     dK^T and dV^T in registers, both would not fit the registers a
+//     thread has (168 with two consumers, 255 with one at d = 128).
+// fp32 runs every product as 3xTF32 (wgmma .tf32), bf16 S and dP as one
+// bf16 wgmma and the last two with P and dS as high + low bf16 parts.
+// dK^T and dV^T stay in registers; no atomics, so two launches on the same
+// inputs give the same bits.
+//
+// fp32 at padded head dim 256 does not fit a block's shared memory on this
+// design (flash_tc.cuh, trouble 4): the C entry point sends that bucket
+// alone to flash_dkv_any_kernel_ffma, the FFMA body of flash_any.cuh (fp32
+// arithmetic on the CUDA cores), still to redesign.
+#include "flash_tc.cuh"
 
 namespace tpujob_flash_any {
 
+// B3a on the tensor cores: template on the input type and the padded head
+// dim DP (32, 64, 128; 256 in bf16 only).
+template <class T, int DP>
+__global__ void
+__launch_bounds__(tpujob_flash_tc::TcGeom<T, DP>::kBlockThreads, 1)
+    flash_dkv_any_kernel(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmK,
+                         const __grid_constant__ CUtensorMap tmV,
+                         const __grid_constant__ CUtensorMap tmDO,
+                         const Args a, int use_tma) {
+  using namespace tpujob_flash_tc;
+  using G = TcGeom<T, DP>;
+  using Sm = TcSmem<T, DP, 2>;
+  constexpr int F = G::F, N = G::N, C = G::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(align_atom(smem_raw));
+  const int k0 = blockIdx.x * F;  // causal: the first keys see most rows
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  int qt_begin, qt_end;
+  tpujob_flash::q_range<F, kRows>(k0, a.Sq, a.causal, a.window, &qt_begin,
+                                  &qt_end);
+  // warp-uniform to ptxas (see flash_dkv.cu)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  init_barriers<G::kNC>(sm);
+
+  if (wg == 0) {
+    // ---- producer: K and V once, then the ring of (Q, dO, lse, D) ----
+    produce<T, F, C>(sm.x[0], sm.x[1], &tmK, &tmV, (const T*)a.k,
+                     (const T*)a.v, &sm.fixed_full, use_tma, k0, b, h, a.H,
+                     a.Sk, a.d);
+    for (int qt = qt_begin, i = 0; qt < qt_end; ++qt, ++i) {
+      const int s = i % kStages, q0 = qt * kRows, r = threadIdx.x;
+      mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);
+      if (r < kRows) {
+        const bool ok = q0 + r < a.Sq;
+        sm.row_lse[s][r] = ok ? a.lse[(long)bh * a.Sq + q0 + r] : 0.f;
+        sm.row_delta[s][r] = ok ? a.delta[(long)bh * a.Sq + q0 + r] : 0.f;
+      }
+      produce<T, kRows, C>(sm.y[s][0], sm.y[s][1], &tmQ, &tmDO,
+                           (const T*)a.q, (const T*)a.dout, &sm.full[s],
+                           use_tma, q0, b, h, a.H, a.Sq, a.d);
+    }
+    return;
+  }
+
+  // ---- consumers: N keys each, from k0 + fo ----
+  const int cw = wg - 1, fo = N * cw, kc0 = k0 + fo;
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's q rows
+  mbar_wait(&sm.fixed_full, 0);
+  if constexpr (G::kF32) {  // K and V rounded to tf32, their small parts
+    split_fixed<F * C, G::kNC>(sm.x[0], sm.x[2]);
+    split_fixed<F * C, G::kNC>(sm.x[1], sm.x[3]);
+    fence_async_shared();
+    named_bar_sync(kFixedBar, 128 * G::kNC);
+  }
+  // this consumer's rows of K and V: fo rows into each panel
+  auto rows = [&](const T* x) {
+    return panel_desc(reinterpret_cast<const uint8_t*>(x) + fo * kPanel);
+  };
+  const uint64_t dxk = rows(sm.x[0]), dxv = rows(sm.x[1]);
+  const uint64_t dxks = G::kF32 ? rows(sm.x[G::kXT - 2]) : 0;
+  const uint64_t dxvs = G::kF32 ? rows(sm.x[G::kXT - 1]) : 0;
+  T* const wp0 = sm.w[cw][0][0];
+  T* const wp1 = sm.w[cw][0][1];
+  T* const ws0 = sm.w[cw][1][0];
+  T* const ws1 = sm.w[cw][1][1];
+  const uint64_t dp0 = panel_desc(wp0), dp1 = panel_desc(wp1);
+  const uint64_t ds0 = panel_desc(ws0), ds1 = panel_desc(ws1);
+  const int nks = (a.d + G::kKW - 1) / G::kKW;
+
+  float dkt[G::kMB][N / 2], dvt[G::kMB][N / 2];
+#pragma unroll
+  for (int mb = 0; mb < G::kMB; ++mb)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dkt[mb][i] = dvt[mb][i] = 0.f;
+
+  for (int qt = qt_begin, i = 0; qt < qt_end; ++qt, ++i) {
+    const int s = i % kStages, q0 = qt * kRows;
+    mbar_wait(&sm.full[s], (i / kStages) & 1);
+    const T* yq = sm.y[s][0];
+    const T* ydo = sm.y[s][1];
+
+    // S = Q K^T, then P into W_P as [key][query]
+    float acc[N / 2];  // S, then dP
+    first_product<T, N, F, C>(acc, yq, dxk, dxks, nks);
+    const bool edge =
+        q0 + kRows > a.Sq || kc0 + N > a.Sk ||
+        (a.causal && (q0 < kc0 + N - 1 ||
+                      (a.window > 0 && q0 + kRows - 1 - kc0 >= a.window)));
+    const float lse[2] = {sm.row_lse[s][r0], sm.row_lse[s][r0 + 8]};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = prob(acc[4 * j + e], a.scale, lse[e >> 1]);
+        if (edge && !sees(q0 + r0 + 8 * (e >> 1),
+                          kc0 + 8 * j + 2 * t + (e & 1), a.Sq, a.Sk,
+                          a.causal, a.window))
+          p = 0.f;
+        put_w<T, N>(wp0, wp1, j, e, p);
+      }
+    fence_async_shared();
+    named_bar_sync(kConsumerBar + cw, 128);
+
+    // dV^T += dO^T P
+#pragma unroll
+    for (int mb = 0; mb < G::kMB; ++mb)
+      second_product<T, N, C>(dvt[mb], ydo, 64 * mb, dp0, dp1);
+
+    // dP = dO V^T, then dS = P o (dP - D) scale into W_dS, P read back
+    // from W_P (so S and dP are never live together: the register budget)
+    first_product<T, N, F, C>(acc, ydo, dxv, dxvs, nks);
+    const float del[2] = {sm.row_delta[s][r0], sm.row_delta[s][r0 + 8]};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        put_w<T, N>(ws0, ws1, j, e,
+                    get_w<T, N>(wp0, wp1, j, e) *
+                        (acc[4 * j + e] - del[e >> 1]) * a.scale);
+    fence_async_shared();
+    named_bar_sync(kConsumerBar + cw, 128);
+
+    // dK^T += Q^T dS
+#pragma unroll
+    for (int mb = 0; mb < G::kMB; ++mb)
+      second_product<T, N, C>(dkt[mb], yq, 64 * mb, ds0, ds1);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int mb = 0; mb < G::kMB; ++mb) {
+    store_zt<T, N>((T*)a.out0, dkt[mb], 64 * mb, kc0, b, h, a.H, a.Sk, a.d);
+    store_zt<T, N>((T*)a.out1, dvt[mb], 64 * mb, kc0, b, h, a.H, a.Sk, a.d);
+  }
+}
+
+// B3a's FFMA body (fp32 arithmetic on the CUDA cores, flash_any.cuh), for
+// fp32 at padded head dim 256 only.  Each thread computes an RT x CT block
+// of S^T = K Q^T and dP^T = V dO^T (rows = keys) per staged q-tile, forms
+// P^T and dS^T in registers and hands its rows of both to its own warp
+// through shared memory for dV += P^T dO and dK += dS^T Q, DT columns a
+// thread of each.
 template <class T, int DP>
 __global__ void __launch_bounds__(kAnyThreads, 1)
-    flash_dkv_any_kernel(Args a) {
+    flash_dkv_any_kernel_ffma(Args a) {
   using G = Geom<DP>;
   extern __shared__ float smem[];
   float* sK = smem;                  // BR x LD
@@ -151,32 +316,62 @@ __global__ void __launch_bounds__(kAnyThreads, 1)
 
 }  // namespace tpujob_flash_any
 
-// Host side: the launch and the C entry point.
+// Host side: the launches and the C entry point.
 
 using namespace tpujob_flash_any;
 
 template <class T, int DP>
-static int launch_dkv_any(const Args& a, int B, void* stream) {
-  using G = Geom<DP>;
-  const int smem = ((2 * G::BR + 2 * G::BC) * G::LD + 2 * G::BR * G::LDS +
-                    2 * G::BC) * (int)sizeof(float);
+static int launch_dkv_tc(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_tc;
+  using G = TcGeom<T, DP>;
+  constexpr int smem = (int)sizeof(TcSmem<T, DP, 2>) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int use_tma = tma_takes<T>(a.d, ptrs, 4);
+  CUtensorMap mq = {}, mk = {}, mv = {}, mdo = {};
+  int rc;
+  if (use_tma &&
+      ((rc = encode_panels<T>(&mq, a.q, B, a.Sq, a.H, a.d, kRows)) ||
+       (rc = encode_panels<T>(&mk, a.k, B, a.Sk, a.H, a.d, G::F)) ||
+       (rc = encode_panels<T>(&mv, a.v, B, a.Sk, a.H, a.d, G::F)) ||
+       (rc = encode_panels<T>(&mdo, a.dout, B, a.Sq, a.H, a.d, kRows))))
+    return rc;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_dkv_any_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.Sk + G::F - 1) / G::F, B * a.H);
+  flash_dkv_any_kernel<T, DP><<<grid, G::kBlockThreads, smem,
+                                (cudaStream_t)stream>>>(mq, mk, mv, mdo, a,
+                                                        use_tma);
+  return (int)cudaGetLastError();
+}
+
+static int launch_dkv_ffma(const Args& a, int B, void* stream) {
+  using G = Geom<256>;
+  const int smem = ((2 * G::BR + 2 * G::BC) * G::LD + 2 * G::BR * G::LDS +
+                    2 * G::BC) * (int)sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_any_kernel_ffma<float, 256>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((a.Sk + G::BR - 1) / G::BR, B * a.H);
-  flash_dkv_any_kernel<T, DP>
+  flash_dkv_any_kernel_ffma<float, 256>
       <<<grid, kAnyThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The padded head dim's instantiation, chosen before the launch: the
+// tensor-core kernel for every bucket but fp32 at 256 (the FFMA body).
 template <class T>
 static int dispatch_dkv_any(const Args& a, int B, void* stream) {
   switch (padded_dim(a.d)) {
-    case 32: return launch_dkv_any<T, 32>(a, B, stream);
-    case 64: return launch_dkv_any<T, 64>(a, B, stream);
-    case 128: return launch_dkv_any<T, 128>(a, B, stream);
-    case 256: return launch_dkv_any<T, 256>(a, B, stream);
+    case 32: return launch_dkv_tc<T, 32>(a, B, stream);
+    case 64: return launch_dkv_tc<T, 64>(a, B, stream);
+    case 128: return launch_dkv_tc<T, 128>(a, B, stream);
+    case 256:
+      if constexpr (sizeof(T) == 4) return launch_dkv_ffma(a, B, stream);
+      else return launch_dkv_tc<T, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

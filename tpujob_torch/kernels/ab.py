@@ -2,21 +2,29 @@
 
     python -m tpujob_torch.kernels.ab old=path/to/flash_fwd.cu \\
         new=tpujob_torch/csrc/flash_fwd.cu          # from the repo root
+    python -m tpujob_torch.kernels.ab --case float32:8,1024,16,64 \\
+        --case bfloat16:8,1024,8,128 old=path/to/flash_dq_any.cu \\
+        new=tpujob_torch/csrc/flash_dq_any.cu
 
 Each ``name=path`` is one version of a source with one of the C entry
-points ``tpujob_flash_fwd`` (B1), ``tpujob_flash_dq`` (B2) or
-``tpujob_flash_dkv`` (B3); all versions must have the same one.  Each is
-compiled by ``nvcc`` with ``build.py``'s flags and ``csrc/`` on the include
-path, into its own library, checked element by element against the plain
-version with ``chip_smoke.py``'s tolerance at the GPT-2-medium shape (b=8,
-s=1024, h=16, d=64, bf16, causal), then timed in turns: every version in
-order, then in reverse, twice (four readings of 50 launches each, CUDA
-events).  Prints one JSON line per version (its readings, their median,
-the worst ratio to the tolerance) and the card's name and power limit.
-Compare versions only within one run: two runs may land on two cards.
+points ``tpujob_flash_fwd`` (B1), ``tpujob_flash_dq`` (B2),
+``tpujob_flash_dkv`` (B3) or the general kernels' ``tpujob_flash_fwd_any``,
+``tpujob_flash_dq_any``, ``tpujob_flash_dkv_any`` (B1a-B3a); all versions
+must have the same one.  Each is compiled by ``nvcc`` with ``build.py``'s
+flags and ``csrc/`` on the include path, into its own library.  Then, for
+each ``--case dtype:b,s,h,d`` (default: the GPT-2-medium shape in bf16,
+8,1024,16,64; causal unless ``--noncausal``), every version is checked
+element by element against the plain version with ``chip_smoke.py``'s
+tolerance (``ANY_TOL`` for the general kernels) and timed in turns: every
+version in order, then in reverse, twice (four readings of 50 launches
+each, CUDA events).  Prints one JSON line per case and version (its
+readings, their median, the worst ratio to the tolerance) and the card's
+name and power limit.  Compare versions only within one run: two runs may
+land on two cards.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
@@ -28,7 +36,9 @@ import torch
 from tpujob_torch.kernels import build
 from tpujob_torch.workloads import flash
 
-B, S, H, D = 8, 1024, 16, 64
+STEMS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_any",
+         "flash_dq_any", "flash_dkv_any")
+GPT_CASE = "bfloat16:8,1024,16,64"
 
 
 def _build(name: str, src: Path, out: Path) -> ctypes.CDLL:
@@ -41,19 +51,29 @@ def _build(name: str, src: Path, out: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def _launcher(lib, stem: str, args: dict):
+def parse_case(text: str) -> tuple:
+    """'dtype:b,s,h,d' -> (torch dtype, (b, s, h, d))."""
+    dtype, dims = text.split(":")
+    b, s, h, d = (int(x) for x in dims.split(","))
+    return getattr(torch, dtype), (b, s, h, d)
+
+
+def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool):
     """A no-argument launch of the version's kernel on `args`, and the
     outputs it writes."""
     fn = getattr(lib, f"tpujob_{stem}")
     fn.argtypes = build.SIGNATURES[stem][f"tpujob_{stem}"]
     q, k, v, do, lse, delta = (args[n] for n in
                                ("q", "k", "v", "do", "lse", "delta"))
+    b, s, h, d = shape
     stream = torch.cuda.current_stream().cuda_stream
-    tail = (B, H, D, S, S, D ** -0.5, 1, 0, stream)
-    if stem == "flash_fwd":
+    dtype_arg = ((int(q.dtype == torch.bfloat16),) if stem.endswith("_any")
+                 else ())
+    tail = (b, h, d, s, s, d ** -0.5, int(causal), 0, *dtype_arg, stream)
+    if stem.startswith("flash_fwd"):
         outs = (torch.empty_like(q), torch.empty_like(lse))
         ptrs = (q, k, v, *outs)
-    elif stem == "flash_dq":
+    elif stem.startswith("flash_dq"):
         outs = (torch.empty_like(q),)
         ptrs = (q, k, v, do, lse, delta, *outs)
     else:
@@ -65,48 +85,73 @@ def _launcher(lib, stem: str, args: dict):
     return launch, outs
 
 
-def main(argv) -> int:
-    import chip_smoke as cs  # the tolerance and the timer of the chip smoke
-
-    versions = dict(a.split("=", 1) for a in argv)
-    stems = {next(s for s in ("flash_fwd", "flash_dq", "flash_dkv")
-                  if f"tpujob_{s}(" in Path(p).read_text())
-             for p in versions.values()}
-    if len(stems) != 1:
-        raise SystemExit(f"versions of different kernels: {sorted(stems)}")
-    stem = stems.pop()
-    out = build.BUILD_ROOT / "ab"
-    out.mkdir(parents=True, exist_ok=True)
-    libs = {n: _build(n, Path(p), out) for n, p in versions.items()}
-
+def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
+             causal: bool) -> bool:
+    """Check and time every version on one case; True if all agree."""
+    b, s, h, d = shape
+    general = stem.endswith("_any")
+    tol = cs.ANY_TOL[dtype] if general else (cs.RTOL, cs.ATOL, cs.FLOOR)
+    lse_tol = cs.ANY_LSE_TOL if general else cs.LSE_TOL
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(4))
-    kw = dict(causal=True, scale=D ** -0.5)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                               dtype=dtype) for _ in range(4))
+    kw = dict(causal=causal, scale=d ** -0.5)
     o, lse = flash.flash_forward_ref(q, k, v, **kw)
     delta = flash.attention_delta(o, do)
     args = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    base = stem.replace("_any", "")
     refs = {"flash_fwd": (o, lse),
             "flash_dq": (flash.flash_dq_ref(q, k, v, do, lse, delta, **kw),),
             "flash_dkv": flash.flash_dkv_ref(q, k, v, do, lse, delta, **kw)}
-    runs = {n: _launcher(lib, stem, args) for n, lib in libs.items()}
+    runs = {n: _launcher(lib, stem, args, shape, causal)
+            for n, lib in libs.items()}
     worst = {}
     for n, (launch, outs) in runs.items():
         launch()
         torch.cuda.synchronize()
-        worst[n] = max(cs.compare(got, ref)["worst_ratio"] if got.dtype ==
-                       torch.bfloat16 else (got - ref).abs().max().item()
-                       / cs.LSE_TOL for got, ref in zip(outs, refs[stem]))
+        worst[n] = max(cs.compare(got, ref, tol)["worst_ratio"]
+                       if got.dtype == dtype else
+                       (got - ref).abs().max().item() / lse_tol
+                       for got, ref in zip(outs, refs[base]))
     ms = {n: [] for n in runs}
     order = list(runs) + list(runs)[::-1]
     for n in order + order:
         ms[n].append(cs.time_ms(runs[n][0], iters=50, warmup=5))
     for n in runs:
         cs.emit({"version": n, "source": versions[n], "kernel": stem,
-                 "ms": ms[n], "median_ms": statistics.median(ms[n]),
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "shape": list(shape), "causal": causal, "ms": ms[n],
+                 "median_ms": statistics.median(ms[n]),
                  "worst_ratio_to_tolerance": worst[n]})
+    return all(r <= 1 for r in worst.values())
+
+
+def main(argv) -> int:
+    import chip_smoke as cs  # the tolerances and the timer of the chip smoke
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--case", action="append", type=parse_case,
+                   help="dtype:b,s,h,d (repeatable; default "
+                        f"{GPT_CASE})")
+    p.add_argument("--noncausal", action="store_true")
+    p.add_argument("versions", nargs="+", help="name=path of each version")
+    args = p.parse_args(argv)
+    versions = dict(a.split("=", 1) for a in args.versions)
+    stems = {next(s for s in STEMS[::-1]
+                  if f"tpujob_{s}(" in Path(path).read_text())
+             for path in versions.values()}
+    if len(stems) != 1:
+        raise SystemExit(f"versions of different kernels: {sorted(stems)}")
+    stem = stems.pop()
+    out = build.BUILD_ROOT / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {n: _build(f"{stem}_{n}", Path(path), out)
+            for n, path in versions.items()}
+    ok = all([run_case(cs, stem, libs, versions, dtype, shape,
+                       not args.noncausal)
+              for dtype, shape in args.case or [parse_case(GPT_CASE)]])
     print(cs.smi_line(), flush=True)
-    return 0 if all(r <= 1 for r in worst.values()) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
