@@ -14,8 +14,8 @@ Phases, one JSON line each on stdout:
    each warpgroup role's ``setmaxnreg`` budget; a spill fails the phase, and
    so does ptxas' C7518 ("wgmma serialized") or C7517 ("warpgroup.wait
    injected"): the tuned kernels and B2a/B3a are wgmma kernels, and either
-   note means the products of one no longer overlap (B1a uses no tensor
-   core).
+   note means the products of one no longer overlap (the tuned kernels
+   and B1a-B3a are all wgmma kernels).
 3. ``kernel``: each flash kernel (B1 forward, B2 dQ, B3 dK/dV) at the
    GPT-2-medium shapes (b=8, s=1024, h=16, d=64, bf16, causal), at a ragged
    length (s=1000), with a sliding window (256), at the BERT-large
@@ -34,15 +34,16 @@ Phases, one JSON line each on stdout:
    ``bound_share`` (bound / time); ``backward``: B2 and B3 launched back
    to back, timed together, beside SDPA's backward (one call for dQ, dK
    and dV).  Then the general kernels B1a-B3a (``flash_*_any``, fp32 or
-   bf16 at any head dim; B1a FFMA, B2a/B3a wgmma with split precision):
+   bf16 at any head dim; wgmma with split precision, fp32 at padded head
+   dim 256 on the FFMA body):
    fp32 at GPT's shape (``any_gpt_f32``, timed), fp32 at the dryrun's
    head dim 16 without the mask, bf16 at head dim 128 (timed; and with a
    256 window) and 80 (timed), fp32 at head dim 256 and a ragged s=1000,
    each within ANY_TOL of its plain version; their bound takes the TF32
    peak for fp32 (one pass, so the rows stay comparable) with the FFMA
-   peak's beside it (``ffma_bound_ms``) and, for B2a/B3a, the split's
-   reach (``split_reach_ms``: three tf32 passes of every product in fp32;
-   in bf16 one pass of S and dP, two of the products with P and dS), and
+   peak's beside it (``ffma_bound_ms``) and the split's reach
+   (``split_reach_ms``: three tf32 passes of every product in fp32; in
+   bf16 one pass of S and dP, two of the products with P and dS), and
    SDPA is timed in the case's dtype.
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
@@ -538,7 +539,7 @@ BENCH_SCALING_KEYS = {"metric", "value", "unit", "step_ms_1dev",
 SCALING_LOSS_RTOL = 1e-5
 
 # The _any kernels (fp32 or bf16 at any head dim, fp32 arithmetic like the
-# plain versions, B2a/B3a's products on the tensor cores at 22 of fp32's 24
+# plain versions, B1a-B3a's products on the tensor cores at 22 of fp32's 24
 # bits: 3xTF32) against their plain versions, element by element as
 # ``compare`` with (rtol, atol of the row rms, floor of the rms): in fp32
 # the two differ in summation order, the exp/log approximations and the
@@ -567,11 +568,13 @@ FP32_D128_ARGV = ["--layers", "2", "--heads", "8", "--attention", "flash",
 DRYRUN_N = 8
 DRYRUN_LOSS_RTOL = 1e-4
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak: a redesign's reach
-H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: what B1a runs on
-# B2a/B3a's split precision: tensor-core passes over the one-pass FLOPs
+H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: the FFMA body's (fp32, d > 128)
+# B1a-B3a's split precision: tensor-core passes over the one-pass FLOPs
 # (fp32: 3xTF32; bf16: S and dP once, the products with P and dS twice)
-SPLIT_PASSES = {torch.float32: {"flash_dq_any": 3, "flash_dkv_any": 3},
-                torch.bfloat16: {"flash_dq_any": 8 / 6,
+SPLIT_PASSES = {torch.float32: {"flash_fwd_any": 3, "flash_dq_any": 3,
+                                "flash_dkv_any": 3},
+                torch.bfloat16: {"flash_fwd_any": 3 / 2,
+                                 "flash_dq_any": 8 / 6,
                                  "flash_dkv_any": 12 / 8}}
 
 
@@ -706,8 +709,8 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                   d: int = MAIN["d"], dtype=torch.bfloat16,
                   suffix: str = "") -> dict:
     """B1-B3 (``suffix`` "") or B1a-B3a (``suffix`` "_any", with
-    ``ANY_TOL`` and the FFMA-peak bound beside) against their plain
-    versions on one shape; timed, each kernel's ms beside its plain
+    ``ANY_TOL``, the FFMA-peak bound and the split's reach beside) against
+    their plain versions on one shape; timed, each kernel's ms beside its plain
     version's, SDPA's in the same dtype and its bound: bytes over the
     card's rate or FLOPs over the bf16 peak, or the TF32 peak for fp32 (a
     redesign's reach)."""

@@ -11,12 +11,12 @@ exists.  The three tuned kernels (B1 ``flash_fwd.cu``, B2 ``flash_dq.cu``,
 B3 ``flash_dkv.cu``) must keep their wgmma + TMA + mbarrier design, and no
 source or header may hold the mma.sync pieces of the first port.  Of the
 three general kernels, each with a C entry point that takes the dtype
-(``is_bf16``), the forward (``flash_fwd_any.cu`` on ``flash_any.cuh``) is
-an FFMA kernel with no tensor-core instruction; dQ and dK/dV
-(``flash_dq_any.cu``, ``flash_dkv_any.cu`` on ``flash_tc.cuh``) run their
-products on wgmma with split precision (tf32 in three passes, bf16 with a
-high and a low part) and copy tiles by TMA or a producer warpgroup, the
-FFMA body kept for fp32 at padded head dim 256 only.
+(``is_bf16``), the forward (``flash_fwd_any.cu`` on ``flash_fwd_tc.cuh``),
+dQ and dK/dV (``flash_dq_any.cu``, ``flash_dkv_any.cu`` on
+``flash_tc.cuh``) run their products on wgmma with split precision (tf32 in
+three passes, bf16 with P or dS as a high and a low part) and copy tiles by
+TMA or a producer warpgroup's plain copies, the FFMA body kept for fp32 at
+padded head dim 256 only, chosen before the launch.
 """
 import ctypes
 import re
@@ -116,41 +116,93 @@ def test_hopper_kernels_use_wgmma_tma_and_mbarriers(stem):
 ANY_STEMS = ["flash_fwd_any", "flash_dq_any", "flash_dkv_any"]
 
 
+def squeeze(code: str) -> str:
+    """C code with each run of whitespace as one space."""
+    return " ".join(code.split())
+
+
+# B1a's passes, whitespace squeezed: S (flash_fwd_tc.cuh's scores_of) in
+# 3xTF32 (big x small, small x big, big x big) or one bf16 wgmma, over a
+# compile-time count of k-steps; P V (flash_fwd_any.cu) in 3xTF32 into a
+# per-tile accumulator, or P's low and high bf16 parts against V read
+# transposed
+FWD_S_PASSES = (
+    "mma_tf32_ss(sc, dq0 + kstep<BM>(ks), dk1 + kstep<KT>(ks), ks > 0)",
+    "mma_tf32_ss(sc, dq1 + kstep<BM>(ks), dk0 + kstep<KT>(ks), 1)",
+    "mma_tf32_ss(sc, dq0 + kstep<BM>(ks), dk0 + kstep<KT>(ks), 1)",
+    "wgmma_m64n64_ss(sc, dq0 + kstep<BM>(ks), dk0 + kstep<KT>(ks), ks > 0)",
+    "for (int ks = 0; ks < NKS; ++ks)")
+FWD_PV_PASSES = (
+    "scores<T, BM, KT, G::kNksLo, G::kNksHi>(nks, sc,",
+    "p_tf32(sc, j, pb[j], ps[j])", "mma_tf32(ot[nb], pb[j], dv1 +",
+    "mma_tf32(ot[nb], ps[j], dv0 +", "mma_tf32(ot[nb], pb[j], dv0 +",
+    "p_bf16(sc, kk, hi[kk], lo[kk])", "wgmma_m64nN_rs_t(o[nb], lo[kk], dv)",
+    "wgmma_m64nN_rs_t(o[nb], hi[kk], dv)")
+
+
 @pytest.mark.parametrize("stem", ANY_STEMS)
-def test_general_kernels_are_ffma_kernels_on_their_header(stem):
-    """B1a is an FFMA kernel; B2a/B3a issue wgmma (tf32 and bf16) with the
-    split, from TMA or the producer's copies, their FFMA body only for
-    fp32 at padded head dim 256."""
+def test_general_kernels_run_on_wgmma_with_the_split(stem):
+    """B1a-B3a issue wgmma (tf32 and bf16) with the split, from TMA or the
+    producer's copies, their FFMA body only for fp32 at padded head dim
+    256, chosen before the launch; no mma.sync and no atomics."""
     src = (CSRC / f"{stem}.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
     assert "is_bf16" in code
     assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
     assert [sym for s, sym, _ in ENTRIES if s == stem] == [f"tpujob_{stem}"]
-    if stem == "flash_fwd_any":
-        assert '#include "flash_any.cuh"' in src
-        assert "fmaf(" in code
-        for piece in ("wgmma", "mma.sync", "hopper.cuh", "tma_load"):
-            assert piece not in code, f"{stem}.cu uses {piece}"
-        return
     header = re.sub(r"//[^\n]*", "", (CSRC / "flash_tc.cuh").read_text())
-    assert '#include "flash_tc.cuh"' in src
-    for piece in ("first_product<T, ", "second_product<T, ", "put_w<T, ",
-                  "produce<T, kRows, C>(", "encode_panels<T>(",
-                  "tma_takes<T>(", "__grid_constant__ CUtensorMap"):
-        assert piece in code, f"{stem}.cu lacks {piece}"
+    hopper = re.sub(r"//[^\n]*", "", (CSRC / "hopper.cuh").read_text())
     for piece in ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
                   "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
-                  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
-                  "cp.async.bulk.tensor.4d", "fence.proxy.async",
-                  "mma_tf32(part, big[u], dxs +",   # big x small
-                  "mma_tf32(part, small[u], dx +",  # small x big
-                  "mma_tf32(part, big[u], dx +",    # big x big
-                  "mma_bf16(z, a[u], dw1 +",        # P / dS low part
-                  "mma_bf16(z, a[u], dw0 +"):       # P / dS high part
+                  "cp.async.bulk.tensor.4d", "fence.proxy.async"):
         assert piece in header, f"flash_tc.cuh lacks {piece}"
-    # the FFMA body for fp32 at 256 alone, chosen before the launch
     kind = stem.split("_")[1]
+    if stem == "flash_fwd_any":
+        fwd = re.sub(r"//[^\n]*", "",
+                     (CSRC / "flash_fwd_tc.cuh").read_text())
+        assert '#include "flash_fwd_tc.cuh"' in src
+        assert '#include "flash_tc.cuh"' in fwd
+        flat = squeeze(code)
+        for piece in FWD_PV_PASSES + ("encode_panels<T>(", "tma_takes<T>(",
+                                      "__grid_constant__ CUtensorMap",
+                                      "produce_fwd<T, DP>("):
+            assert piece in flat, f"{stem}.cu lacks {piece}"
+        for piece in FWD_S_PASSES:
+            assert piece in squeeze(fwd), f"flash_fwd_tc.cuh lacks {piece}"
+        # tf32 with both operands in shared memory (S); bf16 S with both
+        # K-major, P V with B transposed (the last immediate)
+        assert ("wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+                in fwd and "%16, %17, p, 1, 1;" in fwd)
+        assert "%32, %33, p, 1, 1, 0, 0;" in hopper
+        assert "%36, p, 1, 1, 1;" in hopper
+        # TMA (one box a panel, K landed then split) and the plain copies
+        for piece in ("tma_load_panel(", "mbar_arrive_expect_tx(&sm.q_land",
+                      "mbar_wait(&sm.land[s], ph)", "split_tile<KT * C>(",
+                      "copy_split<KT, C>(", "copy_split<BM, C>(",
+                      "put_vt<DP, KT>(", "copy_tile<T, BM, C>(",
+                      "produce<T, KT, C>(", "fence_async_shared();"):
+            assert piece in fwd, f"flash_fwd_tc.cuh lacks {piece}"
+        # FFMA products only in the fp32 head-dim-256 body
+        tc_body = code[code.index("flash_fwd_any_kernel(const"):
+                       code.index("flash_fwd_any_kernel_ffma(Args a)")]
+        ffma_body = code[code.index("flash_fwd_any_kernel_ffma(Args a)"):]
+        assert "fmaf(" not in tc_body + fwd and "fmaf(" in ffma_body
+        assert "atomicAdd" not in code + fwd
+    else:
+        assert '#include "flash_tc.cuh"' in src
+        for piece in ("first_product<T, ", "second_product<T, ", "put_w<T, ",
+                      "produce<T, kRows, C>(", "encode_panels<T>(",
+                      "tma_takes<T>(", "__grid_constant__ CUtensorMap"):
+            assert piece in code, f"{stem}.cu lacks {piece}"
+        for piece in ("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16",
+                      "mma_tf32(part, big[u], dxs +",   # big x small
+                      "mma_tf32(part, small[u], dx +",  # small x big
+                      "mma_tf32(part, big[u], dx +",    # big x big
+                      "mma_bf16(z, a[u], dw1 +",        # P / dS low part
+                      "mma_bf16(z, a[u], dw0 +"):       # P / dS high part
+            assert piece in header, f"flash_tc.cuh lacks {piece}"
+    # the FFMA body for fp32 at 256 alone, chosen before the launch
     assert f"flash_{kind}_any_kernel_ffma<float, 256>" in code
     assert (f"if constexpr (sizeof(T) == 4) return launch_{kind}_ffma"
             in code)
@@ -158,7 +210,8 @@ def test_general_kernels_are_ffma_kernels_on_their_header(stem):
 
 
 @pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh",
-                                  "flash_any.cuh", "flash_tc.cuh"])
+                                  "flash_any.cuh", "flash_tc.cuh",
+                                  "flash_fwd_tc.cuh"])
 def test_headers_hold_no_mma_sync_pieces(name):
     src = (CSRC / name).read_text()
     assert not mma_sync_pieces(src), f"{name} holds {mma_sync_pieces(src)}"

@@ -10,8 +10,8 @@ Tolerance, element by element: |kernel - plain| <= 2e-2 x |plain| +
 element's row of head_dim values and the last term a floor for rows that
 are exactly 0 (bf16 outputs, P and dS rounded to bf16 for the tensor
 cores); lse 1e-3 (fp32 in both).  The ``_any`` kernels (fp32 or bf16 at
-any head dim, fp32 arithmetic like the plain versions; dQ and dK/dV with
-their products on the tensor cores in split precision) are held tighter:
+any head dim, fp32 arithmetic like the plain versions, their products on
+the tensor cores in split precision) are held tighter:
 in fp32 1e-5 x |plain| + 1e-5 x rms_row + 1e-6 x rms (the two differ in
 summation order, the exp/log approximations and the split's 22 of 24
 bits), in bf16 1e-2 x |plain| + 1e-3 x rms_row + 1e-4 x rms (one bf16 ulp
@@ -243,6 +243,23 @@ def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
              *flash.flash_dkv_any_cuda(q, k, v, do, lse, delta, **kw))
             for _ in range(2)]
     for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,seq", [
+    (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
+    (torch.float32, 33, 200), (torch.bfloat16, 36, 130)])
+def test_any_forward_launches_give_equal_bits(cuda, dtype, d, seq):
+    """Two launches of the _any forward on the same inputs give the same o
+    and lse bits (each consumer owns its rows of O: no atomics), by TMA
+    (fp32 at 64, bf16 at 128) and by the producer's plain copies (33, 36)."""
+    gen = torch.Generator(device=cuda).manual_seed(seq + d)
+    q, k, v = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
+                           dtype=dtype) for _ in range(3))
+    kw = dict(causal=True, scale=d ** -0.5)
+    runs = [flash.flash_fwd_any_cuda(q, k, v, **kw) for _ in range(2)]
+    for name, a, b in zip(("o", "lse"), *runs):
         assert torch.equal(a, b), name
 
 

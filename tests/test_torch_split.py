@@ -1,5 +1,6 @@
-"""The numerics plan of the general backward kernels B2a/B3a
-(``tpujob_torch/csrc/flash_tc.cuh``), on the CPU: their products emulated
+"""The numerics plan of the general kernels on the tensor cores, B2a/B3a
+(``tpujob_torch/csrc/flash_tc.cuh``) and B1a (``flash_fwd_tc.cuh``), on
+the CPU: their products emulated
 on the plain backward at a small shape, held to the card tests' ``ANY_TOL``
 against ``flash_dq_ref`` / ``flash_dkv_ref``.
 
@@ -19,6 +20,12 @@ ANY_TOL everywhere.  One pass misses it in fp32 by two orders of
 magnitude; in bf16 it stays under 2x of it at these sizes (one rounding of
 P and dS to bf16 against the output's own), so there the test holds the
 split to no worse than one pass and prints both (``-s``).
+
+B1a's plan on ``flash_forward_ref``'s math: S = Q K^T in 3xTF32 (fp32) or
+exact (bf16), the softmax in fp32, P V in 3xTF32 (fp32) or with P as a
+bf16 high + low part (bf16); o held to ANY_TOL and lse to ANY_LSE_TOL.
+One pass (the raw fp32 words read as tf32; P's high part alone in bf16)
+misses in fp32 by more than 2x.
 """
 import pytest
 import torch
@@ -132,3 +139,52 @@ def test_split_meets_any_tol_and_one_pass_does_not(dtype, d, seq, causal):
     assert max(split) <= max(one_pass), (split, one_pass)
     if dtype == torch.float32:  # a clear margin: one pass misses ANY_TOL
         assert min(one_pass) > 2, one_pass
+
+
+ANY_LSE_TOL = 1e-5  # the card tests' lse bound (absolute, fp32)
+
+
+def emulated_forward(q, k, v, *, causal, scale, split):
+    """(o, lse) with B1a's products on the plain forward: S in the split
+    (or one pass), the masked softmax in fp32, P V with P's parts."""
+    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True) * scale
+    vis = flash._visible(q.shape[1], k.shape[1], causal, 0, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, flash.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = tc_product("bkhd,bhqk->bqhd", v, p, split=split, first=False)
+    o = acc / l.squeeze(-1).transpose(1, 2)[..., None]
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def forward_ratios(dtype, d, seq, causal):
+    """Worst ratios (o to ANY_TOL, lse to ANY_LSE_TOL) of the split and of
+    one pass."""
+    gen = torch.Generator().manual_seed(seq + d)
+    q, k, v = (torch.randn(1, seq, 2, d, generator=gen).to(dtype)
+               for _ in range(3))
+    kw = dict(causal=causal, scale=d ** -0.5)
+    o_ref, lse_ref = flash.flash_forward_ref(q, k, v, **kw)
+    out = []
+    for split in (True, False):
+        o, lse = emulated_forward(q, k, v, split=split, **kw)
+        out.append([worst_ratio(o, o_ref, ANY_TOL[dtype]),
+                    (lse - lse_ref).abs().max().item() / ANY_LSE_TOL])
+    return out
+
+
+@pytest.mark.parametrize("dtype,d,seq,causal", CASES)
+def test_forward_split_meets_any_tol_and_one_pass_does_not(dtype, d, seq,
+                                                           causal):
+    split, one_pass = forward_ratios(dtype, d, seq, causal)
+    print(f"{dtype} d={d} s={seq} causal={causal}: forward worst ratio "
+          f"(o to ANY_TOL, lse to ANY_LSE_TOL) split {split}, one pass "
+          f"{one_pass}")
+    assert max(split) <= 1, split
+    assert split[0] <= one_pass[0], (split, one_pass)
+    if dtype == torch.float32:  # a clear margin: one pass misses ANY_TOL
+        assert one_pass[0] > 2, one_pass

@@ -2,12 +2,13 @@
 // flash_dq_any.cu, flash_dkv_any.cu): fp32 or bf16 inputs at any head dim
 // from 1 to 256, where the tuned kernels (bf16 at head dim 32 and 64) do
 // not apply.  Their arguments, masks and head-dim buckets, and the FFMA
-// body (fp32 arithmetic on the CUDA cores) below: the forward's, and the
-// backward's for fp32 at padded head dim 256 only.  FFMA was the first
-// design because wgmma takes no fp32 input and one tf32 pass keeps about
-// three digits; the backward (flash_tc.cuh) now splits each fp32 operand
-// into two tf32 parts (3xTF32) and keeps fp32's accuracy on the tensor
-// cores.
+// body (fp32 arithmetic on the CUDA cores) below, which the three kernels
+// keep for fp32 at padded head dim 256 only (there a tensor-core block's
+// tiles and their small parts do not fit shared memory).  Every other
+// input runs on the tensor cores: wgmma takes no fp32 input and one tf32
+// pass keeps about three digits, so each fp32 operand is split into two
+// tf32 parts (3xTF32), which keeps fp32's accuracy (flash_tc.cuh for dQ
+// and dK/dV, flash_fwd_tc.cuh for the forward).
 //
 // Layout as flash_common.cuh: q, k, v, o, dO, dQ, dK, dV contiguous
 // [B, S, H, d] in the input's dtype; lse and delta flat fp32 [B, H, S].

@@ -10,10 +10,10 @@ and an unchanged one is reused.  Six sources, one library each:
   (B1-B3), templates on the head dim instantiated for 32 and 64 in bf16
   (the C entry point's ``switch`` on ``D``);
 - ``flash_fwd_any``, ``flash_dq_any``, ``flash_dkv_any``: the general
-  kernels (B1-B3 in fp32 or bf16 at head dim 1-256; the forward FFMA, dQ
-  and dK/dV wgmma with split precision), templates on the dtype and on
-  the padded head dim 32/64/128/256, the entry point taking ``D`` and
-  ``is_bf16``.
+  kernels (B1-B3 in fp32 or bf16 at head dim 1-256; wgmma with split
+  precision, fp32 at padded head dim 256 on an FFMA body), templates on
+  the dtype and on the padded head dim 32/64/128/256, the entry point
+  taking ``D`` and ``is_bf16``.
 
 ``workloads/flash.py`` chooses between the two sets by dtype and head
 dim before the launch.  The hash of the sources covers the
