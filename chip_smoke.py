@@ -34,14 +34,16 @@ Phases, one JSON line each on stdout:
    ``bound_share`` (bound / time); ``backward``: B2 and B3 launched back
    to back, timed together, beside SDPA's backward (one call for dQ, dK
    and dV).  Then the general kernels B1a-B3a (``flash_*_any``, fp32 or
-   bf16 at any head dim; wgmma with split precision, fp32 at padded head
-   dim 256 on the FFMA body):
+   bf16 at any head dim; wgmma with split precision, but for B2a at fp32
+   and padded head dim 256, which runs the FFMA body; B1a and B3a take
+   their own wgmma kernels there):
    fp32 at GPT's shape (``any_gpt_f32``, timed), fp32 at the dryrun's
    head dim 16 without the mask, bf16 at head dim 128 (timed; and with a
-   256 window) and 80 (timed), fp32 at head dim 256 and a ragged s=1000,
-   each within ANY_TOL of its plain version; their bound takes the TF32
-   peak for fp32 (one pass, so the rows stay comparable) with the FFMA
-   peak's beside it (``ffma_bound_ms``) and the split's reach
+   256 window) and 80 (timed), fp32 at head dim 256 (``any_d256_f32``,
+   b=8, s=1024, h=8: the d=256 GPT's attention, timed; and at a ragged
+   s=1000), each within ANY_TOL of its plain version; their bound takes
+   the TF32 peak for fp32 (one pass, so the rows stay comparable) with
+   the FFMA peak's beside it (``ffma_bound_ms``) and the split's reach
    (``split_reach_ms``: three tf32 passes of every product in fp32; in
    bf16 one pass of S and dP, two of the products with P and dS), and
    SDPA is timed in the case's dtype.
@@ -83,7 +85,12 @@ Phases, one JSON line each on stdout:
    same seed at ``--attention dense`` in fp32; tokens/s and ms a step over
    the last 6 steps, peak memory.  Then a 2-layer GPT at hidden 1024 and 8
    heads (head dim 128, bf16, flash), 4 steps through the ``_any``
-   kernels (16 / 8 / 8 launches), losses falling.
+   kernels (16 / 8 / 8 launches), losses falling; and a 2-layer GPT at
+   hidden 2048, 8 heads of 256, intermediate 8192 in fp32 (flash, batch
+   8, seq 1024, captured; Gemma-2B's head width as multi-head attention)
+   for 2 + 4 steps: 4 / 2 / 2 ``_any`` launches a step, losses finite and
+   falling, step 1's loss within FP32_LOSS_RTOL of one dense fp32 step,
+   ms a step and peak memory.
 9. ``decode``: the serving path — ``gpt.run --steps 1 --generate 32`` at
    GPT-2-medium, then on that model, from a batch-8 prompt of 16 synthetic
    tokens, 48 greedy new tokens by each route: ``generate_cached`` (dense
@@ -552,7 +559,10 @@ ANY_LSE_TOL = 1e-5
 # --no-bf16 --attention flash, captured, 2 + 6 steps; its step-1 loss
 # against one step of the same seed at --attention dense in fp32 (the two
 # attentions differ in summation order only, TF32 off for both); then a
-# 2-layer GPT at hidden 1024 and 8 heads (head dim 128, bf16, flash)
+# 2-layer GPT at hidden 1024 and 8 heads (head dim 128, bf16, flash); and
+# a 2-layer GPT at hidden 2048 and 8 heads (head dim 256, fp32, flash:
+# B1a and B3a's fp32 head-dim-256 kernels, B2a's FFMA body) against one
+# dense fp32 step, 2 + 4 steps
 FP32_ARGV = ["--no-bf16", "--attention", "flash", "--batch-size", "8",
              "--log-interval", "1", "--seed", "0"]
 FP32_WARMUP, FP32_TIMED = 2, 6
@@ -561,6 +571,11 @@ FP32_D128_STEPS = 4
 FP32_D128_ARGV = ["--layers", "2", "--heads", "8", "--attention", "flash",
                   "--batch-size", "8", "--log-interval", "1", "--seed", "0",
                   "--steps", str(FP32_D128_STEPS)]
+FP32_D256_ARGV = ["--layers", "2", "--hidden", "2048", "--heads", "8",
+                  "--intermediate", "8192", "--no-bf16", "--attention",
+                  "flash", "--batch-size", "8", "--log-interval", "1",
+                  "--seed", "0"]
+FP32_D256_WARMUP, FP32_D256_TIMED = 2, 4
 # dryrun: the JAX package's multi-device matrix at 8 gloo ranks sharing
 # the card (graft_entry.dryrun_multichip), then at 8 ranks on the CPU; each
 # case's loss on the card within DRYRUN_LOSS_RTOL of the CPU's (fp32 both,
@@ -568,7 +583,8 @@ FP32_D128_ARGV = ["--layers", "2", "--heads", "8", "--attention", "flash",
 DRYRUN_N = 8
 DRYRUN_LOSS_RTOL = 1e-4
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak: a redesign's reach
-H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: the FFMA body's (fp32, d > 128)
+H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: B2a's FFMA body's (fp32,
+                            # d > 128; B1a and B3a run wgmma there)
 # B1a-B3a's split precision: tensor-core passes over the one-pass FLOPs
 # (fp32: 3xTF32; bf16: S and dP once, the products with P and dS twice)
 SPLIT_PASSES = {torch.float32: {"flash_fwd_any": 3, "flash_dq_any": 3,
@@ -684,11 +700,14 @@ def ptxas_report(build) -> list:
     """ptxas' register and spill lines for each source (and its C75xx notes
     of wgmma serialized or waits injected), beside the register budget
     that ``setmaxnreg`` gives each warpgroup role where the source sets one
-    (ptxas reports the count at the kernel's entry only)."""
+    (ptxas reports the count at the kernel's entry only), read from the
+    source and the headers it includes."""
     out = []
     for log in sorted(build.build_dir().glob("*.log")):
         text = log.read_text()
         src = (build.CSRC / f"{log.stem}.cu").read_text()
+        src += "".join((build.CSRC / h).read_text() for h in
+                       re.findall(r'#include "([^"]+)"', src))
         roles = {role.lower(): {"setmaxnreg": int(n)} for role, n in
                  re.findall(r"constexpr int k(Producer|Consumer)Regs = (\d+);",
                             src)}
@@ -1149,7 +1168,8 @@ def run_fp32() -> dict:
     --attention flash``) through gpt.run, captured, launches counted from
     0; its step-1 loss against one step at ``--attention dense`` in fp32
     from the same seed (TF32 off for matrix products and convolutions);
-    then a 2-layer GPT at head dim 128 in bf16.  Tokens/s and ms a step
+    then a 2-layer GPT at head dim 128 in bf16, and a 2-layer GPT at head
+    dim 256 in fp32 against one dense fp32 step.  Tokens/s and ms a step
     over the timed steps, peak memory."""
     import gc
 
@@ -1197,6 +1217,9 @@ def run_fp32() -> dict:
         d128_launches = dict(flash.LAUNCHES)
         d128_head_dim = d128["state"]["model"].layer_0.attn.d
         del d128["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        d256 = fp32_d256(parse)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -1226,6 +1249,7 @@ def run_fp32() -> dict:
             "flash_fwd_any": 4 * FP32_D128_STEPS,
             "flash_dq_any": 2 * FP32_D128_STEPS,
             "flash_dkv_any": 2 * FP32_D128_STEPS}),
+        **{"d256_" + k: v for k, v in d256.pop("checks").items()},
     }
     ok = all(checks.values())
     emit({"phase": "fp32", "ok": ok, "checks": checks, "argv": FP32_ARGV,
@@ -1237,10 +1261,72 @@ def run_fp32() -> dict:
           "step_ms_median": statistics.median(ms), "step_ms_all": ms,
           "peak_mem_gb": peak_gb, "d128_argv": FP32_D128_ARGV,
           "d128_losses": d128["losses"], "d128_launches": d128_launches,
-          "d128_step_mode": d128["step_mode"]})
+          "d128_step_mode": d128["step_mode"], "d256": d256})
     if not ok:
         raise AssertionError(f"fp32 phase failed: {checks}")
     return launches
+
+
+def fp32_d256(parse) -> dict:
+    """The fp32 head-dim-256 path: FP32_D256_ARGV through gpt.run (``parse``
+    adds the steps, device and log dir), captured, launches counted from
+    0, then one step of the same seed at ``--attention dense``; the caller
+    has turned TF32 off."""
+    import gc
+
+    from tpujob_torch.workloads import flash, gpt
+
+    steps = FP32_D256_WARMUP + FP32_D256_TIMED
+    stamps = []
+
+    def on_step(i: int) -> None:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    res = gpt.run(parse(FP32_D256_ARGV, steps), on_step=on_step)
+    launches = dict(flash.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model = res.pop("state")["model"]
+    head_dim = model.layer_0.attn.d
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash.reset_launches()
+    dense = gpt.run(parse([("dense" if a == "flash" else a)
+                           for a in FP32_D256_ARGV], 1))
+    dense_launches = dict(flash.LAUNCHES)
+    del dense["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = res["losses"]
+    loss_rel = abs(losses[0] - dense["losses"][0]) / abs(dense["losses"][0])
+    ms = [(y - x) * 1e3 for x, y in zip(stamps[FP32_D256_WARMUP - 1:],
+                                       stamps[FP32_D256_WARMUP:])]
+    layers = flag(FP32_D256_ARGV, "--layers")
+    return {
+        "checks": {
+            "losses": (len(losses) == steps
+                       and all(math.isfinite(x) for x in losses)
+                       and losses[-1] < losses[0]),
+            "captured": res["step_mode"] == "graph",
+            "head_dim": head_dim == 256,
+            "launches": launches == launched({
+                "flash_fwd_any": 2 * layers * steps,
+                "flash_dq_any": layers * steps,
+                "flash_dkv_any": layers * steps}),
+            "dense_launches": dense_launches == launched({}),
+            "step1_vs_dense": loss_rel <= FP32_LOSS_RTOL},
+        "argv": FP32_D256_ARGV, "params": n_params, "losses": losses,
+        "dense_step1_loss": dense["losses"][0], "step1_rel_diff": loss_rel,
+        "launches": launches, "step_mode": res["step_mode"],
+        "window_tokens_per_sec": (FP32_D256_TIMED
+                                  * flag(FP32_D256_ARGV, "--batch-size")
+                                  * 1024 * 1e3 / sum(ms)),
+        "step_ms_median": statistics.median(ms), "step_ms_all": ms,
+        "peak_mem_gb": peak_gb}
 
 
 def chosen_within_tol(logits, out, first: int) -> float:
@@ -3078,6 +3164,11 @@ def main(argv=None) -> int:
                       d=128, suffix="_any", window=256, timed=False)
         any_timed["any_d80_bf16"] = check_kernels(
             case="any_d80_bf16", dtype=bf16, b=8, s=1024, h=16, d=80,
+            timed=True, **anyk)
+        # fp32 at head dim 256: the d=256 GPT's attention (b 8, s 1024,
+        # 8 heads), timed, then a ragged length
+        any_timed["any_d256_f32"] = check_kernels(
+            case="any_d256_f32", dtype=f32, b=8, s=1024, h=8, d=256,
             timed=True, **anyk)
         check_kernels(case="any_d256_f32_s1000", dtype=f32, b=2, s=1000, h=4,
                       d=256, timed=False, **anyk)

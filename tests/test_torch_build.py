@@ -15,8 +15,10 @@ three general kernels, each with a C entry point that takes the dtype
 dQ and dK/dV (``flash_dq_any.cu``, ``flash_dkv_any.cu`` on
 ``flash_tc.cuh``) run their products on wgmma with split precision (tf32 in
 three passes, bf16 with P or dS as a high and a low part) and copy tiles by
-TMA or a producer warpgroup's plain copies, the FFMA body kept for fp32 at
-padded head dim 256 only, chosen before the launch.
+TMA or a producer warpgroup's plain copies.  fp32 at padded head dim 256
+(129-256) runs its own wgmma kernel in the forward and dK/dV
+(``*_kernel_f32_256``) and the FFMA body in dQ only, each chosen before the
+launch.
 """
 import ctypes
 import re
@@ -143,8 +145,9 @@ FWD_PV_PASSES = (
 @pytest.mark.parametrize("stem", ANY_STEMS)
 def test_general_kernels_run_on_wgmma_with_the_split(stem):
     """B1a-B3a issue wgmma (tf32 and bf16) with the split, from TMA or the
-    producer's copies, their FFMA body only for fp32 at padded head dim
-    256, chosen before the launch; no mma.sync and no atomics."""
+    producer's copies; fp32 at padded head dim 256 goes, before the
+    launch, to its own wgmma kernel in B1a and B3a and to the FFMA body in
+    B2a alone; no mma.sync and no atomics."""
     src = (CSRC / f"{stem}.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
     assert "is_bf16" in code
@@ -154,6 +157,7 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
     hopper = re.sub(r"//[^\n]*", "", (CSRC / "hopper.cuh").read_text())
     for piece in ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
                   "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
+                  "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32",
                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
                   "cp.async.bulk.tensor.4d", "fence.proxy.async"):
         assert piece in header, f"flash_tc.cuh lacks {piece}"
@@ -183,11 +187,18 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
                       "put_vt<DP, KT>(", "copy_tile<T, BM, C>(",
                       "produce<T, KT, C>(", "fence_async_shared();"):
             assert piece in fwd, f"flash_fwd_tc.cuh lacks {piece}"
-        # FFMA products only in the fp32 head-dim-256 body
-        tc_body = code[code.index("flash_fwd_any_kernel(const"):
-                       code.index("flash_fwd_any_kernel_ffma(Args a)")]
-        ffma_body = code[code.index("flash_fwd_any_kernel_ffma(Args a)"):]
-        assert "fmaf(" not in tc_body + fwd and "fmaf(" in ffma_body
+        # fp32 at 256: S with Q split in registers (first_product), K and
+        # V^T released one at a time, setmaxnreg's budgets
+        for piece in ("first_product<float, KT, KT, C>(",
+                      "produce_fwd_wide(", "mbar_arrive(&sm.k_empty)",
+                      "mbar_arrive(&sm.v_empty)",
+                      "setmaxnreg_dec<G::kProducerRegs>()",
+                      "setmaxnreg_inc<G::kConsumerRegs>()"):
+            assert piece in flat, f"{stem}.cu lacks {piece}"
+        for piece in ("put_vt<G::DP, KT>(", "mbar_wait(&sm.k_land, ph)",
+                      "produce_tile<float, G::BM, C>("):
+            assert piece in fwd, f"flash_fwd_tc.cuh lacks {piece}"
+        assert "fmaf(" not in code + fwd
         assert "atomicAdd" not in code + fwd
     else:
         assert '#include "flash_tc.cuh"' in src
@@ -202,10 +213,23 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
                       "mma_bf16(z, a[u], dw1 +",        # P / dS low part
                       "mma_bf16(z, a[u], dw0 +"):       # P / dS high part
             assert piece in header, f"flash_tc.cuh lacks {piece}"
-    # the FFMA body for fp32 at 256 alone, chosen before the launch
-    assert f"flash_{kind}_any_kernel_ffma<float, 256>" in code
-    assert (f"if constexpr (sizeof(T) == 4) return launch_{kind}_ffma"
-            in code)
+    # fp32 at 256, chosen before the launch: B2a's FFMA body; B1a's and
+    # B3a's own tensor-core kernels, no FFMA body and no fmaf left
+    if stem == "flash_dq_any":
+        assert f"flash_{kind}_any_kernel_ffma<float, 256>" in code
+        assert (f"if constexpr (sizeof(T) == 4) return launch_{kind}_ffma"
+                in code)
+    else:
+        assert "_ffma" not in code and "fmaf(" not in code + header
+        assert (f"if constexpr (sizeof(T) == 4) return "
+                f"launch_{kind}_f32_256(a, B, stream);" in code)
+        assert f"flash_{kind}_any_kernel_f32_256<<<" in code
+    if stem == "flash_dkv_any":
+        for piece in ("produce_tile<float, kRows, C>(",
+                      "first_product<float, N, F, C, kB>(",
+                      "second_product<float, N, C, kB>(",
+                      "mbar_arrive(&sm.empty_q)", "mbar_arrive(&sm.empty_do)"):
+            assert piece in code, f"{stem}.cu lacks {piece}"
     assert "atomicAdd" not in code + header
 
 

@@ -188,7 +188,12 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     (torch.bfloat16, 256, 40, False, 0),
     # bf16 at a head dim whose rows (72 bytes) TMA cannot take: the
     # producer's plain copies
-    (torch.bfloat16, 36, 200, True, 0)])
+    (torch.bfloat16, 36, 200, True, 0),
+    # fp32 in the 256 bucket (its own kernels): the d=256 GPT's length
+    # with a window, a ragged head dim, the bucket's edge, and rows (808
+    # bytes) TMA cannot take
+    (torch.float32, 256, 1024, True, 256), (torch.float32, 200, 300, True, 0),
+    (torch.float32, 129, 257, False, 0), (torch.float32, 202, 130, True, 0)])
 def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                                           window):
     """The _any forward, dQ and dK/dV kernels against flash_forward_ref /
@@ -228,7 +233,8 @@ def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,seq", [
     (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
-    (torch.float32, 33, 200), (torch.bfloat16, 36, 130)])
+    (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
+    (torch.float32, 256, 1024)])
 def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
     """Two launches of the _any dQ and dK/dV kernels on the same inputs
     give the same bits (no atomics: the captured step's bit-equality with
@@ -249,11 +255,13 @@ def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,seq", [
     (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
-    (torch.float32, 33, 200), (torch.bfloat16, 36, 130)])
+    (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
+    (torch.float32, 256, 1024)])
 def test_any_forward_launches_give_equal_bits(cuda, dtype, d, seq):
     """Two launches of the _any forward on the same inputs give the same o
     and lse bits (each consumer owns its rows of O: no atomics), by TMA
-    (fp32 at 64, bf16 at 128) and by the producer's plain copies (33, 36)."""
+    (fp32 at 64 and 256, bf16 at 128) and by the producer's plain copies
+    (33, 36)."""
     gen = torch.Generator(device=cuda).manual_seed(seq + d)
     q, k, v = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
                            dtype=dtype) for _ in range(3))

@@ -13,7 +13,10 @@ against ``flash_dq_ref`` / ``flash_dkv_ref``.
   the high part alone.
 
 Each term is summed exactly (float64) and rounded to fp32 once, as the
-kernels' per-batch fp32 adds keep their sums near that.  As in the
+kernels' per-batch fp32 adds keep their sums near that; at head dim 256
+(129-256 pads to it) the sums follow the fp32 kernels' batches instead:
+each batch's terms summed exactly, rounded to fp32 and added in fp32
+(``CHUNKS``).  As in the
 kernels, query 0's one dP under the causal mask (the row whose dS is the
 rounding noise of dP - D) is the plain version's.  The split lands within
 ANY_TOL everywhere.  One pass misses it in fp32 by two orders of
@@ -25,7 +28,11 @@ B1a's plan on ``flash_forward_ref``'s math: S = Q K^T in 3xTF32 (fp32) or
 exact (bf16), the softmax in fp32, P V in 3xTF32 (fp32) or with P as a
 bf16 high + low part (bf16); o held to ANY_TOL and lse to ANY_LSE_TOL.
 One pass (the raw fp32 words read as tf32; P's high part alone in bf16)
-misses in fp32 by more than 2x.
+misses in fp32 by more than 2x.  At fp32 head dim 256 B1a takes Q's tf32
+parts in registers as each k-step is loaded and adds S in batches of four
+k-steps (32 head-dim columns), P V a 32-key tile at a time; B3a sums S and
+dP in batches of eight k-steps (64 columns) and dK, dV a 64-query tile at a
+time; B2a's FFMA body (sequential fp32) is held to the exact sum.
 """
 import pytest
 import torch
@@ -65,12 +72,13 @@ def tf32_parts(x, split: bool):
     return [big, tf32_round(x.float() - big)]
 
 
-def tc_product(eq, a, b, *, split: bool, first: bool):
+def tc_product(eq, a, b, *, split: bool, first: bool, chunk: int = 0):
     """einsum(eq, a, b) as B2a/B3a's wgmmas compute it: a is an input
     tensor (q, k, v or dO), b an input (first products) or P / dS.  fp32:
     the tf32 passes of both (3xTF32, or one); bf16: a exact, b exact in
     the first products, else its high + low parts (or the high one).  Each
-    term exact, the sum rounded to fp32 once."""
+    term exact, the sum rounded to fp32 once; with ``chunk``, once for each
+    ``chunk`` entries of the summed axis, those sums added in fp32."""
     if a.dtype == torch.float32:
         pa, pb = tf32_parts(a, split), tf32_parts(b, split)
         pairs = [(0, 0), (0, 1), (1, 0)] if split else [(0, 0)]
@@ -78,14 +86,39 @@ def tc_product(eq, a, b, *, split: bool, first: bool):
         pa = [a.float()]
         pb = [b.float()] if first else parts(b, split)
         pairs = [(0, j) for j in range(len(pb))]
-    return sum(torch.einsum(eq, pa[i].double(), pb[j].double())
-               for i, j in pairs).float()
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    axis = next(c for c in sa if c in sb and c not in out)
+    n = a.shape[sa.index(axis)]
+    total = None
+    for c0 in range(0, n, chunk or n):
+        def cut(x, spec):
+            return x.narrow(spec.index(axis), c0, min(chunk or n, n - c0))
+        part = sum(torch.einsum(eq, cut(pa[i], sa).double(),
+                                cut(pb[j], sb).double())
+                   for i, j in pairs).float()
+        total = part if total is None else total + part
+    return total
+
+
+# fp32 head dim 256: the summed axis's batches of B1a's S and P V and of
+# B3a's S, dP, dK and dV (B2a's dQ: exact)
+CHUNKS = {"fwd_s": 32, "fwd_pv": 32, "dkv_first": 64, "dkv_second": 64}
+
+
+def chunks(dtype, d) -> dict:
+    """The kernels' batches at this dtype and head dim (none: exact)."""
+    return CHUNKS if dtype == torch.float32 and d > 128 else {}
 
 
 def emulated_backward(q, k, v, do, lse, delta, *, causal, scale, split):
     """(dq, dk, dv) with B2a/B3a's products on the plain backward."""
-    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True) * scale
-    dp = tc_product("bqhd,bkhd->bhqk", do, v, split=split, first=True)
+    ch = chunks(q.dtype, q.shape[-1])
+    first = ch.get("dkv_first", 0)
+    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True,
+                   chunk=first) * scale
+    dp = tc_product("bqhd,bkhd->bhqk", do, v, split=split, first=True,
+                    chunk=first)
     if causal:  # query 0's one dP in the plain version's arithmetic
         dp[:, :, 0, 0] = torch.einsum(
             "bqhd,bkhd->bhqk", do.float(), v.float())[:, :, 0, 0]
@@ -94,9 +127,12 @@ def emulated_backward(q, k, v, do, lse, delta, *, causal, scale, split):
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
     ds = p * (dp - delta[..., None]) * scale
+    second = ch.get("dkv_second", 0)
     out = (tc_product("bkhd,bhqk->bqhd", k, ds, split=split, first=False),
-           tc_product("bqhd,bhqk->bkhd", q, ds, split=split, first=False),
-           tc_product("bqhd,bhqk->bkhd", do, p, split=split, first=False))
+           tc_product("bqhd,bhqk->bkhd", q, ds, split=split, first=False,
+                      chunk=second),
+           tc_product("bqhd,bhqk->bkhd", do, p, split=split, first=False,
+                      chunk=second))
     return tuple(x.to(q.dtype) for x in out)
 
 
@@ -112,7 +148,7 @@ def worst_ratio(got, ref, tol) -> float:
 
 CASES = [(torch.float32, 64, 128, True), (torch.float32, 16, 64, False),
          (torch.bfloat16, 128, 128, True), (torch.bfloat16, 80, 96, False),
-         (torch.bfloat16, 36, 200, True)]
+         (torch.bfloat16, 36, 200, True), (torch.float32, 256, 128, True)]
 
 
 def ratios(dtype, d, seq, causal):
@@ -147,7 +183,9 @@ ANY_LSE_TOL = 1e-5  # the card tests' lse bound (absolute, fp32)
 def emulated_forward(q, k, v, *, causal, scale, split):
     """(o, lse) with B1a's products on the plain forward: S in the split
     (or one pass), the masked softmax in fp32, P V with P's parts."""
-    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True) * scale
+    ch = chunks(q.dtype, q.shape[-1])
+    s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True,
+                   chunk=ch.get("fwd_s", 0)) * scale
     vis = flash._visible(q.shape[1], k.shape[1], causal, 0, q.device)
     if vis is not None:
         s = s.masked_fill(~vis, flash.NEG_INF)
@@ -156,7 +194,8 @@ def emulated_forward(q, k, v, *, causal, scale, split):
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    acc = tc_product("bkhd,bhqk->bqhd", v, p, split=split, first=False)
+    acc = tc_product("bkhd,bhqk->bqhd", v, p, split=split, first=False,
+                     chunk=ch.get("fwd_pv", 0))
     o = acc / l.squeeze(-1).transpose(1, 2)[..., None]
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 

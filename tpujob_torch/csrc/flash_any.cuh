@@ -2,18 +2,19 @@
 // flash_dq_any.cu, flash_dkv_any.cu): fp32 or bf16 inputs at any head dim
 // from 1 to 256, where the tuned kernels (bf16 at head dim 32 and 64) do
 // not apply.  Their arguments, masks and head-dim buckets, and the FFMA
-// body (fp32 arithmetic on the CUDA cores) below, which the three kernels
-// keep for fp32 at padded head dim 256 only (there a tensor-core block's
-// tiles and their small parts do not fit shared memory).  Every other
-// input runs on the tensor cores: wgmma takes no fp32 input and one tf32
-// pass keeps about three digits, so each fp32 operand is split into two
-// tf32 parts (3xTF32), which keeps fp32's accuracy (flash_tc.cuh for dQ
-// and dK/dV, flash_fwd_tc.cuh for the forward).
+// body (fp32 arithmetic on the CUDA cores) below, which dQ alone keeps for
+// fp32 at padded head dim 256 (there its tensor-core tiles and their small
+// parts do not fit shared memory; the forward and dK/dV run kernels of
+// their own on the tensor cores there).  Every other input runs on the
+// tensor cores: wgmma takes no fp32 input and one tf32 pass keeps about
+// three digits, so each fp32 operand is split into two tf32 parts
+// (3xTF32), which keeps fp32's accuracy (flash_tc.cuh for dQ and dK/dV,
+// flash_fwd_tc.cuh for the forward).
 //
 // Layout as flash_common.cuh: q, k, v, o, dO, dQ, dK, dV contiguous
 // [B, S, H, d] in the input's dtype; lse and delta flat fp32 [B, H, S].
 //
-// Tiling of the FFMA body: each block owns BR rows of one (batch, head) and walks the other
+// Tiling of the FFMA body (dQ's): each block owns BR rows of one (batch, head) and walks the other
 // sequence in steps of BC; 256 threads as a 16 x 16 grid, thread (ty, tx)
 // holding rows ty*RT .. ty*RT+RT-1 of the block and, of a step's scores,
 // columns tx + 16 j (j < CT); of the head dim, columns tx + 16 j (j < DT).

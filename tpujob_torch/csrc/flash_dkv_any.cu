@@ -13,7 +13,11 @@
 // P^T dO and dS^T Q) are 34.4 G, 70 us at tf32's 495 TFLOP/s in one pass:
 // bound by operations.  The split's reach is three tf32 passes, 209 us
 // (fp32 FFMA's 67 TFLOP/s: 514 us).  In bf16 S and dP take one pass and
-// P^T dO, dS^T Q two: 1.5x the bf16 bound.
+// P^T dO, dS^T Q two: 1.5x the bf16 bound.  fp32 at d=256 (b=8, s=1024,
+// h=8, causal): 6 x 67.1 MB + 0.5 MB = 403 MB, 120 us; 68.8 GFLOP, 139 us
+// in one tf32 pass: bound by operations; the split's reach 417 us (FFMA:
+// 1,028 us).  There 16-key blocks re-read each live q-tile's Q and dO,
+// 4.5 GB in all, from L2.
 //
 // Design (flash_tc.cuh, which also says how each trouble of the design is
 // met): one block per (F-key tile, batch*head), a producer warpgroup and
@@ -39,9 +43,9 @@
 // inputs give the same bits.
 //
 // fp32 at padded head dim 256 does not fit a block's shared memory on this
-// design (flash_tc.cuh, trouble 4): the C entry point sends that bucket
-// alone to flash_dkv_any_kernel_ffma, the FFMA body of flash_any.cuh (fp32
-// arithmetic on the CUDA cores), still to redesign.
+// layout (flash_tc.cuh, trouble 4): the C entry point sends that bucket to
+// flash_dkv_any_kernel_f32_256, the same products on 16 fixed keys with
+// the Q and dO tiles released one at a time.
 #include "flash_tc.cuh"
 
 namespace tpujob_flash_any {
@@ -184,133 +188,182 @@ __launch_bounds__(tpujob_flash_tc::TcGeom<T, DP>::kBlockThreads, 1)
   }
 }
 
-// B3a's FFMA body (fp32 arithmetic on the CUDA cores, flash_any.cuh), for
-// fp32 at padded head dim 256 only.  Each thread computes an RT x CT block
-// of S^T = K Q^T and dP^T = V dO^T (rows = keys) per staged q-tile, forms
-// P^T and dS^T in registers and hands its rows of both to its own warp
-// through shared memory for dV += P^T dO and dK += dS^T Q, DT columns a
-// thread of each.
-template <class T, int DP>
-__global__ void __launch_bounds__(kAnyThreads, 1)
-    flash_dkv_any_kernel_ffma(Args a) {
-  using G = Geom<DP>;
-  extern __shared__ float smem[];
-  float* sK = smem;                  // BR x LD
-  float* sV = sK + G::BR * G::LD;    // BR x LD
-  float* sQ = sV + G::BR * G::LD;    // BC x LD
-  float* sO = sQ + G::BC * G::LD;    // dO, BC x LD
-  float* sP = sO + G::BC * G::LD;    // P^T, BR x LDS
-  float* sS = sP + G::BR * G::LDS;   // dS^T, BR x LDS
-  float* sLse = sS + G::BR * G::LDS; // BC
-  float* sDelta = sLse + G::BC;      // BC
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * G::BR;  // causal: the first keys see most rows
+// B3a for fp32 at padded head dim 256 (flash_tc.cuh, trouble 4): F = 16
+// fixed keys, N = 16, the producer and two consumer warpgroups; the
+// streamed Q and dO tiles each in one buffer with its own full and empty
+// barriers.  Per q-tile consumer 0 runs S = Q K^T and writes P into W_P
+// while consumer 1 runs dP = dO V^T; consumer 1 then forms dS = P o (dP -
+// D) scale from W_P into W_dS.  Each consumer then adds its half of the
+// head dim (two of Z^T's 64-row blocks) of dK^T += Q^T dS, releases Q, and
+// of dV^T += dO^T P, and releases dO: the next tile's Q lands while dV^T
+// runs, its dO while S and dP do.  W is kept by tile parity: consumer 0
+// may write the next tile's P while consumer 1 still reads this one's.
+// Eight k-steps a batch (the registers allow it: fewer waits, 2.738 ->
+// 2.556 ms with one consumer at b 8, s 1024, h 8; two consumers 2.031,
+// kernels.ab).
+struct DkvWideSmem {
+  static constexpr int F = 16, C = 256, kNC = 2;
+  float x[4][F * C];               // K, V, then their small parts (64 KB)
+  float yq[tpujob_flash_tc::kRows * C];   // the q-tile's Q (64 KB)
+  float ydo[tpujob_flash_tc::kRows * C];  // its dO (64 KB)
+  float w[2][2][2][F * tpujob_flash_tc::kRows];  // [parity] W_P, W_dS: parts
+  float row_lse[tpujob_flash_tc::kRows];
+  float row_delta[tpujob_flash_tc::kRows];
+  uint64_t fixed_full;
+  uint64_t full_q, full_do;        // Q (with lse, delta) / dO landed
+  uint64_t empty_q, empty_do;      // the consumers are done with Q / dO
+};
+
+constexpr int kPBar = 3;   // named barrier: W_P written (consumer 0 arrives)
+constexpr int kDsBar = 4;  // W_dS written (consumer 1 arrives)
+
+__global__ void __launch_bounds__(128 * (1 + DkvWideSmem::kNC), 1)
+    flash_dkv_any_kernel_f32_256(const __grid_constant__ CUtensorMap tmQ,
+                                 const __grid_constant__ CUtensorMap tmK,
+                                 const __grid_constant__ CUtensorMap tmV,
+                                 const __grid_constant__ CUtensorMap tmDO,
+                                 const Args a, int use_tma) {
+  using namespace tpujob_flash_tc;
+  using Sm = DkvWideSmem;
+  constexpr int F = Sm::F, N = F, C = Sm::C, kNC = Sm::kNC;
+  constexpr int kMB = C / 64 / kNC;  // Z^T's 64-row blocks a consumer
+  constexpr int kB = 8;              // k-steps a batch
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(align_atom(smem_raw));
+  const int k0 = blockIdx.x * F;  // causal: the first keys see most rows
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-
-  load_rows<T, G::BR, DP>(sK, (const T*)a.k, b, h, a.H, a.Sk, a.d, k0);
-  load_rows<T, G::BR, DP>(sV, (const T*)a.v, b, h, a.H, a.Sk, a.d, k0);
-
-  float dk[G::RT][G::DT], dv[G::RT][G::DT];
-#pragma unroll
-  for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-    for (int j = 0; j < G::DT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
   int qt_begin, qt_end;
-  tpujob_flash::q_range<G::BR, G::BC>(k0, a.Sq, a.causal, a.window,
-                                      &qt_begin, &qt_end);
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * G::BC;
-    __syncthreads();  // the last tile's Q, dO, lse and delta are no longer read
-    load_rows<T, G::BC, DP>(sQ, (const T*)a.q, b, h, a.H, a.Sq, a.d, q0);
-    load_rows<T, G::BC, DP>(sO, (const T*)a.dout, b, h, a.H, a.Sq, a.d, q0);
-    for (int c = tid; c < G::BC; c += kAnyThreads) {
-      const int qi = q0 + c;
-      sLse[c] = qi < a.Sq ? a.lse[(long)bh * a.Sq + qi] : 0.f;
-      sDelta[c] = qi < a.Sq ? a.delta[(long)bh * a.Sq + qi] : 0.f;
-    }
-    __syncthreads();
+  tpujob_flash::q_range<F, kRows>(k0, a.Sq, a.causal, a.window, &qt_begin,
+                                  &qt_end);
+  // warp-uniform to ptxas (see flash_dkv.cu)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 2 * 128);  // K and V, 128 arrivals each
+    mbar_init(&sm.full_q, 128);
+    mbar_init(&sm.full_do, 128);
+    mbar_init(&sm.empty_q, 128 * kNC);
+    mbar_init(&sm.empty_do, 128 * kNC);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[G::RT][G::CT], dp[G::RT][G::CT];
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int dd = 0; dd < a.d; ++dd) {
-      float kv[G::RT], vv[G::RT], qv[G::CT], ov[G::CT];
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i) {
-        kv[i] = sK[(ty * G::RT + i) * G::LD + dd];
-        vv[i] = sV[(ty * G::RT + i) * G::LD + dd];
+  if (wg == 0) {
+    // ---- producer: K and V once, then each live q-tile's Q and dO ----
+    produce_tile<float, F, C>(sm.x[0], &tmK, (const float*)a.k,
+                              &sm.fixed_full, use_tma, k0, b, h, a.H, a.Sk,
+                              a.d);
+    produce_tile<float, F, C>(sm.x[1], &tmV, (const float*)a.v,
+                              &sm.fixed_full, use_tma, k0, b, h, a.H, a.Sk,
+                              a.d);
+    for (int qt = qt_begin, i = 0; qt < qt_end; ++qt, ++i) {
+      const int ph = i & 1, q0 = qt * kRows, r = threadIdx.x;
+      mbar_wait(&sm.empty_q, ph ^ 1);
+      if (r < kRows) {
+        const bool ok = q0 + r < a.Sq;
+        sm.row_lse[r] = ok ? a.lse[(long)bh * a.Sq + q0 + r] : 0.f;
+        sm.row_delta[r] = ok ? a.delta[(long)bh * a.Sq + q0 + r] : 0.f;
       }
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * G::LD + dd];
-        ov[j] = sO[(tx + 16 * j) * G::LD + dd];
-      }
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-        for (int j = 0; j < G::CT; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
+      produce_tile<float, kRows, C>(sm.yq, &tmQ, (const float*)a.q,
+                                    &sm.full_q, use_tma, q0, b, h, a.H, a.Sq,
+                                    a.d);
+      mbar_wait(&sm.empty_do, ph ^ 1);
+      produce_tile<float, kRows, C>(sm.ydo, &tmDO, (const float*)a.dout,
+                                    &sm.full_do, use_tma, q0, b, h, a.H,
+                                    a.Sq, a.d);
     }
-
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i) {
-      const int r = ty * G::RT + i;
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        const int c = tx + 16 * j;
-        float p = 0.f, ds = 0.f;
-        if (sees(q0 + c, k0 + r, a.Sq, a.Sk, a.causal, a.window)) {
-          p = expf(s[i][j] * a.scale - sLse[c]);
-          ds = p * (dp[i][j] - sDelta[c]) * a.scale;
-        }
-        sP[r * G::LDS + c] = p;
-        sS[r * G::LDS + c] = ds;
-      }
-    }
-    __syncwarp();  // P^T's and dS^T's rows are read by the warp that wrote them
-
-#pragma unroll 2
-    for (int c = 0; c < G::BC; ++c) {
-      float pv[G::RT], dsv[G::RT];
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i) {
-        pv[i] = sP[(ty * G::RT + i) * G::LDS + c];
-        dsv[i] = sS[(ty * G::RT + i) * G::LDS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < G::DT; ++j) {
-        const float qq = sQ[c * G::LD + tx + 16 * j];
-        const float oo = sO[c * G::LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < G::RT; ++i) {
-          dv[i][j] = fmaf(pv[i], oo, dv[i][j]);
-          dk[i][j] = fmaf(dsv[i], qq, dk[i][j]);
-        }
-      }
-    }
+    return;
   }
 
-  T* dk_out = (T*)a.out0;
-  T* dv_out = (T*)a.out1;
+  // ---- consumer cw: S (0) or dP (1), then head-dim rows 64 kMB cw .. ----
+  const int cw = wg - 1, m0 = 64 * kMB * cw;
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's q rows
+  mbar_wait(&sm.fixed_full, 0);
+  split_fixed<F * C, kNC>(sm.x[0], sm.x[2]);  // K, V rounded to tf32, and
+  split_fixed<F * C, kNC>(sm.x[1], sm.x[3]);  // their small parts
+  fence_async_shared();
+  named_bar_sync(kFixedBar, 128 * kNC);
+  // consumer 0 multiplies by K (S), consumer 1 by V (dP)
+  const uint64_t dx = panel_desc(sm.x[cw]), dxs = panel_desc(sm.x[2 + cw]);
+  const int nks = (a.d + 7) / 8;
+
+  float dkt[kMB][N / 2], dvt[kMB][N / 2];
 #pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    const int kj = k0 + ty * G::RT + i;
-    if (kj >= a.Sk) continue;
-    const long row = ((long)(b * a.Sk + kj) * a.H + h) * a.d;
+  for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
-    for (int j = 0; j < G::DT; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.d) {
-        dk_out[row + c] = from_f<T>(dk[i][j]);
-        dv_out[row + c] = from_f<T>(dv[i][j]);
-      }
+    for (int i = 0; i < N / 2; ++i) dkt[mb][i] = dvt[mb][i] = 0.f;
+
+  for (int qt = qt_begin, i = 0; qt < qt_end; ++qt, ++i) {
+    const int ph = i & 1, q0 = qt * kRows;
+    float* const wp0 = sm.w[ph][0][0];
+    float* const wp1 = sm.w[ph][0][1];
+    float* const ws0 = sm.w[ph][1][0];
+    float* const ws1 = sm.w[ph][1][1];
+    mbar_wait(&sm.full_q, ph);  // Q, and the rows' lse and delta
+    if (cw == 0) {
+      // S = Q K^T, then P into W_P as [key][query]
+      float sc[N / 2];
+      first_product<float, N, F, C, kB>(sc, sm.yq, dx, dxs, nks);
+      const bool edge =
+          q0 + kRows > a.Sq || k0 + N > a.Sk ||
+          (a.causal && (q0 < k0 + N - 1 ||
+                        (a.window > 0 && q0 + kRows - 1 - k0 >= a.window)));
+      const float lse[2] = {sm.row_lse[r0], sm.row_lse[r0 + 8]};
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = prob(sc[4 * j + e], a.scale, lse[e >> 1]);
+          if (edge && !sees(q0 + r0 + 8 * (e >> 1),
+                            k0 + 8 * j + 2 * t + (e & 1), a.Sq, a.Sk,
+                            a.causal, a.window))
+            p = 0.f;
+          put_w<float, N>(wp0, wp1, j, e, p);
+        }
+      fence_async_shared();
+      named_bar_arrive(kPBar, 256);
+      named_bar_sync(kDsBar, 256);
+    } else {
+      // dP = dO V^T, then dS = P o (dP - D) scale into W_dS, P read back
+      // from W_P once consumer 0 has written it
+      float dp[N / 2];
+      mbar_wait(&sm.full_do, ph);
+      first_product<float, N, F, C, kB>(dp, sm.ydo, dx, dxs, nks);
+      const float del[2] = {sm.row_delta[r0], sm.row_delta[r0 + 8]};
+      named_bar_sync(kPBar, 256);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          put_w<float, N>(ws0, ws1, j, e,
+                          get_w<float, N>(wp0, wp1, j, e) *
+                              (dp[4 * j + e] - del[e >> 1]) * a.scale);
+      fence_async_shared();
+      named_bar_arrive(kDsBar, 256);
     }
+
+    // this consumer's rows of dK^T += Q^T dS, then Q (with its lse and
+    // delta) is released
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb)
+      second_product<float, N, C, kB>(dkt[mb], sm.yq, m0 + 64 * mb,
+                                      panel_desc(ws0), panel_desc(ws1));
+    mbar_arrive(&sm.empty_q);
+    // and of dV^T += dO^T P, then dO is released
+    if (cw == 0) mbar_wait(&sm.full_do, ph);
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb)
+      second_product<float, N, C, kB>(dvt[mb], sm.ydo, m0 + 64 * mb,
+                                      panel_desc(wp0), panel_desc(wp1));
+    mbar_arrive(&sm.empty_do);
+  }
+
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb) {
+    store_zt<float, N>((float*)a.out0, dkt[mb], m0 + 64 * mb, k0, b, h, a.H,
+                       a.Sk, a.d);
+    store_zt<float, N>((float*)a.out1, dvt[mb], m0 + 64 * mb, k0, b, h, a.H,
+                       a.Sk, a.d);
   }
 }
 
@@ -347,22 +400,35 @@ static int launch_dkv_tc(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-static int launch_dkv_ffma(const Args& a, int B, void* stream) {
-  using G = Geom<256>;
-  const int smem = ((2 * G::BR + 2 * G::BC) * G::LD + 2 * G::BR * G::LDS +
-                    2 * G::BC) * (int)sizeof(float);
+static int launch_dkv_f32_256(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_tc;
+  constexpr int F = DkvWideSmem::F;
+  constexpr int smem = (int)sizeof(DkvWideSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int use_tma = tma_takes<float>(a.d, ptrs, 4);
+  CUtensorMap mq = {}, mk = {}, mv = {}, mdo = {};
+  int rc;
+  if (use_tma &&
+      ((rc = encode_panels<float>(&mq, a.q, B, a.Sq, a.H, a.d, kRows)) ||
+       (rc = encode_panels<float>(&mk, a.k, B, a.Sk, a.H, a.d, F)) ||
+       (rc = encode_panels<float>(&mv, a.v, B, a.Sk, a.H, a.d, F)) ||
+       (rc = encode_panels<float>(&mdo, a.dout, B, a.Sq, a.H, a.d, kRows))))
+    return rc;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_any_kernel_ffma<float, 256>,
+      flash_dkv_any_kernel_f32_256,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sk + G::BR - 1) / G::BR, B * a.H);
-  flash_dkv_any_kernel_ffma<float, 256>
-      <<<grid, kAnyThreads, smem, (cudaStream_t)stream>>>(a);
+  dim3 grid((a.Sk + F - 1) / F, B * a.H);
+  flash_dkv_any_kernel_f32_256<<<grid, 128 * (1 + DkvWideSmem::kNC), smem,
+                                 (cudaStream_t)stream>>>(mq, mk, mv, mdo, a,
+                                                         use_tma);
   return (int)cudaGetLastError();
 }
 
-// The padded head dim's instantiation, chosen before the launch: the
-// tensor-core kernel for every bucket but fp32 at 256 (the FFMA body).
+// The padded head dim's instantiation, chosen before the launch: fp32 at
+// 256 takes its own tensor-core kernel (its tiles), every other bucket the
+// template.
 template <class T>
 static int dispatch_dkv_any(const Args& a, int B, void* stream) {
   switch (padded_dim(a.d)) {
@@ -370,7 +436,7 @@ static int dispatch_dkv_any(const Args& a, int B, void* stream) {
     case 64: return launch_dkv_tc<T, 64>(a, B, stream);
     case 128: return launch_dkv_tc<T, 128>(a, B, stream);
     case 256:
-      if constexpr (sizeof(T) == 4) return launch_dkv_ffma(a, B, stream);
+      if constexpr (sizeof(T) == 4) return launch_dkv_f32_256(a, B, stream);
       else return launch_dkv_tc<T, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;

@@ -16,7 +16,9 @@
 // tf32 passes of both products, 104 us (fp32 FFMA's 67 TFLOP/s: 257 us).
 // In bf16 (b=8, s=1024, h=8, d=128) it moves 67 MB (20 us) for 17.2 GFLOP;
 // S takes one bf16 pass and P V two, so the split's reach is 1.5 passes at
-// 989 TFLOP/s, 26 us.
+// 989 TFLOP/s, 26 us.  fp32 at d=256 (b=8, s=1024, h=8, causal): 4 x 67.1
+// MB = 269 MB, 80 us; 34.4 GFLOP, 70 us in one tf32 pass: bound by bytes;
+// the split's reach 209 us (FFMA: 514 us).
 //
 // Design (flash_fwd_tc.cuh, which says how each trouble of the design is
 // met): one block per (BM-row q-tile, batch*head), the longest causal
@@ -38,15 +40,16 @@
 // so two launches on the same inputs give the same bits.
 //
 // fp32 at padded head dim 256 does not fit a block's shared memory on this
-// design (flash_fwd_tc.cuh, trouble 5): the C entry point sends that
-// bucket alone to flash_fwd_any_kernel_ffma, the FFMA body of
-// flash_any.cuh (fp32 arithmetic on the CUDA cores), still to redesign.
+// layout (flash_fwd_tc.cuh, trouble 5): the C entry point sends that bucket
+// to flash_fwd_any_kernel_f32_256, the same products with Q split in
+// registers and K and V^T released one at a time (32-key tiles), two
+// consumers splitting S's k-steps and O's columns.
 #include "flash_fwd_tc.cuh"
 
 namespace tpujob_flash_any {
 
 // B1a on the tensor cores: template on the input type and the padded head
-// dim DP (32, 64, 128; 256 in bf16 only).
+// dim DP (32, 64, 128; 256 in bf16 only: fp32 at 256 below).
 template <class T, int DP>
 __global__ void
 __launch_bounds__(tpujob_flash_fwd_tc::FwdGeom<T, DP>::kBlockThreads, 1)
@@ -103,7 +106,6 @@ __launch_bounds__(tpujob_flash_fwd_tc::FwdGeom<T, DP>::kBlockThreads, 1)
   const int nks = (a.d + G::kKW - 1) / G::kKW;
   constexpr float kLog2e = 1.4426950408889634f;
   const float scale = G::kExp2 ? a.scale * kLog2e : a.scale;
-  auto exp_of = [](float x) { return G::kExp2 ? ex2(x) : expf(x); };
   // this consumer's rows of Q: 64 cw rows into each panel
   auto rows = [&](const T* x) {
     return panel_desc(reinterpret_cast<const uint8_t*>(x) + 64 * cw * kPanel);
@@ -131,44 +133,14 @@ __launch_bounds__(tpujob_flash_fwd_tc::FwdGeom<T, DP>::kBlockThreads, 1)
       float sc[KT / 2];
       scores<T, BM, KT, G::kNksLo, G::kNksHi>(nks, sc, dq0, dq1, dk0, dk1);
 
-      // the online softmax: masked scores -inf (P exactly 0; m starts at
-      // the reference's finite -1e30, so it stays finite); bf16 in base 2
-      // (scores times scale log2(e), ex2), fp32 with expf
+      // the online softmax (flash_fwd_tc.cuh: online_softmax)
       const bool edge =
           k0 + KT > a.Sk ||
           (a.causal && (k0 + KT - 1 > r0 ||
                         (a.window > 0 && r0 + 63 - k0 >= a.window)));
-      const float masked = __int_as_float(0xff800000u);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * j + e] * scale;
-          if (edge && !sees(qrow[e >> 1], k0 + 8 * j + 2 * t + (e & 1), a.Sq,
-                            a.Sk, a.causal, a.window))
-            x = masked;
-          sc[4 * j + e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], tpujob_flash::quad_max(mx[r]));
-        alpha[r] = exp_of(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp_of(sc[4 * j + e] - m[e >> 1]);
-          sc[4 * j + e] = p;
-          sum[e >> 1] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        l[r] = l[r] * alpha[r] + tpujob_flash::quad_sum(sum[r]);
+      float alpha[2];
+      online_softmax<KT, G::kExp2>(sc, qrow, t, k0, edge, scale, a, m, l,
+                                   alpha);
 
       // O += P V
       if constexpr (G::kF32) {
@@ -262,124 +234,160 @@ __launch_bounds__(tpujob_flash_fwd_tc::FwdGeom<T, DP>::kBlockThreads, 1)
   }
 }
 
-// B1a's FFMA body (fp32 arithmetic on the CUDA cores, flash_any.cuh), for
-// fp32 at padded head dim 256 only.  One block of 256 threads per (BR-row
-// q-tile, batch*head); Q staged once, K and V a tile at a time, as fp32 in
-// shared memory.  Each thread computes an RT x CT block of S = scale Q K^T
-// with FFMA, masks it, and runs the online softmax for its rows in
-// registers (each row's running max m, sum l and its DT output columns),
-// the row reductions by shuffles within the half-warp that holds the row;
-// P goes through shared memory to the same warp for O += P V.
-template <class T, int DP>
-__global__ void __launch_bounds__(kAnyThreads, 1)
-    flash_fwd_any_kernel_ffma(Args a) {
-  using G = Geom<DP>;
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // BR x LD
-  float* sK = sQ + G::BR * G::LD;    // BC x LD
-  float* sV = sK + G::BC * G::LD;    // BC x LD
-  float* sP = sV + G::BC * G::LD;    // BR x LDS
-  const T* q = (const T*)a.q;
-  const T* k = (const T*)a.k;
-  const T* v = (const T*)a.v;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n_qt = (a.Sq + G::BR - 1) / G::BR;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * G::BR;  // longest first
+// B1a for fp32 at padded head dim 256 (flash_fwd_tc.cuh, trouble 5): the
+// producer and two consumer warpgroups of the same 64 query rows.  S = Q
+// K^T takes Q from registers (flash_tc.cuh's first_product: each k-step's A
+// fragment loaded from the raw fp32 Q tile and split into its tf32 parts
+// there, batches of four k-steps into a zeroed accumulator, small passes
+// first), K from a 32-key tile; each consumer over its half of the
+// k-steps, the halves added through shared memory (a + b in both, so both
+// run the same softmax).  P V runs 32 of O's columns at a time, 3xTF32
+// into a zeroed accumulator added to O with the softmax's rescale, the
+// next block's wgmmas issued before this one's are waited for.
+__global__ void __launch_bounds__(tpujob_flash_fwd_tc::FwdWideGeom::
+                                      kBlockThreads, 1)
+    flash_fwd_any_kernel_f32_256(const __grid_constant__ CUtensorMap tmQ,
+                                 const __grid_constant__ CUtensorMap tmK,
+                                 const Args a, int use_tma) {
+  using namespace tpujob_flash_fwd_tc;
+  using G = FwdWideGeom;
+  using Sm = FwdWideSmem;
+  constexpr int BM = G::BM, KT = G::KT, C = G::kCols, NB = G::kNB;
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(align_atom(smem_raw));
+  const int n_qt = (a.Sq + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BM;  // longest first
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-
-  load_rows<T, G::BR, DP>(sQ, q, b, h, a.H, a.Sq, a.d, q0);
-
-  float acc[G::RT][G::DT];
-  float m[G::RT], l[G::RT];
-#pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < G::DT; ++j) acc[i][j] = 0.f;
-  }
-
   int kt_begin, kt_end;
-  tpujob_flash::k_range<G::BR, G::BC>(q0, a.Sk, a.causal, a.window,
-                                      &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * G::BC;
-    __syncthreads();  // the last tile's K and V are no longer read
-    load_rows<T, G::BC, DP>(sK, k, b, h, a.H, a.Sk, a.d, k0);
-    load_rows<T, G::BC, DP>(sV, v, b, h, a.H, a.Sk, a.d, k0);
-    __syncthreads();
+  tpujob_flash::k_range<BM, KT>(q0, a.Sk, a.causal, a.window, &kt_begin,
+                                &kt_end);
+  // warp-uniform to ptxas (see flash_fwd.cu)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 128);
+    mbar_init(&sm.k_land, 1);
+    mbar_init(&sm.k_full, 128);
+    mbar_init(&sm.k_empty, 128 * G::kNC);
+    mbar_init(&sm.v_full, 128);
+    mbar_init(&sm.v_empty, 128 * G::kNC);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[G::RT][G::CT];
+  if (wg == 0) {
+    setmaxnreg_dec<G::kProducerRegs>();
+    produce_fwd_wide(sm, &tmQ, &tmK, a, use_tma, q0, b, h, kt_begin, kt_end);
+    return;
+  }
+  setmaxnreg_inc<G::kConsumerRegs>();
+
+  // ---- consumer cw: rows q0 .. q0 + 63, O's columns 32 NB cw .. ----
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int wr = 16 * (tid / 32) + (tid % 32) / 4;
+  const int qrow[2] = {q0 + wr, q0 + wr + 8};  // the thread's two rows
+  // this consumer's k-steps of S: whole panels (four k-steps) from ks0
+  const int nks = (a.d + 7) / 8, half = (nks + 7) / 8 * 4;
+  const int ks0 = cw == 0 ? 0 : half;
+  const int my_nks = cw == 0 ? min(nks, half) : max(nks - half, 0);
+  const float* qs = sm.q + ks0 / 4 * BM * 32;  // from panel ks0 / 4
+
+  float o[NB][16];
 #pragma unroll
-    for (int i = 0; i < G::RT; ++i)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < G::CT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < a.d; ++dd) {
-      float qv[G::RT], kv[G::CT];
+    for (int i = 0; i < 16; ++i) o[nb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(&sm.q_full, 0);
+
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int k0 = kt * KT;
+    mbar_wait(&sm.k_full, i & 1);
+
+    // S = Q K^T over this consumer's k-steps (K then released), then the
+    // other's part added
+    float sc[KT / 2];
+    const uint64_t kpanel = ks0 / 4 * KT * (kPanel / 16);
+    first_product<float, KT, KT, C>(sc, qs, panel_desc(sm.k[0]) + kpanel,
+                                    panel_desc(sm.k[1]) + kpanel, my_nks);
+    mbar_arrive(&sm.k_empty);
+    {
+      float* mine = sm.sx[i & 1][cw];
+      const float* other = sm.sx[i & 1][cw ^ 1];
 #pragma unroll
-      for (int i = 0; i < G::RT; ++i) qv[i] = sQ[(ty * G::RT + i) * G::LD + dd];
+      for (int e = 0; e < KT / 2; ++e) mine[128 * e + tid] = sc[e];
+      named_bar_sync(kFixedBar, 256);
 #pragma unroll
-      for (int j = 0; j < G::CT; ++j) kv[j] = sK[(tx + 16 * j) * G::LD + dd];
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-        for (int j = 0; j < G::CT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int e = 0; e < KT / 2; ++e) sc[e] += other[128 * e + tid];
     }
 
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i) {
-      const int r = ty * G::RT + i, qi = q0 + r;
-      bool vis[G::CT];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        vis[j] = sees(qi, k0 + tx + 16 * j, a.Sq, a.Sk, a.causal, a.window);
-        s[i][j] = vis[j] ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        const float p = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        sP[r * G::LDS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < G::DT; ++j) acc[i][j] *= alpha;
-    }
-    __syncwarp();  // P's rows are read by the warp that wrote them
+    const bool edge =
+        k0 + KT > a.Sk ||
+        (a.causal && (k0 + KT - 1 > q0 ||
+                      (a.window > 0 && q0 + 63 - k0 >= a.window)));
+    float alpha[2];
+    online_softmax<KT, false>(sc, qrow, t, k0, edge, a.scale, a, m, l,
+                              alpha);
 
-#pragma unroll 4
-    for (int c = 0; c < G::BC; ++c) {
-      float pv[G::RT];
+    // O += P V, 32 columns a block: B = V^T's rows 32 (NB cw + nb) ..
+    uint32_t pb[KT / 8][4], ps[KT / 8][4];
 #pragma unroll
-      for (int i = 0; i < G::RT; ++i) pv[i] = sP[(ty * G::RT + i) * G::LDS + c];
+    for (int j = 0; j < KT / 8; ++j) p_tf32(sc, j, pb[j], ps[j]);
+    mbar_wait(&sm.v_full, i & 1);
+    const uint64_t dv0 = panel_desc(sm.v[0]), dv1 = panel_desc(sm.v[1]);
+    auto issue = [&](float (&acc)[16], int nb) {
+      const uint64_t blk = (NB * cw + nb) * 32 * (kPanel / 16);
 #pragma unroll
-      for (int j = 0; j < G::DT; ++j) {
-        const float vv = sV[c * G::LD + tx + 16 * j];
+      for (int i2 = 0; i2 < 16; ++i2) acc[i2] = 0.f;
+      wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < G::RT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      for (int j = 0; j < KT / 8; ++j) {  // the small passes first
+        mma_tf32(acc, pb[j], dv1 + blk + kstep<G::DP>(j));
+        mma_tf32(acc, ps[j], dv0 + blk + kstep<G::DP>(j));
       }
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+        mma_tf32(acc, pb[j], dv0 + blk + kstep<G::DP>(j));
+      wgmma_commit();
+    };
+    float ot[2][16];
+    issue(ot[0], 0);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      if (nb + 1 < NB) {
+        issue(ot[(nb + 1) & 1], nb + 1);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(ot[nb & 1]);
+#pragma unroll
+      for (int i2 = 0; i2 < 16; ++i2)
+        o[nb][i2] = o[nb][i2] * alpha[(i2 >> 1) & 1] + ot[nb & 1][i2];
     }
+    mbar_arrive(&sm.v_empty);
   }
 
-  T* o = (T*)a.out0;
+  // o / l for the d real columns of the rows before Sq, lse = m + log l
+  float* out = (float*)a.out0;
 #pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    const int qi = q0 + ty * G::RT + i;
-    if (qi >= a.Sq) continue;
-    const long row = ((long)(b * a.Sq + qi) * a.H + h) * a.d;
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int j = 0; j < G::DT; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.d) o[row + c] = from_f<T>(l[i] > 0.f ? acc[i][j] / l[i] : 0.f);
-    }
-    if (tx == 0) a.lse_out[(long)bh * a.Sq + qi] = m[i] + logf(l[i]);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = qrow[e >> 1];
+        const int c = 32 * (NB * cw + nb) + 8 * j + 2 * t + (e & 1);
+        const float lr = l[e >> 1];
+        if (row < a.Sq && c < a.d)
+          out[((long)(b * a.Sq + row) * a.H + h) * a.d + c] =
+              lr > 0.f ? o[nb][4 * j + e] / lr : 0.f;
+      }
+  if (t == 0 && cw == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qrow[r] < a.Sq)
+        a.lse_out[(long)bh * a.Sq + qrow[r]] = m[r] + logf(l[r]);
   }
 }
 
@@ -415,22 +423,37 @@ static int launch_fwd_tc(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-static int launch_fwd_ffma(const Args& a, int B, void* stream) {
-  using G = Geom<256>;
-  const int smem = ((G::BR + 2 * G::BC) * G::LD + G::BR * G::LDS) *
-                   (int)sizeof(float);
+static int launch_fwd_f32_256(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_fwd_tc;
+  using G = FwdWideGeom;
+  constexpr int smem = (int)sizeof(FwdWideSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  // setmaxnreg moves registers within the block's launch allocation (65,536
+  // a SM over its threads, in multiples of 8): a larger sum never returns
+  static_assert(G::kProducerRegs * 128 + G::kConsumerRegs * 128 * G::kNC <=
+                    65536 / G::kBlockThreads / 8 * 8 * G::kBlockThreads,
+                "setmaxnreg budgets over the block's registers");
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const int use_tma = tma_takes<float>(a.d, ptrs, 3);
+  CUtensorMap mq = {}, mk = {};
+  int rc;
+  if (use_tma &&
+      ((rc = encode_panels<float>(&mq, a.q, B, a.Sq, a.H, a.d, G::BM)) ||
+       (rc = encode_panels<float>(&mk, a.k, B, a.Sk, a.H, a.d, G::KT))))
+    return rc;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_any_kernel_ffma<float, 256>,
+      flash_fwd_any_kernel_f32_256,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sq + G::BR - 1) / G::BR, B * a.H);
-  flash_fwd_any_kernel_ffma<float, 256>
-      <<<grid, kAnyThreads, smem, (cudaStream_t)stream>>>(a);
+  dim3 grid((a.Sq + G::BM - 1) / G::BM, B * a.H);
+  flash_fwd_any_kernel_f32_256<<<grid, G::kBlockThreads, smem,
+                                 (cudaStream_t)stream>>>(mq, mk, a, use_tma);
   return (int)cudaGetLastError();
 }
 
-// The padded head dim's instantiation, chosen before the launch: the
-// tensor-core kernel for every bucket but fp32 at 256 (the FFMA body).
+// The padded head dim's instantiation, chosen before the launch: fp32 at
+// 256 takes its own tensor-core kernel (its tiles), every other bucket the
+// template.
 template <class T>
 static int dispatch_fwd_any(const Args& a, int B, void* stream) {
   switch (padded_dim(a.d)) {
@@ -438,7 +461,7 @@ static int dispatch_fwd_any(const Args& a, int B, void* stream) {
     case 64: return launch_fwd_tc<T, 64>(a, B, stream);
     case 128: return launch_fwd_tc<T, 128>(a, B, stream);
     case 256:
-      if constexpr (sizeof(T) == 4) return launch_fwd_ffma(a, B, stream);
+      if constexpr (sizeof(T) == 4) return launch_fwd_f32_256(a, B, stream);
       else return launch_fwd_tc<T, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;

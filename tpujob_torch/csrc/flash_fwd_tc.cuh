@@ -61,8 +61,14 @@
 // at 128), and a consumer's registers (O and its per-tile accumulator,
 // S, P's two parts) stay under the 168 a thread of 384.  bf16 takes
 // KT = 64 and two consumers (one at DP = 256: O alone is 128 registers a
-// thread).  fp32 at DP = 256 does not fit (Q big + small alone is 128 KB
-// at 64 rows): the C entry point sends that bucket to the FFMA body.
+// thread).  fp32 at DP = 256 does not fit this layout (Q big + small
+// alone is 128 KB at 64 rows, the 2-stage ring 256 more; O is 128
+// registers a thread): the C entry point sends that bucket to
+// flash_fwd_any_kernel_f32_256 (FwdWideGeom below), which keeps Q raw
+// and splits each k-step's A fragment in registers (64 KB), holds K and
+// V^T in one 32-key buffer each (64 + 64 KB), released one at a time, and
+// splits S's k-steps and O's columns between two consumers (O 64
+// registers each), with setmaxnreg's budgets.
 //
 // Trouble 6, copies: TMA where tma_takes allows (flash_tc.cuh: row
 // strides of 16 bytes and at least one panel), one box a 128-byte panel,
@@ -282,19 +288,24 @@ __device__ __forceinline__ void put_vt(float* vb, float* vs, const float* v,
                                        int b, int h, int H, int S, int d,
                                        int k0) {
   constexpr int kPer = KT * DP / 128;
+  constexpr int kRound = kPer < 32 ? kPer : 32;  // loads in flight
   const int pt = threadIdx.x % 128;
-  float x[kPer];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = pt + 128 * u, key = i / DP, c = i % DP, s = k0 + key;
-    x[u] = s < S && c < d ? v[((long)(b * S + s) * H + h) * d + c] : 0.f;
-  }
+  for (int u0 = 0; u0 < kPer; u0 += kRound) {
+    float x[kRound];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = pt + 128 * u, key = i / DP, c = i % DP;
-    const float big = tf32_big(x[u]);
-    at<float, DP>(vb, c, key_pos(key)) = big;
-    at<float, DP>(vs, c, key_pos(key)) = tf32_small(x[u], big);
+    for (int u = 0; u < kRound; ++u) {
+      const int i = pt + 128 * (u0 + u), key = i / DP, c = i % DP;
+      const int s = k0 + key;
+      x[u] = s < S && c < d ? v[((long)(b * S + s) * H + h) * d + c] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int i = pt + 128 * (u0 + u), key = i / DP, c = i % DP;
+      const float big = tf32_big(x[u]);
+      at<float, DP>(vb, c, key_pos(key)) = big;
+      at<float, DP>(vs, c, key_pos(key)) = tf32_small(x[u], big);
+    }
   }
 }
 
@@ -371,6 +382,134 @@ __device__ __forceinline__ void produce_fwd(
       produce<T, KT, C>(sm.k[s][0], sm.v[s][0], mk, mv, k, v, &sm.full[s],
                         use_tma, kt * KT, b, h, a.H, a.Sk, a.d);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the online softmax of one key tile (both layouts)
+// ---------------------------------------------------------------------------
+
+// Scores sc of KT keys from k0 (accumulator layout; the thread's rows
+// qrow[0], qrow[1], quad t) scaled, masked where `edge` (masked scores
+// -inf: P exactly 0; m starts at the reference's finite -1e30, so it stays
+// finite) and turned into P; the rows' running max m and sum l updated,
+// alpha their rescale.  kExp2: the scores times scale log2(e), then ex2
+// (bf16); else expf (fp32).
+template <int KT, bool kExp2>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[KT / 2], const int (&qrow)[2], int t, int k0, bool edge,
+    float scale, const tpujob_flash_any::Args& a, float (&m)[2],
+    float (&l)[2], float (&alpha)[2]) {
+  auto exp_of = [](float x) { return kExp2 ? ex2(x) : expf(x); };
+  const float masked = __int_as_float(0xff800000u);
+  float mx[2] = {tpujob_flash::kNegInf, tpujob_flash::kNegInf};
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale;
+      if (edge && !tpujob_flash_any::sees(qrow[e >> 1],
+                                          k0 + 8 * j + 2 * t + (e & 1), a.Sq,
+                                          a.Sk, a.causal, a.window))
+        x = masked;
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], tpujob_flash::quad_max(mx[r]));
+    alpha[r] = exp_of(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp_of(sc[4 * j + e] - m[e >> 1]);
+      sc[4 * j + e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + tpujob_flash::quad_sum(sum[r]);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at padded head dim 256 (trouble 5)
+// ---------------------------------------------------------------------------
+
+// The tiles of flash_fwd_any_kernel_f32_256: two consumers of the same 64
+// query rows; Q raw fp32 (its tf32 parts made in registers as each
+// k-step's A fragment is loaded, flash_tc.cuh's first_product), K and V^T
+// (put_vt) with their small parts in 32-key tiles, one buffer each: 64 +
+// 64 + 64 KB.  K is released after S and V^T after P V, so the next K
+// lands during the softmax and P V and the next V^T during S.  Each
+// consumer sums S over half of the head dim and holds half of O's columns
+// (64 registers, not 128: one consumer with all of O spilled); the two
+// halves of S meet in sx (by tile parity).
+struct FwdWideGeom {
+  static constexpr int DP = 256, BM = 64, KT = 32;
+  static constexpr int kNC = 2;                     // consumer warpgroups
+  static constexpr int kCols = DP;                  // stored columns of Q, K
+  static constexpr int kNB = DP / 32 / kNC;         // a consumer's n32 blocks
+  static constexpr int kBlockThreads = 128 * (1 + kNC);
+  // setmaxnreg's budgets: at the 168 registers a thread that 384 threads
+  // allow, the consumers spilled (0.8953 ms at b 8, s 1024, h 8, d 256;
+  // 0.8733 with these budgets and no spill, kernels.ab)
+  static constexpr int kProducerRegs = 96;
+  static constexpr int kConsumerRegs = 200;
+};
+
+struct FwdWideSmem {
+  using G = FwdWideGeom;
+  float q[G::BM * G::kCols];
+  float k[2][G::KT * G::kCols];           // big, small
+  float v[2][G::DP * G::KT];              // V^T big, small
+  float sx[2][G::kNC][G::KT / 2 * 128];   // each consumer's part of S
+  uint64_t q_full;                        // Q landed
+  uint64_t k_land;                        // by TMA: K landed
+  uint64_t k_full, k_empty;               // K ready / released
+  uint64_t v_full, v_empty;               // V^T ready / released
+};
+
+// The producer warpgroup of flash_fwd_any_kernel_f32_256: Q once (raw),
+// then for each key tile kt_begin .. kt_end - 1 K (split after it lands)
+// once the consumers have released the last one, and V^T likewise.  TMA
+// loads only the panels holding one of the d real columns: the S k-steps
+// read no others.
+__device__ __forceinline__ void produce_fwd_wide(
+    FwdWideSmem& sm, const CUtensorMap* mq, const CUtensorMap* mk,
+    const tpujob_flash_any::Args& a, int use_tma, int q0, int b, int h,
+    int kt_begin, int kt_end) {
+  using G = FwdWideGeom;
+  constexpr int KT = G::KT, C = G::kCols;
+  produce_tile<float, G::BM, C>(sm.q, mq, (const float*)a.q, &sm.q_full,
+                                use_tma, q0, b, h, a.H, a.Sq, a.d);
+  const int np = (a.d + 31) / 32;
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int ph = i & 1;
+    mbar_wait(&sm.k_empty, ph ^ 1);
+    if (use_tma) {
+      if (threadIdx.x % 128 == 0) {
+        mbar_arrive_expect_tx(&sm.k_land, np * KT * kPanel);
+        for (int p = 0; p < np; ++p)
+          tma_load_panel(reinterpret_cast<uint8_t*>(sm.k[0]) + p * KT * kPanel,
+                         mk, &sm.k_land, 32 * p, kt * KT, h, b);
+      }
+      mbar_wait(&sm.k_land, ph);
+      split_tile<KT * C>(sm.k[0], sm.k[1]);
+    } else {
+      copy_split<KT, C>(sm.k[0], sm.k[1], (const float*)a.k, b, h, a.H,
+                        a.Sk, a.d, kt * KT);
+    }
+    fence_async_shared();
+    mbar_arrive(&sm.k_full);
+    mbar_wait(&sm.v_empty, ph ^ 1);
+    put_vt<G::DP, KT>(sm.v[0], sm.v[1], (const float*)a.v, b, h, a.H, a.Sk,
+                      a.d, kt * KT);
+    fence_async_shared();
+    mbar_arrive(&sm.v_full);
   }
 }
 

@@ -75,8 +75,11 @@
 // spilled.  setmaxnreg's budgets (40 for the producer, 232 for the
 // consumers) made ptxas spill, so none is set.  fp32 at DP = 256 (fixed
 // tiles, their small parts and two 64-row streamed tiles of 1 KB rows:
-// over 227 KB even at F = 32 and one stage) goes to the FFMA body, chosen
-// by the C entry point before the launch.
+// over 227 KB even at F = 32 and one stage) does not fit: there dK/dV
+// takes flash_dkv_any_kernel_f32_256 (F = 16, the Q and dO tiles in one
+// buffer each, released one at a time, W by tile parity: 64 + 128 + 32
+// KB; two consumers, S and dP at once, each with half of Z^T's rows) and
+// dQ the FFMA body, each chosen by the C entry point before the launch.
 //
 // Trouble 5, padding: the first products run ceil(d / 8) k-steps (tf32) or
 // ceil(d / 16) (bf16), not DP / 8 or DP / 16.
@@ -278,6 +281,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[16], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// m64n16k8, tf32
+__device__ __forceinline__ void mma_tf32(float (&d)[8], const uint32_t a[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : TPJ_TC_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // m64n64k16, bf16, B not transposed (K-major)
 __device__ __forceinline__ void mma_bf16(float (&d)[32], const uint32_t a[4],
                                          uint64_t db) {
@@ -414,12 +429,11 @@ __device__ __forceinline__ void first_chunk(float (&acc)[N / 2], const T* y,
   }
 }
 
-// acc = Y X^T over the head dim's nks k-steps, four a batch.
-template <class T, int N, int R, int C>
+// acc = Y X^T over the head dim's nks k-steps, kBatch a batch.
+template <class T, int N, int R, int C, int kBatch = 4>
 __device__ __forceinline__ void first_product(float (&acc)[N / 2], const T* y,
                                               uint64_t dx, uint64_t dxs,
                                               int nks) {
-  constexpr int kBatch = 4;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   int ks = 0;
@@ -433,28 +447,28 @@ __device__ __forceinline__ void first_product(float (&acc)[N / 2], const T* y,
 // high and low for bf16).  fp32 sums each batch of four k-steps into a
 // zeroed accumulator, small passes first, and adds that to z (as
 // first_chunk).
-template <class T, int N, int C>
+template <class T, int N, int C, int kBatch = 4>
 __device__ __forceinline__ void second_product(float (&z)[N / 2], const T* y,
                                                int m0, uint64_t dw0,
                                                uint64_t dw1) {
   if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int ks = 0; ks < kRows / 8; ks += 4) {
-      uint32_t big[4][4], small[4][4];
+    for (int ks = 0; ks < kRows / 8; ks += kBatch) {
+      uint32_t big[kBatch][4], small[kBatch][4];
       float part[N / 2];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < kBatch; ++u)
         frag_tf32<true, C>(y, ks + u, m0, big[u], small[u]);
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {  // the small passes first, then the big
+      for (int u = 0; u < kBatch; ++u) {  // the small passes first
         mma_tf32(part, big[u], dw1 + kstep<N>(ks + u));
         mma_tf32(part, small[u], dw0 + kstep<N>(ks + u));
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < kBatch; ++u)
         mma_tf32(part, big[u], dw0 + kstep<N>(ks + u));
       wgmma_commit();
       wgmma_wait<0>();
@@ -613,6 +627,33 @@ __device__ __forceinline__ void produce(T* d0, T* d1, const CUtensorMap* m0,
   } else {
     copy_tile<T, R, C>(d0, x0, b, h, H, S, d, row0);
     copy_tile<T, R, C>(d1, x1, b, h, H, S, d, row0);
+    fence_async_shared();
+    mbar_arrive(bar);
+  }
+}
+
+// One tile (R rows from row0 of x) into dst, completing on `bar` (128
+// arrivals, one a producer thread): by TMA (thread 0 expects the bytes and
+// issues one load for each panel that holds one of the d real columns; the
+// others are never read) or by the producer's plain copies.
+template <class T, int R, int C>
+__device__ __forceinline__ void produce_tile(T* dst, const CUtensorMap* map,
+                                             const T* x, uint64_t* bar,
+                                             int use_tma, int row0, int b,
+                                             int h, int H, int S, int d) {
+  constexpr int epp = kPanel / (int)sizeof(T);
+  if (use_tma) {
+    if (threadIdx.x % 128 == 0) {
+      const int np = (d + epp - 1) / epp;
+      mbar_arrive_expect_tx(bar, np * R * kPanel);
+      for (int p = 0; p < np; ++p)
+        tma_load_panel(reinterpret_cast<uint8_t*>(dst) + p * R * kPanel, map,
+                       bar, p * epp, row0, h, b);
+    } else {
+      mbar_arrive(bar);
+    }
+  } else {
+    copy_tile<T, R, C>(dst, x, b, h, H, S, d, row0);
     fence_async_shared();
     mbar_arrive(bar);
   }

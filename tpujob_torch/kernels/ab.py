@@ -19,8 +19,11 @@ tolerance (``ANY_TOL`` for the general kernels) and timed in turns: every
 version in order, then in reverse, twice (four readings of 50 launches
 each, CUDA events).  Prints one JSON line per case and version (its
 readings, their median, the worst ratio to the tolerance) and the card's
-name and power limit.  Compare versions only within one run: two runs may
-land on two cards.
+name and power limit.  ``--sdpa`` adds, for each case, one line with
+PyTorch's ``scaled_dot_product_attention`` forward and backward times on
+the same inputs and the backend that served them (a yardstick only: no
+kernel of the port calls it).  Compare versions only within one run: two
+runs may land on two cards.
 """
 from __future__ import annotations
 
@@ -126,6 +129,31 @@ def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
     return all(r <= 1 for r in worst.values())
 
 
+def sdpa_backend(q, causal: bool) -> str:
+    """The backend PyTorch's dispatch picks for SDPA on [b, h, s, d]
+    inputs like ``q``'s."""
+    from torch.nn.attention import SDPBackend
+
+    code = torch._fused_sdp_choice(q, q, q, is_causal=causal)
+    return next((n for n in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                             "CUDNN_ATTENTION", "MATH")
+                 if int(getattr(SDPBackend, n)) == code), str(code))
+
+
+def run_sdpa(cs, dtype, shape: tuple, causal: bool) -> None:
+    """SDPA's forward and backward (dQ, dK, dV in one call) on one case,
+    with the same seed as ``run_case``."""
+    b, s, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                               dtype=dtype) for _ in range(4))
+    lib = cs.library_ms(q, k, v, do, causal)
+    cs.emit({"version": "sdpa", "dtype": str(dtype).replace("torch.", ""),
+             "shape": list(shape), "causal": causal,
+             "backend": sdpa_backend(q.transpose(1, 2), causal),
+             "forward_ms": lib["flash_fwd"], "backward_ms": lib["flash_dq"]})
+
+
 def main(argv) -> int:
     import chip_smoke as cs  # the tolerances and the timer of the chip smoke
 
@@ -134,6 +162,8 @@ def main(argv) -> int:
                    help="dtype:b,s,h,d (repeatable; default "
                         f"{GPT_CASE})")
     p.add_argument("--noncausal", action="store_true")
+    p.add_argument("--sdpa", action="store_true",
+                   help="also time SDPA's forward and backward per case")
     p.add_argument("versions", nargs="+", help="name=path of each version")
     args = p.parse_args(argv)
     versions = dict(a.split("=", 1) for a in args.versions)
@@ -150,6 +180,9 @@ def main(argv) -> int:
     ok = all([run_case(cs, stem, libs, versions, dtype, shape,
                        not args.noncausal)
               for dtype, shape in args.case or [parse_case(GPT_CASE)]])
+    if args.sdpa:
+        for dtype, shape in args.case or [parse_case(GPT_CASE)]:
+            run_sdpa(cs, dtype, shape, not args.noncausal)
     print(cs.smi_line(), flush=True)
     return 0 if ok else 1
 
