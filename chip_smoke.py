@@ -34,16 +34,16 @@ Phases, one JSON line each on stdout:
    ``bound_share`` (bound / time); ``backward``: B2 and B3 launched back
    to back, timed together, beside SDPA's backward (one call for dQ, dK
    and dV).  Then the general kernels B1a-B3a (``flash_*_any``, fp32 or
-   bf16 at any head dim; wgmma with split precision, but for B2a at fp32
-   and padded head dim 256, which runs the FFMA body; B1a and B3a take
-   their own wgmma kernels there):
+   bf16 at any head dim; wgmma with split precision; fp32 at padded head
+   dim 256 on a wgmma kernel of its own in each):
    fp32 at GPT's shape (``any_gpt_f32``, timed), fp32 at the dryrun's
    head dim 16 without the mask, bf16 at head dim 128 (timed; and with a
    256 window) and 80 (timed), fp32 at head dim 256 (``any_d256_f32``,
    b=8, s=1024, h=8: the d=256 GPT's attention, timed; and at a ragged
    s=1000), each within ANY_TOL of its plain version; their bound takes
    the TF32 peak for fp32 (one pass, so the rows stay comparable) with
-   the FFMA peak's beside it (``ffma_bound_ms``) and the split's reach
+   the FFMA peak's beside it (``ffma_bound_ms``: a yardstick, the CUDA
+   cores' fp32 rate, which no kernel runs on any more) and the split's reach
    (``split_reach_ms``: three tf32 passes of every product in fp32; in
    bf16 one pass of S and dP, two of the products with P and dS), and
    SDPA is timed in the case's dtype.
@@ -561,8 +561,8 @@ ANY_LSE_TOL = 1e-5
 # attentions differ in summation order only, TF32 off for both); then a
 # 2-layer GPT at hidden 1024 and 8 heads (head dim 128, bf16, flash); and
 # a 2-layer GPT at hidden 2048 and 8 heads (head dim 256, fp32, flash:
-# B1a and B3a's fp32 head-dim-256 kernels, B2a's FFMA body) against one
-# dense fp32 step, 2 + 4 steps
+# B1a-B3a's fp32 head-dim-256 kernels) against one dense fp32 step, 2 + 4
+# steps
 FP32_ARGV = ["--no-bf16", "--attention", "flash", "--batch-size", "8",
              "--log-interval", "1", "--seed", "0"]
 FP32_WARMUP, FP32_TIMED = 2, 6
@@ -583,8 +583,8 @@ FP32_D256_WARMUP, FP32_D256_TIMED = 2, 4
 DRYRUN_N = 8
 DRYRUN_LOSS_RTOL = 1e-4
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak: a redesign's reach
-H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak: B2a's FFMA body's (fp32,
-                            # d > 128; B1a and B3a run wgmma there)
+H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak (the CUDA cores): a yardstick
+                            # beside the tensor cores' bound, no kernel's
 # B1a-B3a's split precision: tensor-core passes over the one-pass FLOPs
 # (fp32: 3xTF32; bf16: S and dP once, the products with P and dS twice)
 SPLIT_PASSES = {torch.float32: {"flash_fwd_any": 3, "flash_dq_any": 3,

@@ -16,9 +16,8 @@ dQ and dK/dV (``flash_dq_any.cu``, ``flash_dkv_any.cu`` on
 ``flash_tc.cuh``) run their products on wgmma with split precision (tf32 in
 three passes, bf16 with P or dS as a high and a low part) and copy tiles by
 TMA or a producer warpgroup's plain copies.  fp32 at padded head dim 256
-(129-256) runs its own wgmma kernel in the forward and dK/dV
-(``*_kernel_f32_256``) and the FFMA body in dQ only, each chosen before the
-launch.
+(129-256) runs a wgmma kernel of its own in each (``*_kernel_f32_256``),
+chosen before the launch; no FFMA body is left.
 """
 import ctypes
 import re
@@ -146,8 +145,8 @@ FWD_PV_PASSES = (
 def test_general_kernels_run_on_wgmma_with_the_split(stem):
     """B1a-B3a issue wgmma (tf32 and bf16) with the split, from TMA or the
     producer's copies; fp32 at padded head dim 256 goes, before the
-    launch, to its own wgmma kernel in B1a and B3a and to the FFMA body in
-    B2a alone; no mma.sync and no atomics."""
+    launch, to a wgmma kernel of its own in each; no FFMA body, no mma.sync
+    and no atomics."""
     src = (CSRC / f"{stem}.cu").read_text()
     code = re.sub(r"//[^\n]*", "", src)
     assert "is_bf16" in code
@@ -213,24 +212,45 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
                       "mma_bf16(z, a[u], dw1 +",        # P / dS low part
                       "mma_bf16(z, a[u], dw0 +"):       # P / dS high part
             assert piece in header, f"flash_tc.cuh lacks {piece}"
-    # fp32 at 256, chosen before the launch: B2a's FFMA body; B1a's and
-    # B3a's own tensor-core kernels, no FFMA body and no fmaf left
+    # fp32 at 256, chosen before the launch: each kernel's own tensor-core
+    # kernel; no FFMA body, and fmaf only in dQ's diagonal-tile dP (the
+    # plain version's order: fmaf(o, vv[e >> 1], ...) over the head dim)
+    assert "_ffma" not in code
+    assert (f"if constexpr (sizeof(T) == 4) return "
+            f"launch_{kind}_f32_256(a, B, stream);" in code)
+    assert f"flash_{kind}_any_kernel_f32_256<<<" in code
+    fmas = re.findall(r"fmaf\(([^,]*), ([^,]*),", code + header)
     if stem == "flash_dq_any":
-        assert f"flash_{kind}_any_kernel_ffma<float, 256>" in code
-        assert (f"if constexpr (sizeof(T) == 4) return launch_{kind}_ffma"
-                in code)
+        assert fmas == [("o", "vv[e >> 1]")] * 2, fmas
     else:
-        assert "_ffma" not in code and "fmaf(" not in code + header
-        assert (f"if constexpr (sizeof(T) == 4) return "
-                f"launch_{kind}_f32_256(a, B, stream);" in code)
-        assert f"flash_{kind}_any_kernel_f32_256<<<" in code
+        assert not fmas, fmas
     if stem == "flash_dkv_any":
         for piece in ("produce_tile<float, kRows, C>(",
                       "first_product<float, N, F, C, kB>(",
                       "second_product<float, N, C, kB>(",
                       "mbar_arrive(&sm.empty_q)", "mbar_arrive(&sm.empty_do)"):
             assert piece in code, f"{stem}.cu lacks {piece}"
+    if stem == "flash_dq_any":
+        # S^T on consumer 0 and dP^T on consumer 1 from the raw K and V
+        # tiles, V released after dP, K after both halves of dQ^T += K^T dS
+        for piece in ("produce_tile<float, kRows, C>(",
+                      "first_product<float, N, F, C, kB>(sc, sm.yk,",
+                      "first_product<float, N, F, C, kB>(dp, sm.yv,",
+                      "second_product<float, N, C, kB>(dqt[mb], sm.yk,",
+                      "mbar_arrive(&sm.empty_v)", "mbar_arrive(&sm.empty_k)"):
+            assert piece in squeeze(code), f"{stem}.cu lacks {piece}"
     assert "atomicAdd" not in code + header
+
+
+def test_no_ffma_body_is_left():
+    """The general kernels' FFMA body (fp32 arithmetic on the CUDA cores)
+    and the pieces only it used are gone from every source and header."""
+    for path in sorted(CSRC.glob("*.cu*")):
+        code = re.sub(r"//[^\n]*", "", path.read_text())
+        names = set(re.findall(r"\w+", code))
+        assert not [n for n in names if n.endswith("_ffma")], path.name
+        assert not names & {"kAnyThreads", "Geom", "load_rows", "row_max",
+                            "row_sum"}, path.name
 
 
 @pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh",

@@ -191,9 +191,11 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     (torch.bfloat16, 36, 200, True, 0),
     # fp32 in the 256 bucket (its own kernels): the d=256 GPT's length
     # with a window, a ragged head dim, the bucket's edge, and rows (808
-    # bytes) TMA cannot take
+    # bytes) TMA cannot take; one k-tile of keys, where every 16-query
+    # tile of dQ takes dP on the CUDA cores on the diagonal tile
     (torch.float32, 256, 1024, True, 256), (torch.float32, 200, 300, True, 0),
-    (torch.float32, 129, 257, False, 0), (torch.float32, 202, 130, True, 0)])
+    (torch.float32, 129, 257, False, 0), (torch.float32, 202, 130, True, 0),
+    (torch.float32, 256, 64, True, 0)])
 def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                                           window):
     """The _any forward, dQ and dK/dV kernels against flash_forward_ref /

@@ -30,9 +30,9 @@ bf16 high + low part (bf16); o held to ANY_TOL and lse to ANY_LSE_TOL.
 One pass (the raw fp32 words read as tf32; P's high part alone in bf16)
 misses in fp32 by more than 2x.  At fp32 head dim 256 B1a takes Q's tf32
 parts in registers as each k-step is loaded and adds S in batches of four
-k-steps (32 head-dim columns), P V a 32-key tile at a time; B3a sums S and
-dP in batches of eight k-steps (64 columns) and dK, dV a 64-query tile at a
-time; B2a's FFMA body (sequential fp32) is held to the exact sum.
+k-steps (32 head-dim columns), P V a 32-key tile at a time; B2a and B3a
+sum S and dP in batches of eight k-steps (64 columns), B2a dQ a 64-key tile
+at a time and B3a dK, dV a 64-query tile at a time.
 """
 import pytest
 import torch
@@ -101,9 +101,10 @@ def tc_product(eq, a, b, *, split: bool, first: bool, chunk: int = 0):
     return total
 
 
-# fp32 head dim 256: the summed axis's batches of B1a's S and P V and of
-# B3a's S, dP, dK and dV (B2a's dQ: exact)
-CHUNKS = {"fwd_s": 32, "fwd_pv": 32, "dkv_first": 64, "dkv_second": 64}
+# fp32 head dim 256: the summed axis's batches of B1a's S and P V, of B2a's
+# and B3a's S and dP, of B2a's dQ and of B3a's dK and dV
+CHUNKS = {"fwd_s": 32, "fwd_pv": 32, "bwd_first": 64, "dq_second": 64,
+          "dkv_second": 64}
 
 
 def chunks(dtype, d) -> dict:
@@ -114,7 +115,7 @@ def chunks(dtype, d) -> dict:
 def emulated_backward(q, k, v, do, lse, delta, *, causal, scale, split):
     """(dq, dk, dv) with B2a/B3a's products on the plain backward."""
     ch = chunks(q.dtype, q.shape[-1])
-    first = ch.get("dkv_first", 0)
+    first = ch.get("bwd_first", 0)
     s = tc_product("bqhd,bkhd->bhqk", q, k, split=split, first=True,
                    chunk=first) * scale
     dp = tc_product("bqhd,bkhd->bhqk", do, v, split=split, first=True,
@@ -128,7 +129,8 @@ def emulated_backward(q, k, v, do, lse, delta, *, causal, scale, split):
         p = p.masked_fill(~vis, 0.0)
     ds = p * (dp - delta[..., None]) * scale
     second = ch.get("dkv_second", 0)
-    out = (tc_product("bkhd,bhqk->bqhd", k, ds, split=split, first=False),
+    out = (tc_product("bkhd,bhqk->bqhd", k, ds, split=split, first=False,
+                      chunk=ch.get("dq_second", 0)),
            tc_product("bqhd,bhqk->bkhd", q, ds, split=split, first=False,
                       chunk=second),
            tc_product("bqhd,bhqk->bkhd", do, p, split=split, first=False,
@@ -148,7 +150,10 @@ def worst_ratio(got, ref, tol) -> float:
 
 CASES = [(torch.float32, 64, 128, True), (torch.float32, 16, 64, False),
          (torch.bfloat16, 128, 128, True), (torch.bfloat16, 80, 96, False),
-         (torch.bfloat16, 36, 200, True), (torch.float32, 256, 128, True)]
+         (torch.bfloat16, 36, 200, True), (torch.float32, 256, 128, True),
+         # a ragged head dim in the 256 bucket (its batches over a padded
+         # head dim) at a ragged length
+         (torch.float32, 200, 96, True)]
 
 
 def ratios(dtype, d, seq, causal):

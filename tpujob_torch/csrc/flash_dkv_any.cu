@@ -214,9 +214,6 @@ struct DkvWideSmem {
   uint64_t empty_q, empty_do;      // the consumers are done with Q / dO
 };
 
-constexpr int kPBar = 3;   // named barrier: W_P written (consumer 0 arrives)
-constexpr int kDsBar = 4;  // W_dS written (consumer 1 arrives)
-
 __global__ void __launch_bounds__(128 * (1 + DkvWideSmem::kNC), 1)
     flash_dkv_any_kernel_f32_256(const __grid_constant__ CUtensorMap tmQ,
                                  const __grid_constant__ CUtensorMap tmK,

@@ -37,9 +37,12 @@
 // inputs give the same bits.
 //
 // fp32 at padded head dim 256 does not fit a block's shared memory on this
-// design (flash_tc.cuh, trouble 4): the C entry point sends that bucket
-// alone to flash_dq_any_kernel_ffma, the FFMA body of flash_any.cuh (fp32
-// arithmetic on the CUDA cores), still to redesign.
+// layout (flash_tc.cuh, trouble 4): the C entry point sends that bucket to
+// flash_dq_any_kernel_f32_256, the same products on 16 fixed queries with
+// the K and V tiles in one buffer each, released one at a time.  Bound at
+// the d=256 GPT's attention in fp32 (b=8, s=1024, h=8, causal): 5 x 67.1
+// MB + 0.5 MB = 336 MB, 100 us; 51.6 GFLOP, 104 us in one tf32 pass: bound
+// by operations; the split's reach 313 us (fp32 FFMA's 67 TFLOP/s: 771 us).
 #include "flash_tc.cuh"
 
 namespace tpujob_flash_any {
@@ -195,119 +198,203 @@ __launch_bounds__(tpujob_flash_tc::TcGeom<T, DP>::kBlockThreads, 1)
     store_zt<T, N>((T*)a.out0, dqt[mb], 64 * mb, qc0, b, h, a.H, a.Sq, a.d);
 }
 
-// B2a's FFMA body (fp32 arithmetic on the CUDA cores, flash_any.cuh), for
-// fp32 at padded head dim 256 only.  Q and dO staged once, then a loop over
-// the live k-tiles staging K and V; each thread computes an RT x CT block
-// of S and of dP = dO V^T in one pass over the head dim, forms dS = P (dP -
-// D) scale in registers, and hands its rows of dS to its own warp through
-// shared memory for dQ += dS K, DT columns a thread.
-template <class T, int DP>
-__global__ void __launch_bounds__(kAnyThreads, 1)
-    flash_dq_any_kernel_ffma(Args a) {
-  using G = Geom<DP>;
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // BR x LD
-  float* sO = sQ + G::BR * G::LD;    // dO, BR x LD
-  float* sK = sO + G::BR * G::LD;    // BC x LD
-  float* sV = sK + G::BC * G::LD;    // BC x LD
-  float* sS = sV + G::BC * G::LD;    // dS, BR x LDS
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n_qt = (a.Sq + G::BR - 1) / G::BR;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * G::BR;  // longest first
+// B2a for fp32 at padded head dim 256 (flash_tc.cuh, trouble 4): B3a's
+// flash_dkv_any_kernel_f32_256 with queries and keys swapped.  F = 16
+// fixed queries (Q and dO, split into tf32 parts once: 64 KB), N = 16, the
+// producer and two consumer warpgroups; the streamed K and V tiles raw
+// fp32 (their k-steps' A fragments split in registers), each in one
+// buffer with its own full and empty barriers (2 x 64 KB).  Per k-tile
+// consumer 0 runs S^T = K Q^T and writes P into W_P while consumer 1 runs
+// dP^T = V dO^T and releases V (the next V lands during the second
+// product); consumer 1 then forms dS = P o (dP - D) scale from W_P into
+// W_dS.  Each consumer then adds its half of the head dim (two of dQ^T's
+// 64-row blocks) of dQ^T += K^T dS, and K is released once both have.
+// W needs no second buffer: consumer 0 writes the next P only after
+// consumer 1 has read this one (kDsBar), and consumer 1 the next dS only
+// after consumer 0's second product has read this one (kPBar).  Eight
+// k-steps a batch, as B3a's.  On the first diagonal tile (see
+// flash_dq_any_kernel) consumer 1 takes dP from the raw dO and V in
+// shared memory, in the plain version's order, before Q and dO are split.
+struct DqWideSmem {
+  static constexpr int F = 16, C = 256, kNC = 2;
+  float x[4][F * C];                      // Q, dO, then their small parts
+  float yk[tpujob_flash_tc::kRows * C];   // the k-tile's K (64 KB)
+  float yv[tpujob_flash_tc::kRows * C];   // its V (64 KB)
+  float ws[2][F * tpujob_flash_tc::kRows];  // W_dS [query][key]: parts
+  float wp[F / 2 * 128];  // W_P: consumer 0's P, [element][thread] (the
+                          // same thread of consumer 1 holds its dP)
+  float fix_lse[F];
+  float fix_delta[F];
+  uint64_t fixed_full;
+  uint64_t full_k, full_v;    // K / V landed
+  uint64_t empty_k, empty_v;  // the consumers are done with K / V
+};
+
+__global__ void __launch_bounds__(128 * (1 + DqWideSmem::kNC), 1)
+    flash_dq_any_kernel_f32_256(const __grid_constant__ CUtensorMap tmQ,
+                                const __grid_constant__ CUtensorMap tmK,
+                                const __grid_constant__ CUtensorMap tmV,
+                                const __grid_constant__ CUtensorMap tmDO,
+                                const Args a, int use_tma) {
+  using namespace tpujob_flash_tc;
+  using Sm = DqWideSmem;
+  constexpr int F = Sm::F, N = F, C = Sm::C, kNC = Sm::kNC;
+  constexpr int kMB = C / 64 / kNC;  // dQ^T's 64-row blocks a consumer
+  constexpr int kB = 8;              // k-steps a batch
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(align_atom(smem_raw));
+  const int n_qt = (a.Sq + F - 1) / F;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * F;  // longest first
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-
-  load_rows<T, G::BR, DP>(sQ, (const T*)a.q, b, h, a.H, a.Sq, a.d, q0);
-  load_rows<T, G::BR, DP>(sO, (const T*)a.dout, b, h, a.H, a.Sq, a.d, q0);
-
-  float acc[G::RT][G::DT], lse[G::RT], delta[G::RT];
-#pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    const int qi = q0 + ty * G::RT + i;
-    lse[i] = qi < a.Sq ? a.lse[(long)bh * a.Sq + qi] : 0.f;
-    delta[i] = qi < a.Sq ? a.delta[(long)bh * a.Sq + qi] : 0.f;
-#pragma unroll
-    for (int j = 0; j < G::DT; ++j) acc[i][j] = 0.f;
-  }
-
   int kt_begin, kt_end;
-  tpujob_flash::k_range<G::BR, G::BC>(q0, a.Sk, a.causal, a.window,
-                                      &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * G::BC;
-    __syncthreads();  // the last tile's K and V are no longer read
-    load_rows<T, G::BC, DP>(sK, (const T*)a.k, b, h, a.H, a.Sk, a.d, k0);
-    load_rows<T, G::BC, DP>(sV, (const T*)a.v, b, h, a.H, a.Sk, a.d, k0);
-    __syncthreads();
+  tpujob_flash::k_range<F, kRows>(q0, a.Sk, a.causal, a.window, &kt_begin,
+                                  &kt_end);
+  // dP on the CUDA cores on the first k-tile: it is the first diagonal one
+  const bool diag = a.causal && kt_begin == 0 && q0 + F <= kRows;
+  // warp-uniform to ptxas (see flash_dkv.cu)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 2 * 128);  // Q and dO, 128 arrivals each
+    mbar_init(&sm.full_k, 128);
+    mbar_init(&sm.full_v, 128);
+    mbar_init(&sm.empty_k, 128 * kNC);
+    mbar_init(&sm.empty_v, 128);         // consumer 1 alone reads V
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[G::RT][G::CT], dp[G::RT][G::CT];
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int dd = 0; dd < a.d; ++dd) {
-      float qv[G::RT], ov[G::RT], kv[G::CT], vv[G::CT];
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i) {
-        qv[i] = sQ[(ty * G::RT + i) * G::LD + dd];
-        ov[i] = sO[(ty * G::RT + i) * G::LD + dd];
-      }
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        kv[j] = sK[(tx + 16 * j) * G::LD + dd];
-        vv[j] = sV[(tx + 16 * j) * G::LD + dd];
-      }
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-        for (int j = 0; j < G::CT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
+  if (wg == 0) {
+    // ---- producer: Q, dO, lse and D once, then each live k-tile's V
+    // (released first) and K ----
+    const int r = threadIdx.x;
+    if (r < F) {
+      const bool ok = q0 + r < a.Sq;
+      sm.fix_lse[r] = ok ? a.lse[(long)bh * a.Sq + q0 + r] : 0.f;
+      sm.fix_delta[r] = ok ? a.delta[(long)bh * a.Sq + q0 + r] : 0.f;
     }
-
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i) {
-      const int r = ty * G::RT + i;
-#pragma unroll
-      for (int j = 0; j < G::CT; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (sees(q0 + r, k0 + c, a.Sq, a.Sk, a.causal, a.window)) {
-          const float p = expf(s[i][j] * a.scale - lse[i]);
-          ds = p * (dp[i][j] - delta[i]) * a.scale;
-        }
-        sS[r * G::LDS + c] = ds;
-      }
+    produce_tile<float, F, C>(sm.x[0], &tmQ, (const float*)a.q,
+                              &sm.fixed_full, use_tma, q0, b, h, a.H, a.Sq,
+                              a.d);
+    produce_tile<float, F, C>(sm.x[1], &tmDO, (const float*)a.dout,
+                              &sm.fixed_full, use_tma, q0, b, h, a.H, a.Sq,
+                              a.d);
+    for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+      const int ph = i & 1, kk0 = kt * kRows;
+      mbar_wait(&sm.empty_v, ph ^ 1);
+      produce_tile<float, kRows, C>(sm.yv, &tmV, (const float*)a.v,
+                                    &sm.full_v, use_tma, kk0, b, h, a.H,
+                                    a.Sk, a.d);
+      mbar_wait(&sm.empty_k, ph ^ 1);
+      produce_tile<float, kRows, C>(sm.yk, &tmK, (const float*)a.k,
+                                    &sm.full_k, use_tma, kk0, b, h, a.H,
+                                    a.Sk, a.d);
     }
-    __syncwarp();  // dS's rows are read by the warp that wrote them
+    return;
+  }
 
+  // ---- consumer cw: S^T (0) or dP^T (1), then head-dim rows m0 .. ----
+  const int cw = wg - 1, m0 = 64 * kMB * cw;
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's key rows
+  mbar_wait(&sm.fixed_full, 0);
+  float dpd[N / 2];  // consumer 1: the first diagonal tile's dP^T
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dpd[i] = 0.f;
+  if (diag) {
+    if (cw == 1) {  // as flash_dq_any_kernel's, from the raw tiles
+      mbar_wait(&sm.full_v, 0);
 #pragma unroll 4
-    for (int c = 0; c < G::BC; ++c) {
-      float dsv[G::RT];
+      for (int c = 0; c < a.d; ++c) {
+        const float vv[2] = {at<float, kRows>(sm.yv, r0, c),
+                             at<float, kRows>(sm.yv, r0 + 8, c)};
 #pragma unroll
-      for (int i = 0; i < G::RT; ++i) dsv[i] = sS[(ty * G::RT + i) * G::LDS + c];
+        for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < G::DT; ++j) {
-        const float kk = sK[c * G::LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < G::RT; ++i) acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            const float o = at<float, F>(sm.x[1], 8 * j + 2 * t + (e & 1), c);
+            dpd[4 * j + e] = fmaf(o, vv[e >> 1], dpd[4 * j + e]);
+          }
       }
     }
+    named_bar_sync(kFixedBar, 128 * kNC);  // dO read raw before the split
+  }
+  split_fixed<F * C, kNC>(sm.x[0], sm.x[2]);  // Q, dO rounded to tf32, and
+  split_fixed<F * C, kNC>(sm.x[1], sm.x[3]);  // their small parts
+  fence_async_shared();
+  named_bar_sync(kFixedBar, 128 * kNC);
+  // consumer 0 multiplies by Q (S^T), consumer 1 by dO (dP^T)
+  const uint64_t dx = panel_desc(sm.x[cw]), dxs = panel_desc(sm.x[2 + cw]);
+  const uint64_t ds0 = panel_desc(sm.ws[0]), ds1 = panel_desc(sm.ws[1]);
+  const int nks = (a.d + 7) / 8;
+
+  float dqt[kMB][N / 2];
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dqt[mb][i] = 0.f;
+
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int ph = i & 1, kk0 = kt * kRows;
+    if (cw == 0) {
+      // S^T = K Q^T, then P into W_P
+      float sc[N / 2];
+      mbar_wait(&sm.full_k, ph);
+      first_product<float, N, F, C, kB>(sc, sm.yk, dx, dxs, nks);
+      const bool edge =
+          q0 + F > a.Sq || kk0 + kRows > a.Sk ||
+          (a.causal && (q0 < kk0 + kRows - 1 ||
+                        (a.window > 0 && q0 + F - 1 - kk0 >= a.window)));
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          float p = prob(sc[4 * j + e], a.scale, sm.fix_lse[qc]);
+          if (edge && !sees(q0 + qc, kk0 + r0 + 8 * (e >> 1), a.Sq, a.Sk,
+                            a.causal, a.window))
+            p = 0.f;
+          sm.wp[(4 * j + e) * 128 + tid] = p;
+        }
+      named_bar_arrive(kPBar, 256);
+      named_bar_sync(kDsBar, 256);
+    } else {
+      // dP^T = V dO^T, V released; then dS = P o (dP - D) scale into
+      // W_dS once consumer 0 has written P
+      float dp[N / 2];
+      mbar_wait(&sm.full_v, ph);
+      first_product<float, N, F, C, kB>(dp, sm.yv, dx, dxs, nks);
+      mbar_arrive(&sm.empty_v);
+      if (diag && i == 0) {
+#pragma unroll
+        for (int u = 0; u < N / 2; ++u) dp[u] = dpd[u];
+      }
+      named_bar_sync(kPBar, 256);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          put_w<float, N>(sm.ws[0], sm.ws[1], j, e,
+                          sm.wp[(4 * j + e) * 128 + tid] *
+                              (dp[4 * j + e] - sm.fix_delta[qc]) * a.scale);
+        }
+      fence_async_shared();
+      named_bar_arrive(kDsBar, 256);
+      mbar_wait(&sm.full_k, ph);
+    }
+
+    // this consumer's rows of dQ^T += K^T dS, then K is released
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb)
+      second_product<float, N, C, kB>(dqt[mb], sm.yk, m0 + 64 * mb, ds0,
+                                      ds1);
+    mbar_arrive(&sm.empty_k);
   }
 
-  T* dq = (T*)a.out0;
 #pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    const int qi = q0 + ty * G::RT + i;
-    if (qi >= a.Sq) continue;
-    const long row = ((long)(b * a.Sq + qi) * a.H + h) * a.d;
-#pragma unroll
-    for (int j = 0; j < G::DT; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.d) dq[row + c] = from_f<T>(acc[i][j]);
-    }
-  }
+  for (int mb = 0; mb < kMB; ++mb)
+    store_zt<float, N>((float*)a.out0, dqt[mb], m0 + 64 * mb, q0, b, h, a.H,
+                       a.Sq, a.d);
 }
 
 }  // namespace tpujob_flash_any
@@ -343,22 +430,35 @@ static int launch_dq_tc(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-static int launch_dq_ffma(const Args& a, int B, void* stream) {
-  using G = Geom<256>;
-  const int smem = ((2 * G::BR + 2 * G::BC) * G::LD + G::BR * G::LDS) *
-                   (int)sizeof(float);
+static int launch_dq_f32_256(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_tc;
+  constexpr int F = DqWideSmem::F;
+  constexpr int smem = (int)sizeof(DqWideSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int use_tma = tma_takes<float>(a.d, ptrs, 4);
+  CUtensorMap mq = {}, mk = {}, mv = {}, mdo = {};
+  int rc;
+  if (use_tma &&
+      ((rc = encode_panels<float>(&mq, a.q, B, a.Sq, a.H, a.d, F)) ||
+       (rc = encode_panels<float>(&mk, a.k, B, a.Sk, a.H, a.d, kRows)) ||
+       (rc = encode_panels<float>(&mv, a.v, B, a.Sk, a.H, a.d, kRows)) ||
+       (rc = encode_panels<float>(&mdo, a.dout, B, a.Sq, a.H, a.d, F))))
+    return rc;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_any_kernel_ffma<float, 256>,
+      flash_dq_any_kernel_f32_256,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sq + G::BR - 1) / G::BR, B * a.H);
-  flash_dq_any_kernel_ffma<float, 256>
-      <<<grid, kAnyThreads, smem, (cudaStream_t)stream>>>(a);
+  dim3 grid((a.Sq + F - 1) / F, B * a.H);
+  flash_dq_any_kernel_f32_256<<<grid, 128 * (1 + DqWideSmem::kNC), smem,
+                                (cudaStream_t)stream>>>(mq, mk, mv, mdo, a,
+                                                        use_tma);
   return (int)cudaGetLastError();
 }
 
-// The padded head dim's instantiation, chosen before the launch: the
-// tensor-core kernel for every bucket but fp32 at 256 (the FFMA body).
+// The padded head dim's instantiation, chosen before the launch: fp32 at
+// 256 takes its own tensor-core kernel (its tiles), every other bucket the
+// template.
 template <class T>
 static int dispatch_dq_any(const Args& a, int B, void* stream) {
   switch (padded_dim(a.d)) {
@@ -366,7 +466,7 @@ static int dispatch_dq_any(const Args& a, int B, void* stream) {
     case 64: return launch_dq_tc<T, 64>(a, B, stream);
     case 128: return launch_dq_tc<T, 128>(a, B, stream);
     case 256:
-      if constexpr (sizeof(T) == 4) return launch_dq_ffma(a, B, stream);
+      if constexpr (sizeof(T) == 4) return launch_dq_f32_256(a, B, stream);
       else return launch_dq_tc<T, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;

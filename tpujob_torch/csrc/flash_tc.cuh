@@ -75,11 +75,15 @@
 // spilled.  setmaxnreg's budgets (40 for the producer, 232 for the
 // consumers) made ptxas spill, so none is set.  fp32 at DP = 256 (fixed
 // tiles, their small parts and two 64-row streamed tiles of 1 KB rows:
-// over 227 KB even at F = 32 and one stage) does not fit: there dK/dV
-// takes flash_dkv_any_kernel_f32_256 (F = 16, the Q and dO tiles in one
-// buffer each, released one at a time, W by tile parity: 64 + 128 + 32
-// KB; two consumers, S and dP at once, each with half of Z^T's rows) and
-// dQ the FFMA body, each chosen by the C entry point before the launch.
+// over 227 KB even at F = 32 and one stage) does not fit: there each
+// takes a kernel of its own, chosen by the C entry point before the
+// launch, with F = 16 fixed rows split once (64 KB), the two streamed
+// tiles raw (their A fragments split in registers) in one buffer each,
+// released one at a time, and two consumers, one on each first product
+// at once, each with half of Z^T's rows: flash_dkv_any_kernel_f32_256 (Q
+// and dO, W by tile parity: 64 + 128 + 32 KB) and
+// flash_dq_any_kernel_f32_256 (K and V, V released after dP, K after
+// both halves of dQ^T += K^T dS: 64 + 128 + 12 KB).
 //
 // Trouble 5, padding: the first products run ceil(d / 8) k-steps (tf32) or
 // ceil(d / 16) (bf16), not DP / 8 or DP / 16.
@@ -103,6 +107,10 @@ constexpr int kStages = 2;        // streamed tiles in flight
 constexpr int kPanel = 128;       // bytes of a panel row (the swizzle span)
 constexpr int kFixedBar = 1;      // named barrier of all consumers
 constexpr int kConsumerBar = 2;   // + c: named barrier of consumer c
+// the fp32 head-dim-256 kernels' exchange between their two consumers
+// (they use no per-consumer barrier, so 3 is free for it)
+constexpr int kPBar = 3;          // named barrier: P written (consumer 0)
+constexpr int kDsBar = 4;         // dS written (consumer 1)
 
 // The tiles of input type T at padded head dim DP.
 template <class T, int DP>

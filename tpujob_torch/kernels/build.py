@@ -11,10 +11,9 @@ and an unchanged one is reused.  Six sources, one library each:
   (the C entry point's ``switch`` on ``D``);
 - ``flash_fwd_any``, ``flash_dq_any``, ``flash_dkv_any``: the general
   kernels (B1-B3 in fp32 or bf16 at head dim 1-256; wgmma with split
-  precision; fp32 at padded head dim 256 on a kernel of its own in the
-  forward and dK/dV, on an FFMA body in dQ), templates on
-  the dtype and on the padded head dim 32/64/128/256, the entry point
-  taking ``D`` and ``is_bf16``.
+  precision; fp32 at padded head dim 256 on a kernel of its own in each),
+  templates on the dtype and on the padded head dim 32/64/128/256, the
+  entry point taking ``D`` and ``is_bf16``.
 
 ``workloads/flash.py`` chooses between the two sets by dtype and head
 dim before the launch.  The hash of the sources covers the

@@ -18,12 +18,10 @@ The first three are the tuned wgmma/TMA kernels and take bf16 at head
 dim 64 or 32 (``KERNEL_HEAD_DIMS``).  The ``_any`` three take fp32 or
 bf16 at any head dim from 1 to ``MAX_HEAD_DIM`` (256), on the tensor
 cores (wgmma; fp32 inputs as three tf32 passes, bf16 with P and dS in two
-bf16 parts); fp32 at head dims over 128 takes its own wgmma kernel in the
-forward and dK/dV, and in dQ alone still the CUDA cores (FFMA).
-``flash_forward`` and
-``flash_backward`` choose by dtype and head dim before the launch
-(``tuned``): bf16 at 64 or 32 takes the tuned kernels, anything else the
-``_any`` ones.  No wrapper gives way to another kernel, or to the plain
+bf16 parts); fp32 at head dims over 128 takes a wgmma kernel of its own
+in each.  ``flash_forward`` and ``flash_backward`` choose by dtype and
+head dim before the launch (``tuned``): bf16 at 64 or 32 takes the tuned
+kernels, anything else the ``_any`` ones.  No wrapper gives way to another kernel, or to the plain
 version, when a build or a launch fails: it raises.
 
 Beside the kernels sits their plain PyTorch version with the same math
