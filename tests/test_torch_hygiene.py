@@ -73,9 +73,14 @@ def test_port_is_tpulint_clean():
 
 
 def test_every_kernel_source_names_what_it_replaces():
+    """A flash kernel names the Pallas kernel of ``flash.py`` it replaces;
+    another kernel (the step's phase marks, ``mark.cu``) names the JAX
+    package's code it stands for."""
     for cu in sorted((PORT / "csrc").glob("*.cu")):
         head = cu.read_text()[:3000]
-        assert "tpujob/workloads/flash.py:" in head, cu.name
+        counterpart = ("tpujob/workloads/flash.py:" if cu.stem.startswith("flash")
+                       else "tpujob/workloads/")
+        assert counterpart in head, cu.name
         assert "Bound on an H100" in head or "Bounds on an H100" in head, cu.name
 
 

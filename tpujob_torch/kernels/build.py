@@ -4,7 +4,7 @@ Each source is one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in
 ``<repo>/build/tpujob_torch_kernels/<hash>/``, where the hash covers every
 source and header and the compiler flags, so an edited kernel is rebuilt
-and an unchanged one is reused.  Six sources, one library each:
+and an unchanged one is reused.  Seven sources, one library each:
 
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the tuned wgmma/TMA kernels
   (B1-B3), templates on the head dim instantiated for 32 and 64 in bf16
@@ -13,7 +13,10 @@ and an unchanged one is reused.  Six sources, one library each:
   kernels (B1-B3 in fp32 or bf16 at head dim 1-256; wgmma with split
   precision; fp32 at padded head dim 256 on a kernel of its own in each),
   templates on the dtype and on the padded head dim 32/64/128/256, the
-  entry point taking ``D`` and ``is_bf16``.
+  entry point taking ``D`` and ``is_bf16``;
+- ``mark``: the train step's phase marks (``train_lib.PhaseMarks``), one
+  one-thread kernel a boundary, built with the rest by ``load_all`` or
+  alone at the first mark of a run without the flash kernels.
 
 ``workloads/flash.py`` chooses between the two sets by dtype and head
 dim before the launch.  The hash of the sources covers the
@@ -82,6 +85,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # window, is_bf16, stream
         "tpujob_flash_dkv_any": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                                  _i, _i, _f, _i, _i, _i, _p],
+    },
+    "mark": {
+        # which, word, stream
+        "tpujob_mark": [_i, _p, _p],
     },
 }
 

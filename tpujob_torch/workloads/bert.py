@@ -1235,8 +1235,12 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
     step, so a resume replays the same stream).  Its copy to the device
     (``train_lib.put_batch``) is inside the clock, as in the JAX package.
     ``on_step(i)``, if given, runs after step ``i`` inside the clock (a
-    caller's timer or profiler).  The checkpointed and returned state
-    holds ``model``, never the wrapper.
+    caller's timer or profiler); if it raises, the loop ends and the log
+    is closed with every row written.  The checkpointed and returned state
+    holds ``model``, never the wrapper.  While a profiler runs, each call's
+    host work is in spans (``train_lib.span``): ``tpujob.feed`` (the
+    provider and ``put_batch``), ``tpujob.step``, ``tpujob.log`` (loss
+    extras, the scalar writer) and ``tpujob.checkpoint``.
 
     On one card the step is compiled (``train_lib.make_train_step``): the
     first step (with ``--grad-accum``, the first group) runs eagerly, after
@@ -1366,16 +1370,20 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
         for i in range(start_step, args.steps):
             profiler.step(i - start_step, block_on=loss)
             if batch_provider is not None:
-                batch = train_lib.put_batch(batch_provider(i), device)
-            state, loss = train_step(state, batch)
+                with train_lib.span("tpujob.feed", i):
+                    batch = train_lib.put_batch(batch_provider(i), device)
+            with train_lib.span("tpujob.step", i):
+                state, loss = train_step(state, batch)
             losses.append(loss)  # the step's own copy: no wait for the card
-            extras = train_lib.loss_extras(loss_fn)
-            if extras is not None:
-                moe_metrics.append(extras)
-            if i % args.log_interval == 0:
-                writer.add_scalar("loss", loss, i)
+            with train_lib.span("tpujob.log", i):
+                extras = train_lib.loss_extras(loss_fn)
+                if extras is not None:
+                    moe_metrics.append(extras)
+                if i % args.log_interval == 0:
+                    writer.add_scalar("loss", loss, i)
             if ckpt and (i + 1) % args.checkpoint_interval == 0:
-                ckpt.save(i + 1, state)
+                with train_lib.span("tpujob.checkpoint", i):
+                    ckpt.save(i + 1, state)
             if on_step is not None:
                 on_step(i)
         train_lib.sync(device)
@@ -1383,12 +1391,12 @@ def train(args, pe, model: Bert, loss_of: Callable[[nn.Module], Callable],
         wall = time.perf_counter() - t0 - profiler.overhead_s
     finally:
         profiler.close(block_on=loss)
+        writer.close()  # rows still in flight land, also when on_step raised
     steps_run = args.steps - start_step
     sps = steps_run * args.batch_size / wall
     tps = sps * args.seq_len
     losses = [float(x) for x in losses]
     final_loss = losses[-1]
-    writer.close()
     extra = {}
     if moe_metrics:
         extra["moe_metrics"] = [dict(zip(MOE_METRICS, m.tolist()))

@@ -38,10 +38,14 @@
 - ``Profiler``, ``add_profile_flags``, ``profiler_from_args``: the
   ``--profile-*`` surface on ``torch.profiler`` (a Chrome trace where the
   JAX package writes an xplane one).
+- ``span``: a host range in that trace (``tpujob.*``), entered only while
+  a profiler runs; ``PhaseMarks``: the step's phase boundaries on the card,
+  one tiny kernel each, which a captured step's replay carries.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import math
@@ -117,8 +121,9 @@ class Profiler:
     """``--profile-dir`` hook: traces ``num_steps`` steady-state steps with
     ``torch.profiler`` and writes one Chrome trace
     (``<profile_dir>/trace_steps<a>-<b>.pt.trace.json``, for Perfetto or
-    ``chrome://tracing``).  CUDA activity when the model is on the card,
-    CPU activity on the CPU.
+    ``chrome://tracing``).  CPU activity (the host's operators and the
+    loop's ``span``s), and CUDA activity too when the model is on the card
+    (its kernels, the step's ``PhaseMarks`` among them).
 
     Skips the first ``start_step`` steps (allocator and kernel-build
     warm-up); only process 0 traces.  Call ``step(i)`` at the top of each
@@ -136,8 +141,9 @@ class Profiler:
         self.stop_step = start_step + max(1, num_steps)
         self.enabled = bool(profile_dir) and enabled
         on_card = device is not None and torch.device(device).type == "cuda"
-        self._activity = (torch.profiler.ProfilerActivity.CUDA if on_card
-                          else torch.profiler.ProfilerActivity.CPU)
+        self._activities = [torch.profiler.ProfilerActivity.CPU]
+        if on_card:
+            self._activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = None
         self.path: Optional[str] = None
         self.overhead_s = 0.0
@@ -149,7 +155,7 @@ class Profiler:
         if not self.enabled:
             return
         if self._prof is None and self.start_step <= step < self.stop_step:
-            self._prof = torch.profiler.profile(activities=[self._activity])
+            self._prof = torch.profiler.profile(activities=self._activities)
             self._prof.start()
         elif self._prof is not None and step >= self.stop_step:
             self._finish(block_on)
@@ -255,6 +261,55 @@ class TrainTelemetry:
             self.reporter.report(self.step_count, self.samples_per_sec,
                                  self.checkpoint_step,
                                  self.resize_generation, force=True)
+
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, step: Optional[int] = None):
+    """A ``record_function`` range ``name`` (with ``step`` as its args)
+    while a profiler runs, else a context that does nothing: entering a
+    ``record_function`` with no profiler costs about 13 us on a CPU core,
+    the check a fraction of one.  The loop's spans (``bert.train``):
+    ``tpujob.feed``, ``tpujob.step`` (``.inputs`` and ``.launch`` on the
+    captured step, ``.eager`` otherwise), ``tpujob.log``,
+    ``tpujob.checkpoint``."""
+    if not _profiling():
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(
+        name, None if step is None else str(step))
+
+
+class PhaseMarks:
+    """The train step's phase boundaries on the card, for a trace to split
+    each call's device time by.  ``marks(phase)`` launches the one-thread
+    kernel ``tpujob_mark_<phase>`` (``csrc/mark.cu``) on the current
+    stream; each writes one device word, made at the first mark, so a
+    capture records it as a kernel node and allocates nothing in the
+    graph's pool.  A step marks ``begin``, then ``forward`` after the loss,
+    ``backward`` after its backward, ``fold`` after a ``GradAccum`` folded
+    the grads in, and ``update`` after the optimizer's step: the kernels
+    that start between two marks belong to the phase the second names.  On
+    the CPU a no-op."""
+
+    PHASES = ("begin", "forward", "backward", "fold", "update")
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._word: Optional[torch.Tensor] = None
+
+    def __call__(self, phase: str) -> None:
+        if self.device.type != "cuda":
+            return
+        from tpujob_torch.kernels import build
+
+        if self._word is None:
+            self._word = torch.zeros(1, dtype=torch.int32, device=self.device)
+        rc = build.load("mark").tpujob_mark(
+            self.PHASES.index(phase), self._word.data_ptr(),
+            torch.cuda.current_stream(self.device).cuda_stream)
+        build.check(rc, f"mark {phase}")
 
 
 def add_profile_flags(parser) -> None:
@@ -585,27 +640,38 @@ def step_mode(optimizer: torch.optim.Optimizer, capture: bool = True,
     return "eager"
 
 
+def _no_mark(phase: str) -> None:
+    pass
+
+
 def _eager_step(loss_fn, optimizer, lr_fn, accum, count: int, batch,
-                vag=None):
+                vag=None, marks=_no_mark):
     """One step as the JAX package's ``_step_body`` runs it: the loss
     (detached) of ``batch`` after its backward (or ``vag(batch)``, which
     leaves the gradients in ``.grad`` itself) and, unless ``accum`` holds
     the update back, one optimizer update at ``lr_fn(update)``; and
-    whether it updated."""
+    whether it updated.  ``marks`` (``PhaseMarks``) marks its phases."""
     optimizer.zero_grad(set_to_none=True)
+    marks("begin")
     if vag is None:
         loss = loss_fn(batch)
+        marks("forward")
         loss.backward()
     else:
-        loss = vag(batch)
+        loss = vag(batch)  # forward and backward in one schedule
         if loss_extras(vag) is not None:
             raise ValueError(
                 "value_and_grad_fn does not support loss extras (it "
                 "returns the loss with no slot for extra outputs)")
-    update = count if accum is None else accum.add()
+    marks("backward")
+    update = count
+    if accum is not None:
+        update = accum.add()
+        marks("fold")
     if update is not None:
         set_lr(optimizer, lr_fn(update))
         optimizer.step()
+        marks("update")
     return loss.detach(), update is not None
 
 
@@ -763,6 +829,13 @@ def make_train_step(loss_fn: Optional[Callable[[Any], torch.Tensor]],
     own.  Read them with ``loss_extras(loss_fn)`` right after the step:
     any other call of ``loss_fn`` (an eval) overwrites them.
 
+    The step marks its phases on the card (``PhaseMarks``; a captured
+    graph holds the marks, so a trace of its replay splits a call into
+    forward, backward, fold and update) and puts its host work in
+    ``span``s: ``tpujob.step.inputs`` (the batch's copy into the static
+    inputs, the lr's fill) and ``tpujob.step.launch`` (the replay) on the
+    captured step, ``tpujob.step.eager`` around an eager call.
+
     ``value_and_grad_fn(batch) -> loss`` replaces ``loss_fn`` and its
     backward when the gradient computation is itself a schedule (a
     pipeline's fused forward and backward, which interleaves microbatches'
@@ -775,13 +848,16 @@ def make_train_step(loss_fn: Optional[Callable[[Any], torch.Tensor]],
     raises."""
     mode = step_mode(optimizer, capture,
                      scheduled=value_and_grad_fn is not None)
+    marks = PhaseMarks(optimizer.param_groups[0]["params"][0].device)
 
     if mode == "eager":
         def step(state, batch):
-            loss, _ = _eager_step(loss_fn, optimizer, lr_fn, accum,
-                                  state["step"], batch, value_and_grad_fn)
-            return dict(state, step=state["step"] + 1), global_mean(loss,
-                                                                    mesh)
+            with span("tpujob.step.eager", state["step"]):
+                loss, _ = _eager_step(loss_fn, optimizer, lr_fn, accum,
+                                      state["step"], batch, value_and_grad_fn,
+                                      marks)
+                loss = global_mean(loss, mesh)
+            return dict(state, step=state["step"] + 1), loss
 
         step.mode = mode
         return step
@@ -789,29 +865,41 @@ def make_train_step(loss_fn: Optional[Callable[[Any], torch.Tensor]],
     graphs = _Graphs(optimizer)
 
     def captured(n: int):
+        marks("begin")
         loss = loss_fn(graphs.inputs)
+        marks("forward")
         loss.backward()
-        if accum is None or accum.fold(n):
+        marks("backward")
+        update = True
+        if accum is not None:
+            update = accum.fold(n)
+            marks("fold")
+        if update:
             optimizer.step()
+            marks("update")
         return loss.detach()
 
     def step(state, batch):
+        i = state["step"]
         if not graphs.warm():
-            loss = graphs.eager(lambda: _eager_step(
-                loss_fn, optimizer, lr_fn, accum, state["step"], batch))
-            graphs.feed(batch)
-            return dict(state, step=state["step"] + 1), loss
+            with span("tpujob.step.eager", i):
+                loss = graphs.eager(lambda: _eager_step(
+                    loss_fn, optimizer, lr_fn, accum, i, batch, marks=marks))
+                graphs.feed(batch)
+            return dict(state, step=i + 1), loss
         n = 0 if accum is None else accum.mini_step
-        update = state["step"] if accum is None else (
+        update = i if accum is None else (
             accum.gradient_step if n + 1 == accum.every else None)
-        graphs.feed(batch)
-        if update is not None:
-            check_baked_lr(optimizer, [lr_fn(update)])
-            set_lr(optimizer, lr_fn(update))
-        loss = graphs.replay(n, lambda: captured(n))
+        with span("tpujob.step.inputs", i):
+            graphs.feed(batch)
+            if update is not None:
+                check_baked_lr(optimizer, [lr_fn(update)])
+                set_lr(optimizer, lr_fn(update))
+        with span("tpujob.step.launch", i):
+            loss = graphs.replay(n, lambda: captured(n))
         if accum is not None:
             accum.advance()
-        return dict(state, step=state["step"] + 1), loss
+        return dict(state, step=i + 1), loss
 
     step.mode = mode
     return step
