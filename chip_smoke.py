@@ -47,6 +47,11 @@ Phases, one JSON line each on stdout:
    (``split_reach_ms``: three tf32 passes of every product in fp32; in
    bf16 one pass of S and dP, two of the products with P and dS), and
    SDPA is timed in the case's dtype.
+   Then ``adamw``: AdamW's update at GPT-2-medium's and BERT-large's
+   parameter sets, the port's kernel (``csrc/adamw.cu``) against torch's
+   capturable foreach route and ``fused=True``, all timed beside the byte
+   bound; the kernel's parameters within ADAMW_ULPS of foreach's; each
+   route's kernels by the op that launched them (``run_adamw``).
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error); ``model_bert``: the
@@ -255,14 +260,17 @@ Phases, one JSON line each on stdout:
     ``platform`` gpu, 8 ranks a card over gloo, and the 8 ranks' first
     loss within SCALING_LOSS_RTOL of one process's.
 
-Then the ``kernels`` summary line, six kernels (each kernel's
+Then the ``kernels`` summary line, seven kernels (each flash kernel's
 ``main_path``: ``train`` for the tuned three, ``fp32`` for the ``_any``
 three, whose run gives ``launches``; its ``paths``: the phases that
 launched it; its ``cases``: every timed shape's numbers, the head-dim-32
-and Ulysses-local ones included), the card's ``name, power.limit`` as nvidia-smi prints them,
-and last ``{"ok": true, "device": {...}}``.  Any failure (no card, no
-package, a build error, a mismatch, a kernel a path never launched) exits
-non-zero before the last line.
+and Ulysses-local ones included; then AdamW's, ``adamw_row``: the
+``adamw`` phase's times, and the parameter tensors it updated on each
+path, spawned ranks and bench rows included, from ``optim.UPDATES``), the
+card's ``name, power.limit`` as nvidia-smi prints them, and last ``{"ok":
+true, "device": {...}}``.  Any failure (no card, no package, a build
+error, a mismatch, a kernel a path never launched, torch's AdamW updating
+a tensor on any path) exits non-zero before the last line.
 """
 from __future__ import annotations
 
@@ -288,6 +296,10 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_S = 3.35e12    # HBM3 bandwidth, H100 SXM
 
 DEVICE = "cuda"
+# AdamW's kernel against torch's foreach route after run_adamw's updates:
+# ulps of max(|foreach's|, ADAMW_FLOOR), as tests/test_torch_adamw.py
+ADAMW_ULPS = 8
+ADAMW_FLOOR = 2.0 ** -9
 MAIN = dict(b=8, s=1024, h=16, d=64)
 # Kernel vs plain version, element by element:
 #   |kernel - plain| <= RTOL * |plain| + ATOL * rms_row(plain)
@@ -877,6 +889,116 @@ def compare_models(phase: str, build, loss_of, argv: list,
           "key_bias_grad_norm_over_query_bias": key_bias})
     if not ok:
         raise AssertionError(f"{phase}: flash disagrees with dense on the card")
+
+
+def kernels_by_op(prof) -> list:
+    """Each device kernel of a profile under the ``aten::`` op that
+    launched it (the nearest on the host's stack): ``[op, kernel,
+    launches, device ms]``, the most time first."""
+    rows = {}
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", None) or ():
+            op = evt
+            while op is not None and not op.name.startswith("aten::"):
+                op = op.cpu_parent
+            key = (op.name if op is not None else evt.name, k.name[:90])
+            n, us = rows.get(key, (0, 0.0))
+            rows[key] = (n + 1, us + k.duration)
+    return sorted(([op, name, n, us / 1e3] for (op, name), (n, us)
+                   in rows.items()), key=lambda r: -r[3])
+
+
+def run_adamw() -> dict:
+    """Phase ``adamw``: AdamW's update at GPT-2-medium's and BERT-large's
+    parameter sets (the trainers' own models, default flags), each
+    parameter and gradient drawn once, in ``train_lib.adamw``'s two groups
+    at lr 1e-4: the port's kernel (``optim.AdamW``, ``csrc/adamw.cu``)
+    against torch's capturable foreach route (the port's update before it)
+    and ``fused=True`` (``torch._fused_adamw_``), each from the same
+    start.  Every route's ``step`` timed by ``time_ms`` beside the byte
+    bound (28 bytes a parameter); after the same count of updates the
+    kernel's parameters within ADAMW_ULPS of foreach's (in ulps of
+    max(|foreach's|, ADAMW_FLOOR), as tests/test_torch_adamw.py); then the
+    kernel's launches alone timed (the step counts' advance left out).
+    One eager step of each route under torch.profiler: its kernels by the
+    op that launched them, and its peak memory above the state's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpujob_torch.workloads import bert as tbert
+    from tpujob_torch.workloads import gpt as tgpt
+    from tpujob_torch.workloads import optim, train_lib
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for name, module in (("gpt2-medium", tgpt), ("bert-large", tbert)):
+        args = module.build_parser().parse_args(["--device", DEVICE])
+        shapes = [p.shape for p in module.build_model(args, dev).parameters()]
+        torch.cuda.empty_cache()
+        n = sum(math.prod(s) for s in shapes)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        init = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        routes, row = {}, {"parameters": n, "tensors": len(shapes)}
+        for route in ("kernel", "foreach", "fused"):
+            params = [torch.nn.Parameter(t.clone()) for t in init]
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt = train_lib.adamw(params, 1e-4)
+            if route != "kernel":
+                opt = torch.optim.AdamW(
+                    [{k: g[k] for k in ("params", "weight_decay", "lr")}
+                     for g in opt.param_groups],
+                    capturable=True, **({"foreach": True}
+                                        if route == "foreach"
+                                        else {"fused": True}))
+            opt.step()  # the state; the kernel built
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                opt.step()
+                torch.cuda.synchronize()
+            row[route] = {
+                "temp_peak_mib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 20,
+                "kernels": kernels_by_op(prof)[:12],
+                "ms": time_ms(opt.step)}
+            routes[route] = (params, opt)
+        params, opt = routes["kernel"]
+        for route in ("foreach", "fused"):
+            ref = routes[route][0]
+            row[route]["kernel_ulps"] = max(
+                float(((p.detach() - q.detach()).abs()
+                      / _ulp(q.detach(), ADAMW_FLOOR)).max())
+                for p, q in zip(params, ref))
+        lists = []
+        for group in opt.param_groups:
+            p, g, m, v, steps = [], [], [], [], []
+            opt._init_group(group, p, g, m, v, [], steps)
+            lists.append((group, p, g, m, v, steps))
+        row["kernel"]["launches_ms"] = time_ms(
+            lambda: [optim.launch(*a) for a in lists])
+        row["bound_ms"], _ = bound(28 * n, 0)
+        for route in ("kernel", "foreach", "fused"):
+            row[route]["bound_share"] = row["bound_ms"] / row[route]["ms"]
+        row["kernel"]["launches_bound_share"] = (
+            row["bound_ms"] / row["kernel"]["launches_ms"])
+        out[name] = row
+        del routes, params, opt, lists, init, grads
+        torch.cuda.empty_cache()
+    ok = all(r["foreach"]["kernel_ulps"] <= ADAMW_ULPS for r in out.values())
+    emit({"phase": "adamw", "ok": ok, "ulps_max": ADAMW_ULPS,
+          "floor": ADAMW_FLOOR, "device": smi_line(), **out})
+    if not ok:
+        raise AssertionError("the AdamW kernel left foreach's parameters")
+    return out
+
+
+def _ulp(x, floor: float = 0.0):
+    """One unit in the last place of max(|x|, floor), elementwise."""
+    scale = torch.clamp(x.abs(), min=floor)
+    return torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
 
 
 def check_model() -> None:
@@ -1969,6 +2091,21 @@ def running_stats(model) -> dict:
             if "running" in k}
 
 
+def spawn_counted(fn, world: int, out_dir: str, plan: dict,
+                  timeout_s: float) -> list:
+    """``distributed.spawn_local``, each rank's AdamW updates
+    (``adamw_updates``) added to this process's ``optim.UPDATES``, so a
+    path's count holds its ranks' too."""
+    from tpujob_torch.workloads import distributed, optim
+
+    ranks = distributed.spawn_local(fn, world, out_dir, plan,
+                                    timeout_s=timeout_s)
+    for r in ranks:
+        for k, n in r["adamw_updates"].items():
+            optim.UPDATES[k] += n
+    return ranks
+
+
 def ddp_plan() -> dict:
     """What each rank runs, passed to it whole: a spawned rank imports
     this file anew."""
@@ -1987,7 +2124,7 @@ def ddp_rank(rank: int, out_dir: str, plan: dict) -> dict:
     import torch.distributed as tdist
 
     from tpujob_torch.workloads import distributed as dist
-    from tpujob_torch.workloads import flash, mnist, resnet, smoke_dist
+    from tpujob_torch.workloads import flash, mnist, optim, resnet, smoke_dist
 
     device = plan["device"]
     pe = dist.initialize(device=torch.device(device), backend="gloo",
@@ -2027,6 +2164,7 @@ def ddp_rank(rank: int, out_dir: str, plan: dict) -> dict:
                     "rows_tested": int(counted.item()),
                     "steps": res["state"]["step"], "wall_s": res["wall_s"]}
     dist.shutdown()
+    out["adamw_updates"] = dict(optim.UPDATES)
     return out
 
 
@@ -2035,8 +2173,7 @@ def run_ddp() -> dict:
     parent's one-process runs of the same seeds."""
     import gc
 
-    from tpujob_torch.workloads import (distributed, gpt, mnist, resnet,
-                                        smoke_dist)
+    from tpujob_torch.workloads import gpt, mnist, resnet, smoke_dist
 
     out_dir = os.path.join("build", "chip_smoke", "ddp")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2067,8 +2204,8 @@ def run_ddp() -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = distributed.spawn_local(ddp_rank, DDP_WORLD, out_dir, ddp_plan(),
-                                    timeout_s=DDP_TIMEOUT_S)
+    ranks = spawn_counted(ddp_rank, DDP_WORLD, out_dir, ddp_plan(),
+                          timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     steps = flag(DDP_GPT_ARGV, "--steps")
@@ -2319,6 +2456,7 @@ def mesh_rank(rank: int, out_dir: str, plan: dict) -> dict:
     import torch.distributed as tdist
 
     from tpujob_torch.workloads import distributed as dist
+    from tpujob_torch.workloads import optim
 
     faulthandler.enable()  # a crash inside a collective prints its stack
     device = plan["device"]
@@ -2331,6 +2469,7 @@ def mesh_rank(rank: int, out_dir: str, plan: dict) -> dict:
         out[part] = mesh_run(module, plan["base"] + flags, device,
                              os.path.join(out_dir, f"rank{rank}", part))
     dist.shutdown()
+    out["adamw_updates"] = dict(optim.UPDATES)
     return out
 
 
@@ -2340,7 +2479,7 @@ def run_sp() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import distributed, flash
+    from tpujob_torch.workloads import flash
 
     # Ulysses's local attention: [b, S, h / 2, d] after the all-to-all
     local = check_kernels(s=MAIN["s"], window=0, timed=True,
@@ -2362,8 +2501,8 @@ def run_sp() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = distributed.spawn_local(mesh_rank, SP_WORLD, out_dir, plan,
-                                    timeout_s=DDP_TIMEOUT_S)
+    ranks = spawn_counted(mesh_rank, SP_WORLD, out_dir, plan,
+                          timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2429,7 +2568,7 @@ def run_shard() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import distributed, flash
+    from tpujob_torch.workloads import flash
 
     out_dir = os.path.join("build", "chip_smoke", "shard")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2443,8 +2582,8 @@ def run_shard() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = distributed.spawn_local(mesh_rank, SHARD_WORLD, out_dir, plan,
-                                    timeout_s=DDP_TIMEOUT_S)
+    ranks = spawn_counted(mesh_rank, SHARD_WORLD, out_dir, plan,
+                          timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2528,7 +2667,7 @@ def run_ep() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import distributed, flash
+    from tpujob_torch.workloads import flash
 
     out_dir = os.path.join("build", "chip_smoke", "ep")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2543,8 +2682,8 @@ def run_ep() -> dict:
         torch.cuda.empty_cache()
     parent_gb = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
-    ranks = distributed.spawn_local(mesh_rank, EP_WORLD, out_dir, plan,
-                                    timeout_s=DDP_TIMEOUT_S)
+    ranks = spawn_counted(mesh_rank, EP_WORLD, out_dir, plan,
+                          timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {}
     failed = []
@@ -2664,7 +2803,7 @@ def run_pipe() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import distributed, flash
+    from tpujob_torch.workloads import flash
 
     b_mb = (flag(PIPE_BASE_ARGV, "--batch-size")
             // flag(PIPE_PARTS["gpipe"][1], "--pipeline-microbatches"))
@@ -2685,8 +2824,8 @@ def run_pipe() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = distributed.spawn_local(mesh_rank, PIPE_WORLD, out_dir, plan,
-                                    timeout_s=DDP_TIMEOUT_S)
+    ranks = spawn_counted(mesh_rank, PIPE_WORLD, out_dir, plan,
+                          timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     launches = {k: 0 for k in flash.LAUNCHES}
     peaks, failed = {}, []
@@ -3014,8 +3153,11 @@ def run_bench() -> dict:
     """The port's benches on the card, as a user runs them: the
     MNIST headline (exactly one line, the JAX line's keys, accuracy above
     0.8) and the flagship rows (one line a row, MFU at most 1); every row
-    on the captured step, the spread across windows reported."""
+    on the captured step, the spread across windows reported.  The
+    transformer rows' AdamW updates are added to ``optim.UPDATES``."""
     import gc
+
+    from tpujob_torch.workloads import optim
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3065,6 +3207,9 @@ def run_bench() -> dict:
           "scaling_row_argv": BENCH_SCALING_ARGV})
     if not ok:
         raise AssertionError(f"bench phase failed: {checks}")
+    for r in models + quick:
+        for k, n in r.get("adamw_updates", {}).items():
+            optim.UPDATES[k] += n
     return gpt_row["kernel_launches"], quick_row["kernel_launches"]
 
 
@@ -3082,6 +3227,35 @@ KERNELS = {
     "flash_dkv_any": ("tpujob_torch/csrc/flash_dkv_any.cu",
                       "tpujob/workloads/flash.py:197"),
 }
+
+
+def adamw_row(adamw: dict, updates: dict) -> dict:
+    """The AdamW kernel's row of the ``kernels`` line: its time alone
+    (``ms``) and its optimizer's ``step`` (``step_ms``) at GPT-2-medium's
+    parameter set against torch's foreach route (``plain_ms``, the port's
+    update before it) and ``fused=True`` (``library_ms``) and the byte
+    bound, each parameter set under ``cases``; then the parameter tensors
+    it updated on each path (``updates_by_path``), and torch's route's
+    (``torch_updates_by_path``, which must be 0 on the card)."""
+    def timings(r):
+        return {"ms": r["kernel"]["launches_ms"], "step_ms": r["kernel"]["ms"],
+                "plain_ms": r["foreach"]["ms"], "library_ms": r["fused"]["ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "max_ulps_vs_plain": r["foreach"]["kernel_ulps"]}
+
+    main = adamw["gpt2-medium"]
+    return {"name": "tpujob_adamw_kernel", "route": "cuda",
+            "source": "tpujob_torch/csrc/adamw.cu",
+            "replaces": "tpujob/workloads/train_lib.py:adamw",
+            "main_path": "train", "updates": updates["train"]["kernel"],
+            **timings(main),
+            "bound_share": main["kernel"]["launches_bound_share"],
+            "library_fn": "torch.optim.AdamW(fused=True)",
+            "cases": {name: timings(r) for name, r in adamw.items()},
+            "paths": [p for p, n in updates.items() if n["kernel"] > 0],
+            "updates_by_path": {p: n["kernel"] for p, n in updates.items()},
+            "torch_updates_by_path": {p: n["torch"]
+                                      for p, n in updates.items()}}
 
 
 def parse_args(argv):
@@ -3103,6 +3277,7 @@ def main(argv=None) -> int:
         return 1
     try:
         from tpujob_torch.kernels import build
+        from tpujob_torch.workloads import optim
     except ImportError as e:
         print(f"chip_smoke: the tpujob_torch package is not importable: {e}",
               file=sys.stderr)
@@ -3172,22 +3347,33 @@ def main(argv=None) -> int:
             timed=True, **anyk)
         check_kernels(case="any_d256_f32_s1000", dtype=f32, b=2, s=1000, h=4,
                       d=256, timed=False, **anyk)
+        adamw = run_adamw()
         check_model()
         check_model_bert()
-        by_path = {"graph": run_graph(), "train": run_train(),
-                   "mlm": run_mlm(), "fp32": run_fp32(),
-                   "decode": run_decode(args.decode_prompt, args.decode_new),
-                   "corpus": run_corpus(),
-                   "moe": run_moe(args.decode_prompt, args.decode_new)}
+        updates = {}  # path -> parameter tensors each AdamW route updated
+
+        def counted(path, run, *a):
+            optim.UPDATES.update(kernel=0, torch=0)
+            out = run(*a)
+            updates[path] = dict(optim.UPDATES)
+            return out
+
+        dp, dn = args.decode_prompt, args.decode_new
+        by_path = {path: counted(path, *run) for path, run in (
+            ("graph", (run_graph,)), ("train", (run_train,)),
+            ("mlm", (run_mlm,)), ("fp32", (run_fp32,)),
+            ("decode", (run_decode, dp, dn)), ("corpus", (run_corpus,)),
+            ("moe", (run_moe, dp, dn)))}
         run_mnist()
         run_resnet()
-        by_path["ddp"] = run_ddp()
-        by_path["sp"], timed["sp_local_h8"] = run_sp()
-        by_path["shard"] = run_shard()
-        by_path["ep"] = run_ep()
-        by_path["pipe"] = run_pipe()
+        by_path["ddp"] = counted("ddp", run_ddp)
+        by_path["sp"], timed["sp_local_h8"] = counted("sp", run_sp)
+        by_path["shard"] = counted("shard", run_shard)
+        by_path["ep"] = counted("ep", run_ep)
+        by_path["pipe"] = counted("pipe", run_pipe)
         run_dryrun()
-        by_path["bench"], by_path["bench_quick_d32"] = run_bench()
+        by_path["bench"], by_path["bench_quick_d32"] = counted("bench",
+                                                               run_bench)
 
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -3215,7 +3401,12 @@ def main(argv=None) -> int:
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n
                                               in by_path.items()}})
+        rows.append(adamw_row(adamw, updates))
         emit({"kernels": rows})
+        on_torch = {p: n["torch"] for p, n in updates.items() if n["torch"]}
+        if on_torch:
+            raise AssertionError("torch's AdamW updated tensors on the card "
+                                 f"(path: tensors): {on_torch}")
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

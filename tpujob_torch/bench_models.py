@@ -165,7 +165,7 @@ def _bench_transformer(args, dev, model, loss_fn, batch, seconds, *, metric,
                        extra_fields=None) -> dict:
     """The transformer rows' shared body: AdamW at the flags' lr, k steps
     a call, windowed timing, tokens/s and MFU."""
-    from tpujob_torch.workloads import flash, train_lib
+    from tpujob_torch.workloads import flash, optim, train_lib
     from tpujob_torch.workloads.benchlib import platform_name
 
     n_chips = 1
@@ -175,9 +175,11 @@ def _bench_transformer(args, dev, model, loss_fn, batch, seconds, *, metric,
     step = train_lib.make_multi_step(loss_fn, optimizer, STEPS_PER_DISPATCH)
     n_params = sum(p.numel() for p in model.parameters())
     flash.reset_launches()
+    optim.UPDATES.update(kernel=0, torch=0)
     sec_per_step, steps, std, mode = time_steps(
         step, state, batch, seconds, steps_per_call=STEPS_PER_DISPATCH)
     launches = dict(flash.LAUNCHES)  # every step the row ran, untimed ones too
+    updates = dict(optim.UPDATES)  # parameter tensors each AdamW route updated
     sps = args.batch_size / sec_per_step
     tps = sps * args.seq_len
     # 6 x params x tokens (forward and backward of a dense transformer);
@@ -199,6 +201,7 @@ def _bench_transformer(args, dev, model, loss_fn, batch, seconds, *, metric,
         "platform": platform_name(dev),
         "step_mode": mode,
         "kernel_launches": launches,
+        "adamw_updates": updates,
     }
     out.update(perf_fields(flops, sec_per_step, n_chips, out["platform"]))
     return out

@@ -4,7 +4,7 @@ Each source is one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in
 ``<repo>/build/tpujob_torch_kernels/<hash>/``, where the hash covers every
 source and header and the compiler flags, so an edited kernel is rebuilt
-and an unchanged one is reused.  Seven sources, one library each:
+and an unchanged one is reused.  Eight sources, one library each:
 
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the tuned wgmma/TMA kernels
   (B1-B3), templates on the head dim instantiated for 32 and 64 in bf16
@@ -16,7 +16,9 @@ and an unchanged one is reused.  Seven sources, one library each:
   entry point taking ``D`` and ``is_bf16``;
 - ``mark``: the train step's phase marks (``train_lib.PhaseMarks``), one
   one-thread kernel a boundary, built with the rest by ``load_all`` or
-  alone at the first mark of a run without the flash kernels.
+  alone at the first mark of a run without the flash kernels;
+- ``adamw``: AdamW's whole update in one pass over each tensor
+  (``workloads/optim.py``), built the same way.
 
 ``workloads/flash.py`` chooses between the two sets by dtype and head
 dim before the launch.  The hash of the sources covers the
@@ -89,6 +91,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "mark": {
         # which, word, stream
         "tpujob_mark": [_i, _p, _p],
+    },
+    "adamw": {
+        # ptrs, sizes, count, lr, wd, b1, b2, w1, w2, eps, stream
+        "tpujob_adamw": [_p, _p, _i, _p, _f, _f, _f, _f, _f, _f, _p],
     },
 }
 

@@ -8,7 +8,7 @@
   optax.sgd's trace.
 - ``adamw``: ``torch.optim.AdamW`` with optax's defaults (b1 .9, b2 .999,
   eps 1e-8, weight decay .01) and its mask: decay on tensors with ndim >= 2
-  only.
+  only; on the card its update is one kernel a group (``optim.AdamW``).
 - ``make_lr_schedule``: optax's warmup / cosine / constant values, evaluated
   at the optimizer's update count BEFORE the update (optax's convention).
 - ``put_batch``: a step's host arrays on the device.
@@ -61,7 +61,7 @@ from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
 from tpujob_torch.workloads import distributed as dist
-from tpujob_torch.workloads import flash
+from tpujob_torch.workloads import flash, optim
 
 
 class SummaryWriter:
@@ -376,24 +376,27 @@ def adamw(params, lr: float, weight_decay: float = 0.01) -> torch.optim.AdamW:
     two param groups, decay only on >=2-D tensors.  ``lr`` is the initial
     value; a schedule sets each group's lr before every step.
 
-    On the card the optimizer is capturable: its step counts live on the
-    card and each group's lr is a 0-d fp32 tensor there, which ``set_lr``
-    fills, so one captured update reads each step's lr (a float would be
-    baked into the graph).  On the CPU the lr is a float, as before, and so
-    it is for FSDP's sharded parameters (DTensors, whose step is eager
-    across ranks: a 0-d lr tensor beside them would mix a plain tensor
-    into their ops)."""
+    On the card the update is the port's one-pass kernel (``optim.AdamW``)
+    and the optimizer is capturable: its step counts live on the card and
+    each group's lr is a 0-d fp32 tensor there, which ``set_lr`` fills, so
+    one captured update reads each step's lr (a float would be baked into
+    the graph).  FSDP's sharded parameters (DTensors, whose step is eager
+    across ranks) keep a float lr, which the kernel reads from a tensor of
+    its own.  On the CPU it is torch's AdamW with a float lr, as before,
+    its updates counted (``optim.count_torch``)."""
     params = list(params)
     decay, no_decay = _decay_mask(params)
-    on_card = (bool(params) and params[0].is_cuda
-               and not isinstance(params[0], DTensor))
     groups = [{"params": decay, "weight_decay": weight_decay},
               {"params": no_decay, "weight_decay": 0.0}]
-    if on_card:
+    kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if not (params and params[0].is_cuda):
+        opt = torch.optim.AdamW(groups, **kw)
+        opt.register_step_post_hook(optim.count_torch)
+        return opt
+    if not isinstance(params[0], DTensor):
         for g in groups:
             g["lr"] = torch.tensor(float(lr), device=params[0].device)
-    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             capturable=on_card)
+    return optim.AdamW(groups, capturable=True, **kw)
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -688,6 +691,11 @@ def check_baked_lr(optimizer: torch.optim.Optimizer, values) -> None:
             f"{sorted(set(values))}")
 
 
+# what the card ran, counted on the host: flash kernel launches, parameter
+# tensors updated by each AdamW route
+_COUNTS = (flash.LAUNCHES, optim.UPDATES)
+
+
 class _Graphs:
     """CUDA graphs of one step function, and what replaying them needs.
 
@@ -706,9 +714,9 @@ class _Graphs:
     Inputs are static buffers: each call copies its batch into them.  A
     replay overwrites its outputs, so each call returns a copy.  An lr
     that is a float is baked into a graph: a schedule that moves it
-    raises.  ``flash.LAUNCHES`` keeps counting the kernels the card ran:
-    what a capture records is taken back out (the card ran none of it)
-    and added again at each replay."""
+    raises.  ``flash.LAUNCHES`` and ``optim.UPDATES`` keep counting what
+    the card ran: what a capture records is taken back out (the card ran
+    none of it) and added again at each replay."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -761,18 +769,21 @@ class _Graphs:
                 raise RuntimeError("a capture before the first update would "
                                    "replay the optimizer's state creation")
             self.optimizer.zero_grad(set_to_none=True)
-            before = dict(flash.LAUNCHES)
+            before = [dict(c) for c in _COUNTS]
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 out = capture()
             self.pool = self.pool or graph.pool()
-            recorded = {k: flash.LAUNCHES[k] - n for k, n in before.items()}
-            flash.LAUNCHES.update(before)
+            recorded = []
+            for counts, was in zip(_COUNTS, before):
+                recorded.append({k: counts[k] - n for k, n in was.items()})
+                counts.update(was)
             self.graphs[key] = (graph, out, recorded)
         graph, out, recorded = self.graphs[key]
         graph.replay()
-        for k, n in recorded.items():
-            flash.LAUNCHES[k] += n
+        for counts, rec in zip(_COUNTS, recorded):
+            for k, n in rec.items():
+                counts[k] += n
         return out.clone()
 
 
