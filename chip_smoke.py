@@ -52,6 +52,15 @@ Phases, one JSON line each on stdout:
    capturable foreach route and ``fused=True``, all timed beside the byte
    bound; the kernel's parameters within ADAMW_ULPS of foreach's; each
    route's kernels by the op that launched them (``run_adamw``).
+   Then B1a-B3a at the Mellum2 cell's attention (``mellum_s8192_w1024``
+   and ``mellum_s8192``: b=2, s=8192, 32 query heads, d=128, bf16,
+   causal, windowed at 1,024 and full), each plain version four heads at
+   a time.
+   Then ``moe_gemm``: the dropless expert layer's three grouped-GEMM
+   kernels (``csrc/moe_gemm.cu``) at the Mellum2 cell's shapes on
+   Zipf-uneven and even groups, timed beside their bound, their plain
+   versions, a per-expert cuBLAS loop and ``torch._grouped_mm``, each held
+   to fp32 products (``run_moe_gemm``).
 4. ``model``: a 2-layer full-width GPT on the card with flash attention
    against the same weights with dense attention (logits, loss, and each
    parameter's gradient, by normwise relative error); ``model_bert``: the
@@ -136,6 +145,11 @@ Phases, one JSON line each on stdout:
    its 24 layers, every launch without the mask.  ``dispatch``: one layer's
    ``moe_ffn`` against its routing and dense one-hot dispatch/combine
    alone, device ms forward and forward + backward.
+   ``mellum``: Mellum2-12B-A2.5B's block (one period at published widths,
+   batch 2 x seq 8192) through ``gpt.run`` for 6 captured steps, the
+   launches set to 0 just before: the ``_any`` flash kernels and the
+   grouped GEMMs exactly as often as its layers and remat say, no tuned
+   flash kernel, AdamW on the kernel (``run_mellum_steps``).
 12. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
    10,000 images, batch 64, 1 epoch; cuDNN/cuBLAS, no hand-written
    kernel): accuracy above 0.9, samples/s over the run.
@@ -260,11 +274,13 @@ Phases, one JSON line each on stdout:
     ``platform`` gpu, 8 ranks a card over gloo, and the 8 ranks' first
     loss within SCALING_LOSS_RTOL of one process's.
 
-Then the ``kernels`` summary line, seven kernels (each flash kernel's
+Then the ``kernels`` summary line, ten kernels (each flash kernel's
 ``main_path``: ``train`` for the tuned three, ``fp32`` for the ``_any``
 three, whose run gives ``launches``; its ``paths``: the phases that
 launched it; its ``cases``: every timed shape's numbers, the head-dim-32
-and Ulysses-local ones included; then AdamW's, ``adamw_row``: the
+and Ulysses-local ones included; then the three grouped GEMMs',
+``moe_gemm_rows``: ``run_moe_gemm``'s times, ``torch._grouped_mm`` as
+``library_ms``, launches on the ``mellum`` path; then AdamW's, ``adamw_row``: the
 ``adamw`` phase's times, and the parameter tensors it updated on each
 path, spawned ranks and bench rows included, from ``optim.UPDATES``), the
 card's ``name, power.limit`` as nvidia-smi prints them, and last ``{"ok":
@@ -738,13 +754,15 @@ def ptxas_report(build) -> list:
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                   case: str = "", b: int = MAIN["b"], h: int = MAIN["h"],
                   d: int = MAIN["d"], dtype=torch.bfloat16,
-                  suffix: str = "") -> dict:
+                  suffix: str = "", head_chunk: int = 0) -> dict:
     """B1-B3 (``suffix`` "") or B1a-B3a (``suffix`` "_any", with
     ``ANY_TOL``, the FFMA-peak bound and the split's reach beside) against
     their plain versions on one shape; timed, each kernel's ms beside its plain
     version's, SDPA's in the same dtype and its bound: bytes over the
     card's rate or FLOPs over the bf16 peak, or the TF32 peak for fp32 (a
-    redesign's reach)."""
+    redesign's reach).  ``head_chunk`` runs the plain versions on that
+    many heads at a time (each head's attention is its own), so that their
+    [b, h, s, s] scores fit on the card at a long ``s``; untimed only."""
     from tpujob_torch.workloads import flash
 
     fwd_k, dq_k_fn, dkv_k_fn = (getattr(flash, f"flash_{k}{suffix}_cuda")
@@ -762,13 +780,25 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
     kw = dict(causal=causal, scale=d ** -0.5, window=window)
     case = case or f"s{s}" + (f"_w{window}" if window else "")
 
+    def plain(fn, *xs):
+        """``fn`` on all heads, or ``head_chunk`` at a time: [b, s, h, d]
+        tensors cut and joined on dim 2, [b, h, s] ones on dim 1."""
+        if not head_chunk:
+            return fn(*xs, **kw)
+        parts = [fn(*(x[:, :, h0:h0 + head_chunk] if x.dim() == 4
+                      else x[:, h0:h0 + head_chunk] for x in xs), **kw)
+                 for h0 in range(0, h, head_chunk)]
+        return tuple(torch.cat(p, dim=2 if p[0].dim() == 4 else 1)
+                     for p in zip(*parts)) if isinstance(parts[0], tuple) \
+            else torch.cat(parts, dim=2)
+
     o_k, lse_k = fwd_k(q, k, v, **kw)
-    o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
+    o_r, lse_r = plain(flash.flash_forward_ref, q, k, v)
     delta = flash.attention_delta(o_r, do)
     dq_k = dq_k_fn(q, k, v, do, lse_r, delta, **kw)
-    dq_r = flash.flash_dq_ref(q, k, v, do, lse_r, delta, **kw)
+    dq_r = plain(flash.flash_dq_ref, q, k, v, do, lse_r, delta)
     dk_k, dv_k = dkv_k_fn(q, k, v, do, lse_r, delta, **kw)
-    dk_r, dv_r = flash.flash_dkv_ref(q, k, v, do, lse_r, delta, **kw)
+    dk_r, dv_r = plain(flash.flash_dkv_ref, q, k, v, do, lse_r, delta)
     torch.cuda.synchronize()
     e_l = (lse_k - lse_r).abs().max().item()
     c_o, c_dq = compare(o_k, o_r, tol), compare(dq_k, dq_r, tol)
@@ -993,6 +1023,200 @@ def run_adamw() -> dict:
     if not ok:
         raise AssertionError("the AdamW kernel left foreach's parameters")
     return out
+
+
+# the dropless expert layer's grouped products at the Mellum2 cell's shapes:
+# rows = batch 2 x seq 8192 x top-8, hidden 2304, expert width 896, 64 experts
+MOE_GEMM_SHAPE = dict(rows=131072, hidden=2304, width=896, experts=64)
+MOE_GEMM_ZIPF = 1.0  # expert e's share of the rows ~ 1 / (e + 1)
+MOE_GEMM_RTOL = 1e-2  # normwise, bf16 outputs against fp32 products
+# Mellum2-12B-A2.5B's block through gpt.run: one period at published widths
+MELLUM_STEPS = 6
+MELLUM_ARGV = ["--attention", "flash", "--block", "pre_rms", "--hidden",
+               "2304", "--layers", "4", "--heads", "32", "--kv-heads", "4",
+               "--head-dim", "128", "--vocab", "12288", "--seq-len", "8192",
+               "--batch-size", "2", "--steps", str(MELLUM_STEPS),
+               "--position", "rope", "--rope-theta", "500000",
+               "--attention-pattern", "SSSF", "--attention-window", "1024",
+               "--yarn-factor", "16", "--yarn-original-positions", "8192",
+               "--untied-head", "--moe-experts", "64", "--moe-k", "8",
+               "--moe-expert-width", "896"]
+
+
+def zipf_counts(rows: int, experts: int, exponent: float) -> torch.Tensor:
+    """Per-expert row counts summing to ``rows``, expert e's share
+    proportional to (e + 1)^-exponent; the largest remainders rounded up."""
+    w = [(e + 1) ** -exponent for e in range(experts)]
+    exact = [rows * x / sum(w) for x in w]
+    counts = [int(x) for x in exact]
+    for e in sorted(range(experts), key=lambda e: counts[e] - exact[e])[
+            : rows - sum(counts)]:
+        counts[e] += 1
+    return torch.tensor(counts)
+
+
+def run_moe_gemm() -> dict:
+    """Phase ``moe_gemm``: the three grouped-GEMM kernels
+    (``workloads/moe_gemm.py``) at the Mellum2 cell's shapes, both products
+    of a layer (``[R, h] x [E, h, 2f]``, ``[R, f] x [E, f, h]``), on rows
+    split over the experts by a Zipf law (``MOE_GEMM_ZIPF``) and evenly.
+    Each kernel timed by ``time_ms`` beside its roofline bound (each input
+    read once, each output written once; 989 TFLOP/s bf16), its plain
+    version (``moe_gemm.gemm_ref`` and friends: fp32 products one expert at
+    a time; its offsets read on the host, so host time is in it), a loop
+    of bf16 cuBLAS products one expert at a time, and ``torch._grouped_mm``
+    where this torch has it (a yardstick only: the port never calls it);
+    each kernel's normwise error against fp32 products of the same bf16
+    inputs."""
+    from tpujob_torch.workloads import moe_gemm
+
+    dev = torch.device(DEVICE)
+    sh = MOE_GEMM_SHAPE
+    rows, h, f, e_count = sh["rows"], sh["hidden"], sh["width"], sh["experts"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"shape": sh, "zipf": MOE_GEMM_ZIPF}
+    ok = True
+    for split, exponent in (("zipf", MOE_GEMM_ZIPF), ("even", 0.0)):
+        counts = zipf_counts(rows, e_count, exponent)
+        g = moe_gemm.groups(counts.to(dev))
+        spans = [(e, int(lo), int(hi)) for e, (lo, hi) in enumerate(
+            zip(g.offsets[:-1].tolist(), g.offsets[1:].tolist()))]
+        row = {"largest_group": int(counts.max()),
+               "smallest_group": int(counts.min())}
+        for name, k_dim, n_dim in (("w1", h, 2 * f), ("w2", f, h)):
+            a = torch.randn(rows, k_dim, device=dev, generator=gen).bfloat16()
+            w = (torch.randn(e_count, k_dim, n_dim, device=dev, generator=gen)
+                 / k_dim ** 0.5).bfloat16()
+            grad = torch.randn(rows, n_dim, device=dev, generator=gen).bfloat16()
+            flops = 2 * rows * k_dim * n_dim
+            elem = 2
+            io = {"fwd": (rows * k_dim + e_count * k_dim * n_dim + rows * n_dim) * elem,
+                  "dx": (rows * n_dim + e_count * k_dim * n_dim + rows * k_dim) * elem,
+                  "dw": (rows * k_dim + rows * n_dim) * elem + e_count * k_dim * n_dim * 4}
+            kernels = {"fwd": lambda: moe_gemm.gemm(a, w, g),
+                       "dx": lambda: moe_gemm.gemm_t(grad, w, g),
+                       "dw": lambda: moe_gemm.gemm_dw(a, grad, g, e_count)}
+            plains = {"fwd": lambda: moe_gemm.gemm_ref(a, w, g),
+                      "dx": lambda: moe_gemm.gemm_t_ref(grad, w, g),
+                      "dw": lambda: moe_gemm.gemm_dw_ref(a, grad, g, e_count)}
+            loops = {
+                "fwd": lambda: [a[lo:hi] @ w[e] for e, lo, hi in spans],
+                "dx": lambda: [grad[lo:hi] @ w[e].T for e, lo, hi in spans],
+                "dw": lambda: [a[lo:hi].T @ grad[lo:hi] for e, lo, hi in spans]}
+            ends = g.offsets[1:].contiguous()
+            library = {
+                "fwd": lambda: torch._grouped_mm(a, w, offs=ends),
+                "dx": lambda: torch._grouped_mm(grad, w.transpose(1, 2),
+                                                offs=ends),
+                "dw": lambda: torch._grouped_mm(a.T, grad, offs=ends)}
+            for kind in ("fwd", "dx", "dw"):
+                got = kernels[kind]()
+                if kind == "fwd":
+                    want = torch.cat([a[lo:hi].float() @ w[e].float()
+                                      for e, lo, hi in spans])
+                elif kind == "dx":
+                    want = torch.cat([grad[lo:hi].float() @ w[e].float().T
+                                      for e, lo, hi in spans])
+                else:
+                    want = torch.stack([a[lo:hi].float().T @ grad[lo:hi].float()
+                                        for e, lo, hi in spans])
+                err = rel_err(got, want)
+                del got, want
+                bound_ms, by = bound(io[kind], flops)
+                ms = time_ms(kernels[kind], iters=10)
+                cell = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                        "bound_share": bound_ms / ms,
+                        "tflops": flops / ms / 1e9,
+                        "rel_err": err,
+                        "plain_ms": time_ms(plains[kind], iters=3, warmup=1),
+                        "cublas_loop_ms": time_ms(loops[kind], iters=5)}
+                if hasattr(torch, "_grouped_mm"):
+                    try:
+                        cell["torch_grouped_mm_ms"] = time_ms(library[kind],
+                                                              iters=10)
+                    except Exception as exc:  # a yardstick only
+                        cell["torch_grouped_mm_ms"] = f"{type(exc).__name__}: {exc}"[:200]
+                ok = ok and err <= MOE_GEMM_RTOL
+                row[f"{name}_{kind}"] = cell
+            del a, w, grad
+            torch.cuda.empty_cache()
+        out[split] = row
+    emit({"phase": "moe_gemm", "ok": ok, "rtol": MOE_GEMM_RTOL,
+          "device": smi_line(), **out})
+    if not ok:
+        raise AssertionError("a grouped-GEMM kernel left the fp32 products")
+    return out
+
+
+def run_mellum_steps() -> dict:
+    """Path ``mellum``: ``MELLUM_STEPS`` steps of Mellum2's block through
+    ``gpt.run`` (``MELLUM_ARGV``), the launch counts set to 0 just before:
+    the captured step, the ``_any`` flash kernels at head dim 128 (2
+    forwards with remat, a dQ and a dK/dV a layer) and the grouped GEMMs (2
+    forwards of each product with remat, a dX and a dW), no tuned flash
+    kernel, AdamW on the kernel.  Returns the launches by kernel."""
+    from tpujob_torch.workloads import flash, gpt, moe_gemm, optim
+
+    args = gpt.build_parser().parse_args(MELLUM_ARGV + [
+        "--dir", tempfile.mkdtemp(prefix="mellum_"), "--device", DEVICE])
+    flash.reset_launches()
+    moe_gemm.LAUNCHES.update(dict.fromkeys(moe_gemm.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    result = gpt.run(args)
+    seconds = time.perf_counter() - t0
+    launches = {**flash.LAUNCHES, **moe_gemm.LAUNCHES}
+    n, layers = args.steps, args.layers
+    want = launched({"flash_fwd_any": 2 * layers * n,
+                     "flash_dq_any": layers * n, "flash_dkv_any": layers * n,
+                     "moe_gemm_fwd": 4 * layers * n,
+                     "moe_gemm_dx": 2 * layers * n,
+                     "moe_gemm_dw": 2 * layers * n})
+    ok = (result["step_mode"] == "graph" and launches == want
+          and optim.UPDATES["torch"] == 0 and optim.UPDATES["kernel"] > 0
+          and all(map(math.isfinite, result["losses"])))
+    torch.cuda.empty_cache()
+    emit({"phase": "mellum", "ok": ok, "argv": MELLUM_ARGV,
+          "step_mode": result["step_mode"], "launches": launches,
+          "want": want, "adamw_tensors": dict(optim.UPDATES),
+          "losses": result["losses"], "moe_metrics": result["moe_metrics"],
+          "tokens_per_s": result["tokens_per_sec"], "seconds": seconds})
+    if not ok:
+        raise AssertionError(f"the Mellum2 steps missed their kernels: "
+                             f"{launches} against {want}, mode "
+                             f"{result['step_mode']}, AdamW {optim.UPDATES}")
+    return launches
+
+
+def moe_gemm_rows(cases: dict, by_path: dict) -> list:
+    """The grouped-GEMM kernels' rows of the ``kernels`` line: each
+    kernel's times at the first product of a layer on Zipf groups (``ms``,
+    ``plain_ms``, ``bound_ms``, ``library_ms``: ``torch._grouped_mm``),
+    every case of ``run_moe_gemm`` under ``cases``, and its launches on
+    each path (the main path: ``mellum``)."""
+    rows = []
+    for kind in ("fwd", "dx", "dw"):
+        name = f"moe_gemm_{kind}"
+        per = {f"{split}_{w}": cases[split][f"{w}_{kind}"]
+               for split in ("zipf", "even") for w in ("w1", "w2")}
+        m = per["zipf_w1"]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "tflops", "rel_err", "cublas_loop_ms", "torch_grouped_mm_ms")
+        rows.append({"name": f"tpujob_{name}", "route": "cuda",
+                     "source": "tpujob_torch/csrc/moe_gemm.cu",
+                     "replaces": "none: tpujob/workloads/parallel.py:moe_ffn "
+                                 "dispatches by dense one-hot einsums",
+                     "main_path": "mellum",
+                     "launches": by_path["mellum"][name],
+                     **{k: m[k] for k in keys if k != "torch_grouped_mm_ms"},
+                     "library_ms": m.get("torch_grouped_mm_ms"),
+                     "library_fn": "torch._grouped_mm",
+                     "cases": {c: {k: r.get(k) for k in keys}
+                               for c, r in per.items()},
+                     "paths": [p for p, n in by_path.items()
+                               if n.get(name, 0) > 0],
+                     "launches_by_path": {p: n.get(name, 0)
+                                          for p, n in by_path.items()}})
+    return rows
 
 
 def _ulp(x, floor: float = 0.0):
@@ -3347,7 +3571,15 @@ def main(argv=None) -> int:
             timed=True, **anyk)
         check_kernels(case="any_d256_f32_s1000", dtype=f32, b=2, s=1000, h=4,
                       d=256, timed=False, **anyk)
+        # Mellum2's attention as its cell runs it: batch 2, seq 8192, 32
+        # query heads (the 4 K/V heads repeated up to them), head dim 128,
+        # its sliding layers' window and its full layers
+        for w in (1024, 0):
+            check_kernels(case="mellum_s8192" + (f"_w{w}" if w else ""),
+                          dtype=bf16, b=2, s=8192, h=32, d=128,
+                          suffix="_any", window=w, timed=False, head_chunk=4)
         adamw = run_adamw()
+        moe_gemm_cases = run_moe_gemm()
         check_model()
         check_model_bert()
         updates = {}  # path -> parameter tensors each AdamW route updated
@@ -3363,7 +3595,7 @@ def main(argv=None) -> int:
             ("graph", (run_graph,)), ("train", (run_train,)),
             ("mlm", (run_mlm,)), ("fp32", (run_fp32,)),
             ("decode", (run_decode, dp, dn)), ("corpus", (run_corpus,)),
-            ("moe", (run_moe, dp, dn)))}
+            ("moe", (run_moe, dp, dn)), ("mellum", (run_mellum_steps,)))}
         run_mnist()
         run_resnet()
         by_path["ddp"] = counted("ddp", run_ddp)
@@ -3401,6 +3633,7 @@ def main(argv=None) -> int:
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n
                                               in by_path.items()}})
+        rows += moe_gemm_rows(moe_gemm_cases, by_path)
         rows.append(adamw_row(adamw, updates))
         emit({"kernels": rows})
         on_torch = {p: n["torch"] for p, n in updates.items() if n["torch"]}

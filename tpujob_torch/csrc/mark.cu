@@ -8,7 +8,9 @@
 // graph, whose kernels carry no host context; a mark launched between two
 // phases is a node of that graph, so the kernels that start between two
 // marks belong to the phase the second one closes
-// (train_lib.PhaseMarks).
+// (train_lib.PhaseMarks).  Two more bracket a dropless expert layer's work
+// inside a phase (moe_in where it starts, moe_out where it ends, in the
+// forward, remat's recompute and the backward alike).
 //
 // Bound on an H100 SXM: one 4-byte store a launch, so the launch itself, a
 // few microseconds of device time (no bytes or operations to speak of).
@@ -29,6 +31,8 @@ TPUJOB_MARK(forward, 1)
 TPUJOB_MARK(backward, 2)
 TPUJOB_MARK(fold, 3)
 TPUJOB_MARK(update, 4)
+TPUJOB_MARK(moe_in, 5)
+TPUJOB_MARK(moe_out, 6)
 
 // Launch the mark of boundary `which` (the index above) on `stream`.
 extern "C" int tpujob_mark(int which, void* word, void* stream) {
@@ -40,6 +44,8 @@ extern "C" int tpujob_mark(int which, void* word, void* stream) {
     case 2: tpujob_mark_backward<<<1, 1, 0, s>>>(w); break;
     case 3: tpujob_mark_fold<<<1, 1, 0, s>>>(w); break;
     case 4: tpujob_mark_update<<<1, 1, 0, s>>>(w); break;
+    case 5: tpujob_mark_moe_in<<<1, 1, 0, s>>>(w); break;
+    case 6: tpujob_mark_moe_out<<<1, 1, 0, s>>>(w); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

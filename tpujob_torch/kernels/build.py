@@ -4,7 +4,7 @@ Each source is one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  Libraries land in
 ``<repo>/build/tpujob_torch_kernels/<hash>/``, where the hash covers every
 source and header and the compiler flags, so an edited kernel is rebuilt
-and an unchanged one is reused.  Eight sources, one library each:
+and an unchanged one is reused.  Nine sources, one library each:
 
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the tuned wgmma/TMA kernels
   (B1-B3), templates on the head dim instantiated for 32 and 64 in bf16
@@ -18,7 +18,10 @@ and an unchanged one is reused.  Eight sources, one library each:
   one-thread kernel a boundary, built with the rest by ``load_all`` or
   alone at the first mark of a run without the flash kernels;
 - ``adamw``: AdamW's whole update in one pass over each tensor
-  (``workloads/optim.py``), built the same way.
+  (``workloads/optim.py``), built the same way;
+- ``moe_gemm``: the dropless expert layer's grouped products (wgmma fed
+  by TMA; ``workloads/moe_gemm.py``), the row kernels' entry point taking
+  ``transposed`` for dX.
 
 ``workloads/flash.py`` chooses between the two sets by dtype and head
 dim before the launch.  The hash of the sources covers the
@@ -95,6 +98,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "adamw": {
         # ptrs, sizes, count, lr, wd, b1, b2, w1, w2, eps, stream
         "tpujob_adamw": [_p, _p, _i, _p, _f, _f, _f, _f, _f, _f, _p],
+    },
+    "moe_gemm": {
+        # a, w, out, offsets, tiles, R, K, N, E, transposed, stream
+        "tpujob_moe_gemm_rows": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+        # a, g, dw, offsets, R, M, N, E, stream
+        "tpujob_moe_gemm_weights": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
 }
 

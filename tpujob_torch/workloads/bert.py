@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -81,25 +82,26 @@ from tpujob_torch.workloads import tokenizer as toklib
 class Dense(nn.Module):
     """flax ``nn.Dense``: input and params promoted to ``dtype`` before the
     product.  The weight is torch's ``[out, in]`` (flax's kernel is
-    ``[in, out]``).  With ``reduce_group`` it is row-parallel (Megatron):
+    ``[in, out]``); ``bias=False`` leaves the bias out.  With ``reduce_group`` it is row-parallel (Megatron):
     the rank holds a block of the input dim (``parallel.tp_shard_``), the
     partial products, in fp32, are summed over the group and rounded once
     to ``dtype`` (``parallel.reduce_from_tensor``), and the bias, whole
     on every rank, is added once after the sum."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 gen: torch.Generator, reduce_group=None):
+                 gen: torch.Generator, reduce_group=None, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
         self.dtype = dtype
         self.reduce_group = reduce_group
         with torch.no_grad():
             train_lib.lecun_normal_(self.weight, d_in, gen)
 
     def params(self):
-        """The weight and bias in the compute dtype."""
-        return self.weight.to(self.dtype), self.bias.to(self.dtype)
+        """The weight and bias (None without one) in the compute dtype."""
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return self.weight.to(self.dtype), b
 
     def forward(self, x):
         w, b = self.params()
@@ -107,7 +109,7 @@ class Dense(nn.Module):
             return F.linear(x.to(self.dtype), w, b)
         y = F.linear(x.to(self.dtype).float(), w.float())
         y = parallel.reduce_from_tensor(y, self.reduce_group)
-        return y.to(self.dtype) + b
+        return y.to(self.dtype) if b is None else y.to(self.dtype) + b
 
 
 class LayerNorm(nn.Module):
@@ -128,16 +130,78 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
-    """Rotary position embedding (GPT-NeoX half-split convention) on
-    ``x`` [batch, seq, heads, head_dim] at absolute ``positions`` [seq]."""
-    d = x.shape[-1]
+class RMSNorm(nn.Module):
+    """RMSNorm of the pre-norm block family: ``x / sqrt(mean(x^2) + eps)``
+    times the scale, in fp32 (eps 1e-6), output in ``dtype``."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x):
+        y = F.rms_norm(x.float(), self.weight.shape, self.weight, self.eps)
+        return y.to(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's rotary scaling (HF ``_compute_yarn_parameters``, at its
+    default ``beta_fast`` 32, ``beta_slow`` 1 and attention factor): the
+    frequencies blended between the plain ones and those divided by
+    ``factor`` over the dims whose wavelengths fall between ``beta_fast``
+    and ``beta_slow`` rotations of ``original`` positions, and cos/sin
+    scaled by ``0.1 ln(factor) + 1``."""
+
+    factor: float
+    original: int
+    beta_fast = 32.0
+    beta_slow = 1.0
+
+    def correction_range(self, d: int, theta: float):
+        """(low, high) dims of the blend's ramp, floored and ceiled, as HF
+        truncates them."""
+
+        def dim(rotations):
+            return (d * math.log(self.original / (rotations * 2 * math.pi))
+                    / (2 * math.log(theta)))
+
+        low = math.floor(dim(self.beta_fast))
+        high = math.ceil(dim(self.beta_slow))
+        return max(low, 0), min(high, d - 1)
+
+    def scale(self) -> float:
+        return 0.1 * math.log(self.factor) + 1.0
+
+
+def rope_frequencies(d: int, theta: float, yarn: Optional[YaRN], device):
+    """(the d/2 inverse frequencies, the cos/sin scale) of rotary
+    embedding at head dim ``d``: ``1 / theta^(2i/d)``, or YaRN's blend."""
     half = d // 2
     inv = theta ** (-torch.arange(half, dtype=torch.float32,
-                                  device=x.device) / half)
+                                  device=device) / half)
+    if yarn is None:
+        return inv, 1.0
+    low, high = yarn.correction_range(d, theta)
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32, device=device)
+                        - low) / max(high - low, 1e-3), 0, 1)
+    extrapolate = 1 - ramp  # 1: keep the plain frequency
+    inv = inv / yarn.factor * (1 - extrapolate) + inv * extrapolate
+    return inv, yarn.scale()
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+         yarn: Optional[YaRN] = None):
+    """Rotary position embedding (GPT-NeoX half-split convention) on
+    ``x`` [batch, seq, heads, head_dim] at absolute ``positions`` [seq];
+    with ``yarn`` its frequencies and cos/sin scale."""
+    d = x.shape[-1]
+    half = d // 2
+    inv, scale = rope_frequencies(d, theta, yarn, x.device)
     freqs = positions[:, None].to(torch.float32) * inv  # [s, d/2]
-    cos = torch.cos(freqs)[None, :, None, :]
-    sin = torch.sin(freqs)[None, :, None, :]
+    cos = torch.cos(freqs)[None, :, None, :] * scale
+    sin = torch.sin(freqs)[None, :, None, :] * scale
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -154,29 +218,42 @@ class Attention(nn.Module):
     Under tensor parallelism (``tp_group``) the rank holds ``heads / n``
     query heads and ``kv_heads / n`` KV heads, a contiguous block of each
     (so a GQA group stays whole), and ``out``'s matching input columns:
-    the attention function and the cache see the local heads only."""
+    the attention function and the cache see the local heads only.
+
+    ``head_dim`` (default ``hidden / heads``) sizes the heads, so the query
+    width ``heads x head_dim`` may differ from ``hidden``; ``bias=False``
+    leaves the projections' biases out; rotary positions take
+    ``rope_theta`` and, with ``yarn``, YaRN's scaling."""
 
     def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
                  attention_fn: Optional[Callable], gen: torch.Generator,
                  kv_heads: Optional[int] = None, use_rope: bool = False,
                  window: int = 0, tp_group=None,
-                 whole_attention_fn: Optional[Callable] = None):
+                 whole_attention_fn: Optional[Callable] = None,
+                 head_dim: int = 0, bias: bool = True,
+                 rope_theta: float = 10000.0, yarn: Optional[YaRN] = None):
         super().__init__()
         n = parallel.group_size(tp_group)
         hkv = kv_heads or heads
         self.hidden, self.heads, self.hkv = hidden, heads // n, hkv // n
-        self.d = hidden // heads
+        self.d = head_dim or hidden // heads
         self.tp_group = tp_group
         self.attention_fn = attention_fn or parallel.full_attention
         self.whole_attention_fn = whole_attention_fn
         self.use_rope = use_rope
+        self.rope_theta, self.yarn = rope_theta, yarn
         # causal sliding window (0 = full context); the cached decode masks
         # slots behind it so it matches windowed training exactly
         self.window = window
-        self.query = Dense(hidden, hidden, dtype, gen)
-        self.key = Dense(hidden, hkv * self.d, dtype, gen)
-        self.value = Dense(hidden, hkv * self.d, dtype, gen)
-        self.out = Dense(hidden, hidden, dtype, gen, reduce_group=tp_group)
+        width = heads * self.d
+        self.query = Dense(hidden, width, dtype, gen, bias=bias)
+        self.key = Dense(hidden, hkv * self.d, dtype, gen, bias=bias)
+        self.value = Dense(hidden, hkv * self.d, dtype, gen, bias=bias)
+        self.out = Dense(width, hidden, dtype, gen, reduce_group=tp_group,
+                         bias=bias)
+
+    def _rope(self, x, positions):
+        return rope(x, positions, self.rope_theta, self.yarn)
 
     def forward(self, x, cache=None, positions=None):
         """``cache``: ``(k, v, index)`` of this layer in decode, else None.
@@ -196,7 +273,7 @@ class Attention(nn.Module):
             if self.use_rope:
                 pos = (torch.arange(s, device=x.device) if positions is None
                        else positions)
-                q, k = rope(q, pos), rope(k, pos)
+                q, k = self._rope(q, pos), self._rope(k, pos)
             fn = self.attention_fn
             if positions is None and self.whole_attention_fn is not None:
                 fn = self.whole_attention_fn
@@ -215,7 +292,7 @@ class Attention(nn.Module):
         if self.use_rope:
             # rotate at the decode cursor; the cache holds rotated keys
             pos = torch.tensor([i], device=q.device)
-            q, k = rope(q, pos), rope(k, pos)
+            q, k = self._rope(q, pos), self._rope(k, pos)
         ck[:, i] = k[:, 0]
         cv[:, i] = v[:, 0]
         rep = self.heads // self.hkv
@@ -235,14 +312,27 @@ class Attention(nn.Module):
         return o.reshape(b, s, self.heads, self.d)
 
 
+# the Switch layer's aux-loss coefficients: load balance and router z-loss
+MOE_AUX_COEF, MOE_Z_COEF = 0.01, 1e-3
+# the dropless layer's: Qwen-MoE's router_aux_loss_coef, no z-loss
+DROPLESS_AUX_COEF, DROPLESS_Z_COEF = 1e-3, 0.0
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     """Static MoE hyperparameters (the JAX package's; its mesh is the
-    model's ``moe_groups``)."""
+    model's ``moe_groups``).  ``expert_width`` (0: the model's
+    intermediate) sizes each expert; ``aux_coef`` and ``z_coef`` weigh the
+    aux losses.  The block family picks the layer: the post-LN trunk's is
+    capacity-bound (``MoEMlp``), the pre-norm family's dropless
+    (``DroplessMoE``)."""
 
     experts: int
     k: int = 2
     capacity_factor: float = 1.25
+    expert_width: int = 0
+    aux_coef: float = MOE_AUX_COEF
+    z_coef: float = MOE_Z_COEF
 
 
 class MoEMlp(nn.Module):
@@ -276,6 +366,95 @@ class MoEMlp(nn.Module):
             valid=valid, groups=self.groups, positions=positions)
 
 
+class _LayerMark(torch.autograd.Function):
+    """The identity, marking ``phase`` on the card in the forward (and in
+    remat's recompute) and ``back`` in the backward: a layer's two sides
+    in both passes (``train_lib.PhaseMarks``)."""
+
+    @staticmethod
+    def forward(ctx, x, marks, phase, back):
+        marks(phase)
+        ctx.marks, ctx.back = marks, back
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.marks(ctx.back)
+        return grad, None, None, None
+
+
+class DroplessMoE(nn.Module):
+    """The dropless SwiGLU expert layer (``parallel.moe_dropless``) on one
+    device: ``router`` [d, E] (fp32, normal(0.02)), ``wi`` [E, d, 2f] (each
+    expert's gate and up projections side by side) and ``wo`` [E, f, d],
+    lecun-normal over d and f, held in fp32 and cast inside the grouped
+    product.  Its work lies between the marks ``moe_in`` and ``moe_out``
+    in the forward, remat's recompute and the backward."""
+
+    def __init__(self, hidden: int, width: int, cfg: MoEConfig,
+                 dtype: torch.dtype, gen: torch.Generator):
+        super().__init__()
+        e = cfg.experts
+        self.cfg, self.dtype = cfg, dtype
+        self.router = nn.Parameter(torch.empty(hidden, e))
+        self.wi = nn.Parameter(torch.empty(e, hidden, 2 * width))
+        self.wo = nn.Parameter(torch.empty(e, width, hidden))
+        with torch.no_grad():
+            self.router.normal_(0.0, 0.02, generator=gen)
+            train_lib.lecun_normal_(self.wi, hidden, gen)
+            train_lib.lecun_normal_(self.wo, width, gen)
+        self._marks = None
+
+    def forward(self, x, valid=None, positions=None):
+        if self._marks is None:
+            self._marks = train_lib.PhaseMarks(x.device)
+        x = _LayerMark.apply(x, self._marks, "moe_in", "moe_out")
+        y, metrics = parallel.moe_dropless(x.to(self.dtype), self.router,
+                                           self.wi, self.wo, k=self.cfg.k,
+                                           valid=valid)
+        return _LayerMark.apply(y, self._marks, "moe_out", "moe_in"), metrics
+
+
+class PreNormBlock(nn.Module):
+    """The pre-norm block family: ``x + Attn(RMSNorm(x))``, then ``x +
+    FFN(RMSNorm(x))`` with a SwiGLU FFN, ``mlp_wo(silu(gate) * up)`` (dense:
+    ``mlp_wi`` [2f, d] gives gate and up), or the dropless SwiGLU experts
+    (``moe``); no biases.  One device (the flag checks refuse every
+    sharded layout)."""
+
+    def __init__(self, hidden: int, heads: int, intermediate: int,
+                 dtype: torch.dtype, attention_fn: Optional[Callable],
+                 gen: torch.Generator, kv_heads: Optional[int] = None,
+                 use_rope: bool = False, window: int = 0,
+                 moe: Optional[MoEConfig] = None, head_dim: int = 0,
+                 rope_theta: float = 10000.0, yarn: Optional[YaRN] = None):
+        super().__init__()
+        self.ln_attn = RMSNorm(hidden, dtype)
+        self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
+                              kv_heads, use_rope, window, head_dim=head_dim,
+                              bias=False, rope_theta=rope_theta, yarn=yarn)
+        self.ln_mlp = RMSNorm(hidden, dtype)
+        if moe is not None:
+            self.moe = DroplessMoE(hidden, moe.expert_width or intermediate,
+                                   moe, dtype, gen)
+        else:
+            self.moe = None
+            self.mlp_wi = Dense(hidden, 2 * intermediate, dtype, gen,
+                                bias=False)
+            self.mlp_wo = Dense(intermediate, hidden, dtype, gen, bias=False)
+
+    def forward(self, x, cache=None, valid=None, positions=None):
+        """As ``Block.forward``."""
+        x = x + self.attn(self.ln_attn(x), cache, positions)
+        u = self.ln_mlp(x)
+        if self.moe is not None:
+            h, metrics = self.moe(u, valid, positions)
+            return x + h, metrics
+        h = self.mlp_wi(u)
+        f = h.shape[-1] // 2
+        return x + self.mlp_wo(F.silu(h[..., :f]) * h[..., f:])
+
+
 class Block(nn.Module):
     """Post-LN transformer block with the dense FFN, or with ``moe`` the
     sparse one.  Under tensor parallelism ``mlp_wi`` is column-parallel and
@@ -288,16 +467,19 @@ class Block(nn.Module):
                  use_rope: bool = False, window: int = 0,
                  moe: Optional[MoEConfig] = None, tp_group=None,
                  moe_groups: Optional[parallel.MoEGroups] = None,
-                 whole_attention_fn: Optional[Callable] = None):
+                 whole_attention_fn: Optional[Callable] = None,
+                 head_dim: int = 0, rope_theta: float = 10000.0,
+                 yarn: Optional[YaRN] = None):
         super().__init__()
         self.tp_group = tp_group
         self.attn = Attention(hidden, heads, dtype, attention_fn, gen,
                               kv_heads, use_rope, window, tp_group,
-                              whole_attention_fn)
+                              whole_attention_fn, head_dim,
+                              rope_theta=rope_theta, yarn=yarn)
         self.ln_attn = LayerNorm(hidden, dtype)
         if moe is not None:
-            self.moe = MoEMlp(hidden, intermediate, moe, dtype, gen,
-                              moe_groups)
+            self.moe = MoEMlp(hidden, moe.expert_width or intermediate, moe,
+                              dtype, gen, moe_groups)
         else:
             self.moe = None
             self.mlp_wi = Dense(hidden, intermediate, dtype, gen)
@@ -360,7 +542,16 @@ class Bert(nn.Module):
     draws the whole model from the seed, as one process does, and drops
     the other stages' blocks, so a block keeps its one-process name
     (``layer_<i>``) and weights; the embeddings and LayerNorms stay on
-    every stage."""
+    every stage.
+
+    ``block``: ``"post_ln"`` (the JAX package's trunk) or ``"pre_rms"``
+    (``PreNormBlock``s, no ``ln_embed``, an RMSNorm ``ln_f``).
+    ``head_dim``: the heads' size (default ``hidden / heads``).
+    ``layer_windows``: each layer's window (default ``window`` for all),
+    its attention ``attention_for(window)``; rotary positions take
+    ``rope_theta``, and the full-context layers (window 0) ``yarn`` too.
+    ``untied_head``: the head is ``lm_head``, a bias-free projection of
+    its own, not the embedding table."""
 
     def __init__(self, vocab: int = 30522, hidden: int = 1024, layers: int = 24,
                  heads: int = 16, intermediate: int = 4096, max_seq: int = 512,
@@ -372,7 +563,12 @@ class Bert(nn.Module):
                  exchanges: bool = False, tp_group=None,
                  moe_groups: Optional[parallel.MoEGroups] = None,
                  whole_attention_fn: Optional[Callable] = None,
-                 stage: Optional[range] = None):
+                 stage: Optional[range] = None, block: str = "post_ln",
+                 head_dim: int = 0,
+                 layer_windows: Optional[List[int]] = None,
+                 attention_for: Optional[Callable[[int], Callable]] = None,
+                 rope_theta: float = 10000.0, yarn: Optional[YaRN] = None,
+                 untied_head: bool = False):
         super().__init__()
         self.vocab, self.layers, self.max_seq = vocab, layers, max_seq
         self.stage = range(layers) if stage is None else stage
@@ -393,14 +589,26 @@ class Bert(nn.Module):
             self.pos_embed = nn.Parameter(torch.empty(max_seq, hidden))
             with torch.no_grad():
                 self.pos_embed.normal_(0.0, 0.02, generator=gen)
-        self.ln_embed = LayerNorm(hidden, dtype)
+        pre = block == "pre_rms"
+        self.ln_embed = None if pre else LayerNorm(hidden, dtype)
         if final_ln:
-            self.ln_f = LayerNorm(hidden, dtype)
+            self.ln_f = (RMSNorm if pre else LayerNorm)(hidden, dtype)
+        windows = layer_windows or [window] * layers
         for i in range(layers):
-            setattr(self, f"layer_{i}", Block(
-                hidden, heads, intermediate, dtype, attention_fn, gen,
-                kv_heads, use_rope, window, moe, tp_group, moe_groups,
-                whole_attention_fn))
+            w = windows[i]
+            fn = attention_fn if attention_for is None else attention_for(w)
+            attn = dict(head_dim=head_dim, rope_theta=rope_theta,
+                        yarn=None if w else yarn)
+            if pre:
+                blk = PreNormBlock(hidden, heads, intermediate, dtype, fn,
+                                   gen, kv_heads, use_rope, w, moe, **attn)
+            else:
+                blk = Block(hidden, heads, intermediate, dtype, fn, gen,
+                            kv_heads, use_rope, w, moe, tp_group, moe_groups,
+                            whole_attention_fn, **attn)
+            setattr(self, f"layer_{i}", blk)
+        self.lm_head = (Dense(hidden, vocab_padded, dtype, gen, bias=False)
+                        if untied_head else None)
         for i in range(layers):
             if i not in self.stage:
                 delattr(self, f"layer_{i}")
@@ -427,11 +635,13 @@ class Bert(nn.Module):
             pos = (self.pos_embed[position : position + ids.shape[1]]
                    if positions is None else self.pos_embed[positions])
             x = x + pos[None].to(self.dtype)
-        return self.ln_embed(x)
+        return x if self.ln_embed is None else self.ln_embed(x)
 
     def head(self, x):
         if self.final_ln:
             x = self.ln_f(x)
+        if self.lm_head is not None:
+            return self.lm_head(x)[..., : self.vocab]
         # tied LM head: the JAX model casts x to fp32, but flax's
         # Embed.attend then promotes it and the table to the module dtype,
         # so under bf16 the logits are bf16
@@ -622,9 +832,8 @@ def make_pipeline_value_and_grad(model: Bert, mesh, num_microbatches: int,
 
 
 # the losses' coefficients of the MoE aux terms (the JAX package's defaults)
-MOE_AUX_COEF, MOE_Z_COEF = 0.01, 1e-3
 # the loss's extra outputs (``train_lib.loss_extras``) after a MoE step,
-# in this order
+# in this order; the dropless layer drops nothing and has no ``dropped``
 MOE_METRICS = ("load_balance", "router_z", "dropped")
 
 
@@ -633,7 +842,7 @@ def moe_terms(metrics: List[Dict[str, torch.Tensor]], mesh=None
     """The aux terms of a MoE forward from its layers' ``moe_ffn`` metrics:
     the mean over the layers of the load balance and of the router z-loss
     (the JAX package's ``_mean_sown``), and this rank's dropped
-    assignments summed over the layers.
+    assignments summed over the layers (capacity-bound layers only).
 
     The load balance is the GLOBAL batch's, as the JAX package's data axis
     computes it: the per-expert top-1 counts and the token count (no grad)
@@ -645,38 +854,45 @@ def moe_terms(metrics: List[Dict[str, torch.Tensor]], mesh=None
     tensor group hold the same rows and are counted once.  The z-loss is
     a mean over equal local batches and needs nothing."""
     counts = train_lib.global_sum(torch.stack(
-        [torch.cat([m["top1_count"], m["tokens"][None]]) for m in metrics]),
+        [torch.cat([m["density_count"], m["tokens"][None]]) for m in metrics]),
         mesh)
     prob_sum = (torch.stack([m["prob_sum"] for m in metrics])
                 * dist.token_shards(mesh))
     lb = parallel.load_balance(counts[:, :-1], prob_sum, counts[:, -1])
-    return {"load_balance": lb.mean(),
-            "router_z": torch.stack([m["router_z"] for m in metrics]).mean(),
-            "dropped": torch.stack([m["dropped"] for m in metrics]).sum()}
+    terms = {"load_balance": lb.mean(),
+             "router_z": torch.stack([m["router_z"] for m in metrics]).mean()}
+    if "dropped" in metrics[0]:
+        terms["dropped"] = torch.stack([m["dropped"] for m in metrics]).sum()
+    return terms
 
 
 def moe_forward(model: nn.Module, ids, loss_fn, positions=None, mesh=None):
     """``(logits, terms)`` of ``model`` (a ``Bert`` or its DDP wrapper) on
     ``ids`` (at ``positions``, a sequence shard's): ``terms`` are
-    ``moe_terms`` over ``mesh`` for a MoE model, None for a dense one.
-    Their values (``MOE_METRICS``) are ``loss_fn``'s extra outputs
+    ``moe_terms`` over ``mesh`` for a MoE model, with the model's aux-loss
+    coefficients (``coefs``), None for a dense one.  Their values
+    (``MOE_METRICS``) are ``loss_fn``'s extra outputs
     (``train_lib.set_loss_extras``), which ``train`` reads after each
     step."""
-    if getattr(model, "module", model).moe is None:
+    moe = getattr(model, "module", model).moe
+    if moe is None:
         return model(ids, positions=positions), None
     logits, metrics = model(ids, with_metrics=True, positions=positions)
     terms = moe_terms(metrics, mesh)
     train_lib.set_loss_extras(
-        loss_fn, torch.stack([terms[k] for k in MOE_METRICS]))
+        loss_fn, torch.stack([terms[k] for k in MOE_METRICS if k in terms]))
+    terms["coefs"] = (moe.aux_coef, moe.z_coef)
     return logits, terms
 
 
 def with_moe_aux(loss, terms):
-    """``loss`` plus the MoE aux terms (unchanged for a dense model)."""
+    """``loss`` plus the MoE aux terms, each at its coefficient (unchanged
+    for a dense model; a zero coefficient adds nothing)."""
     if terms is None:
         return loss
-    return (loss + MOE_AUX_COEF * terms["load_balance"]
-            + MOE_Z_COEF * terms["router_z"])
+    aux, z = terms.get("coefs", (MOE_AUX_COEF, MOE_Z_COEF))
+    loss = loss + aux * terms["load_balance"]
+    return loss + z * terms["router_z"] if z else loss
 
 
 def mlm_loss(model: nn.Module, mask_id: int = 103, positions=None,
@@ -740,6 +956,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="positional encoding: learned absolute embedding "
                         "or rotary on q/k")
     p.add_argument("--intermediate", type=int, default=4096)
+    p.add_argument("--block", choices=["post_ln", "pre_rms"],
+                   default="post_ln",
+                   help="block family: post_ln (the JAX package's trunk: "
+                        "post-LN LayerNorm blocks, GELU, biases, a LayerNorm "
+                        "after the embedding) or pre_rms (pre-norm RMSNorm "
+                        "blocks, SwiGLU FFN or experts, no biases); pre_rms "
+                        "runs on one device or under data parallelism")
+    p.add_argument("--head-dim", type=int, default=0,
+                   help="size of each attention head (0 = hidden / heads); "
+                        "the query width is heads x head-dim")
+    p.add_argument("--attention-pattern", default="",
+                   help="per-layer attention, one letter a layer, repeated "
+                        "over the layers: S a sliding window of "
+                        "--attention-window, F full context (e.g. SSSF); "
+                        "empty = every layer takes --attention-window")
+    p.add_argument("--rope-theta", type=float, default=10000.0,
+                   help="rotary base (with --position rope)")
+    p.add_argument("--yarn-factor", type=float, default=0.0,
+                   help="YaRN context scaling of the rotary frequencies on "
+                        "the full-context layers (0 = off)")
+    p.add_argument("--yarn-original-positions", type=int, default=0,
+                   help="YaRN's original context length")
+    p.add_argument("--untied-head", action="store_true",
+                   help="an output projection of its own (lm_head) instead "
+                        "of the embedding table")
     p.add_argument("--seq-len", type=int, default=512)
     p.add_argument("--batch-size", type=int, default=32, help="global batch")
     p.add_argument("--steps", type=int, default=100)
@@ -783,6 +1024,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="experts routed per token")
     p.add_argument("--moe-capacity-factor", type=float, default=1.25,
                    help="per-expert buffer slack over perfect balance")
+    p.add_argument("--moe-expert-width", type=int, default=0,
+                   help="each expert's FFN width (0 = --intermediate)")
     p.add_argument("--expert-parallel", type=int, default=1,
                    help="size of the expert-parallel axis (the experts "
                         "split over it; needs --moe-experts divisible by "
@@ -831,9 +1074,12 @@ def moe_config_from(args) -> Optional[MoEConfig]:
     with the JAX package's rules."""
     n_experts = getattr(args, "moe_experts", 0)
     ep = getattr(args, "expert_parallel", 1)
+    width = getattr(args, "moe_expert_width", 0)
     if n_experts <= 0:
         if ep > 1:
             raise ValueError("--expert-parallel needs --moe-experts > 0")
+        if width:
+            raise ValueError("--moe-expert-width needs --moe-experts > 0")
         return None
     if args.moe_k < 1:
         # k=0 would silently zero every MoE FFN (all gates empty)
@@ -842,8 +1088,77 @@ def moe_config_from(args) -> Optional[MoEConfig]:
         raise ValueError(
             f"--moe-experts {n_experts} must divide evenly over "
             f"--expert-parallel {ep}")
+    if width < 0:
+        raise ValueError(f"--moe-expert-width must be >= 0, got {width}")
+    if getattr(args, "block", "post_ln") == "pre_rms":
+        # the pre-norm family's experts are dropless SwiGLU ones
+        return MoEConfig(experts=n_experts, k=args.moe_k,
+                         expert_width=width, aux_coef=DROPLESS_AUX_COEF,
+                         z_coef=DROPLESS_Z_COEF)
     return MoEConfig(experts=n_experts, k=args.moe_k,
-                     capacity_factor=args.moe_capacity_factor)
+                     capacity_factor=args.moe_capacity_factor,
+                     expert_width=width)
+
+
+def head_dim_of(args) -> int:
+    """The attention heads' size: ``--head-dim``, else hidden / heads."""
+    return getattr(args, "head_dim", 0) or args.hidden // args.heads
+
+
+def layer_windows(args) -> Optional[List[int]]:
+    """Each layer's attention window from ``--attention-pattern`` (S: the
+    window, F: 0, the letters repeated over the layers), or None without a
+    pattern (every layer takes ``--attention-window``)."""
+    pattern = getattr(args, "attention_pattern", "")
+    if not pattern:
+        return None
+    window = getattr(args, "attention_window", 0)
+    return [window if pattern[i % len(pattern)] == "S" else 0
+            for i in range(args.layers)]
+
+
+def yarn_of(args) -> Optional[YaRN]:
+    """``--yarn-*`` as a ``YaRN``, or None with ``--yarn-factor`` 0."""
+    factor = getattr(args, "yarn_factor", 0.0)
+    if not factor:
+        return None
+    return YaRN(factor, args.yarn_original_positions)
+
+
+def validate_block_flags(args, causal: Optional[bool] = None) -> None:
+    """The port's own rules for the block family, the head dim, the
+    per-layer pattern, YaRN and the untied head: what the flags name must
+    be used, and ``--block pre_rms`` runs on one device or under data
+    parallelism only."""
+    if getattr(args, "head_dim", 0) < 0:
+        raise ValueError(f"--head-dim must be >= 0, got {args.head_dim}")
+    pattern = getattr(args, "attention_pattern", "")
+    if pattern:
+        if set(pattern) - {"S", "F"}:
+            raise ValueError(f"--attention-pattern takes the letters S and "
+                             f"F, got {pattern!r}")
+        if "S" in pattern and getattr(args, "attention_window", 0) <= 0:
+            raise ValueError("--attention-pattern's S layers need "
+                             "--attention-window > 0")
+        if causal is False:
+            raise ValueError("--attention-pattern (sliding windows) applies "
+                             "to the causal family (gpt)")
+    if getattr(args, "yarn_factor", 0.0):
+        if getattr(args, "position", "learned") != "rope":
+            raise ValueError("--yarn-factor scales rotary positions: it "
+                             "needs --position rope")
+        if args.yarn_factor < 1 or args.yarn_original_positions <= 0:
+            raise ValueError("--yarn-factor must be >= 1, with "
+                             "--yarn-original-positions > 0")
+    if getattr(args, "block", "post_ln") == "pre_rms" or \
+            getattr(args, "untied_head", False):
+        for flag in ("tensor_parallel", "sequence_parallel",
+                     "expert_parallel", "pipeline_parallel", "fsdp"):
+            if getattr(args, flag, 1) > 1:
+                raise ValueError(
+                    f"--block pre_rms and --untied-head run on one device or "
+                    f"under data parallelism in this release, not with "
+                    f"--{flag.replace('_', '-')}")
 
 
 def validate_pipeline_flags(args) -> int:
@@ -979,12 +1294,13 @@ def validate_parallel_flags(args, causal: Optional[bool] = None) -> int:
     sequence-parallel and tensor-parallel rules (``validate_sp_flags``,
     ``validate_tp_flags``).  Returns the pipeline stage count."""
     moe_config_from(args)
+    validate_block_flags(args, causal)
     if getattr(args, "position", "learned") == "rope" \
-            and (args.hidden // args.heads) % 2 != 0:
+            and head_dim_of(args) % 2 != 0:
         raise ValueError(
             f"--position rope needs an even head dim, got "
-            f"{args.hidden // args.heads} (hidden {args.hidden} / heads "
-            f"{args.heads})")
+            f"{head_dim_of(args)} (hidden {args.hidden} / heads "
+            f"{args.heads}, or --head-dim)")
     kvh = getattr(args, "kv_heads", 0)
     if kvh:
         if kvh < 0:
@@ -1143,7 +1459,9 @@ def build_model(args, device, *, causal: bool = False,
     ``--expert-parallel``.  Under ``--pipeline-parallel`` the model
     holds its stage's layers only (``parallel.stage_layers``).  FSDP is
     applied by ``train`` (after any weights are loaded into this
-    module)."""
+    module).  ``--block``, ``--head-dim``, ``--attention-pattern`` (each
+    layer's window), ``--rope-theta``, ``--yarn-*`` and ``--untied-head``
+    pick the block family and its parts (``Bert``)."""
     from tpujob_torch.workloads import flash
 
     validate_parallel_flags(args, causal)
@@ -1155,10 +1473,16 @@ def build_model(args, device, *, causal: bool = False,
     pp = getattr(args, "pipeline_parallel", 1)
     if mesh is None and (sp > 1 or tp > 1 or ep > 1 or pp > 1):
         mesh = make_mesh_for(args)
-    if use_flash and torch.device(device).type == "cuda":
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    moe = moe_config_from(args)
+    if torch.device(device).type == "cuda":
         # fail at build, not at the first step
-        flash.check_supported(torch.bfloat16 if args.bf16 else torch.float32,
-                              args.hidden // args.heads)
+        if use_flash:
+            flash.check_supported(dtype, head_dim_of(args))
+        if moe is not None and getattr(args, "block", "post_ln") == "pre_rms":
+            from tpujob_torch.workloads import moe_gemm
+
+            moe_gemm.check_supported(dtype)
 
     def flash_fn(q, k, v, causal=causal, scale=None):
         return flash.flash_attention(q, k, v, causal=causal, scale=scale,
@@ -1193,11 +1517,21 @@ def build_model(args, device, *, causal: bool = False,
         attention_fn = whole_fn
     else:
         attention_fn = None
-    moe = moe_config_from(args)
+
+    def attention_for(w):
+        # one layer's attention under --attention-pattern (one device: the
+        # flag checks refuse a window under sequence parallelism)
+        if use_flash:
+            return lambda q, k, v: flash.flash_attention(
+                q, k, v, causal=causal, window=w)
+        return lambda q, k, v: parallel.full_attention(
+            q, k, v, causal=causal, window=w)
+
+    windows = layer_windows(args)
     model = Bert(
         vocab=args.vocab, hidden=args.hidden, layers=args.layers,
         heads=args.heads, intermediate=args.intermediate, max_seq=args.seq_len,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        dtype=dtype,
         attention_fn=attention_fn, remat=args.remat, final_ln=final_ln,
         kv_heads=getattr(args, "kv_heads", 0) or None,
         use_rope=getattr(args, "position", "learned") == "rope",
@@ -1208,6 +1542,11 @@ def build_model(args, device, *, causal: bool = False,
         # a MoE model's full-route decode forwards whole sequences
         whole_attention_fn=whole_fn if sp > 1 and moe else None,
         stage=parallel.stage_layers(args.layers, mesh),
+        block=getattr(args, "block", "post_ln"), head_dim=head_dim_of(args),
+        layer_windows=windows,
+        attention_for=attention_for if windows is not None else None,
+        rope_theta=getattr(args, "rope_theta", 10000.0), yarn=yarn_of(args),
+        untied_head=getattr(args, "untied_head", False),
     )
     return model.to(device)
 

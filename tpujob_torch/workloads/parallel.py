@@ -9,7 +9,9 @@ causal schedule, and ``ulysses_attention``) with their exchanges
 (``shift``, ``all_to_all``: autograd functions whose backward is the
 inverse exchange, counted in ``EXCHANGES``), and
 ``moe_capacity``/``moe_ffn`` on one device or over the expert, tensor
-and sequence groups (``MoEGroups``).
+and sequence groups (``MoEGroups``).  Beside them, the port's own
+``moe_dropless``: SwiGLU experts that drop no assignment, dispatched by
+index through ``moe_gemm``'s grouped products, on one device.
 
 The JAX package's ``PARTITION_RULES`` (``partition_spec_tree``,
 ``sanitize_spec``, ``shard_params``) are three things here.  Megatron's
@@ -1026,6 +1028,19 @@ class Routing(NamedTuple):
     keep: torch.Tensor
 
 
+def route_gates(x: torch.Tensor, router_kernel: torch.Tensor, k: int):
+    """(logits, probs [b, s, E], gate, expert_idx [b, s, k]): the router in
+    fp32, its softmax, the top k and their gates renormalised by
+    max(sum, 1e-9), as both MoE layers route."""
+    # fp32 router: exp/softmax on bf16 logits is where MoE training
+    # classically diverges
+    logits = torch.einsum("bsd,de->bse", x.float(), router_kernel.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert_idx = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gate, expert_idx
+
+
 def moe_route(x: torch.Tensor, router_kernel: torch.Tensor, k: int, cap: int,
               valid: Optional[torch.Tensor] = None) -> Routing:
     """The routing half of ``moe_ffn``: an fp32 router, softmax, top-k with
@@ -1036,12 +1051,7 @@ def moe_route(x: torch.Tensor, router_kernel: torch.Tensor, k: int, cap: int,
     value goes to the host: the step that runs it can be captured."""
     b, s, _ = x.shape
     num_experts = router_kernel.shape[1]
-    # fp32 router: exp/softmax on bf16 logits is where MoE training
-    # classically diverges
-    logits = torch.einsum("bsd,de->bse", x.float(), router_kernel.float())
-    probs = torch.softmax(logits, dim=-1)
-    gate, expert_idx = torch.topk(probs, k, dim=-1)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    logits, probs, gate, expert_idx = route_gates(x, router_kernel, k)
     experts = torch.arange(num_experts, device=x.device)
     oh = (expert_idx[..., None] == experts).float()  # [b, s, k, E]
     if valid is not None:
@@ -1108,15 +1118,16 @@ def dispatch_combine(r: Routing, cap: int, dtype: torch.dtype,
     return dispatch.sum(2).to(dtype), combine
 
 
-def load_balance(top1_count: torch.Tensor, prob_sum: torch.Tensor,
+def load_balance(density_count: torch.Tensor, prob_sum: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """The Switch aux loss E * sum_e(density_e * mean_prob_e) over the last
-    dim (1.0 when balanced): density from the per-expert count of top-1
-    choices, mean probability from the sum of the router's probabilities,
-    both over ``tokens`` routed positions (shape ``top1_count.shape[:-1]``)."""
+    """The aux loss E * sum_e(density_e * mean_prob_e) over the last dim
+    (1.0 when balanced): density from a per-expert count (the Switch
+    layer's top-1 choices; the dropless layer's top-k assignments over k),
+    mean probability from the sum of the router's probabilities, both over
+    ``tokens`` routed positions (shape ``density_count.shape[:-1]``)."""
     n = tokens[..., None]
-    return top1_count.shape[-1] * torch.sum(
-        (top1_count / n) * (prob_sum / n), dim=-1)
+    return density_count.shape[-1] * torch.sum(
+        (density_count / n) * (prob_sum / n), dim=-1)
 
 
 class _DispatchToExperts(torch.autograd.Function):
@@ -1231,10 +1242,10 @@ def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor, wi: torch.Tensor,
     ``metrics``: ``load_balance`` (the Switch aux loss, density from the
     top-1 choice only) and ``router_z`` (mean squared logsumexp of the
     logits), the reference's two; and the parts the load balance is made
-    of, which the loss sums over ranks (``top1_count`` [E] and
-    ``tokens``, without grad, ``prob_sum`` [E]), and ``dropped``, the
-    count of this rank's valid assignments past their expert's capacity
-    (not in the reference; a diagnostic)."""
+    of, which the loss sums over ranks (``density_count`` [E], the top-1
+    choices, and ``tokens``, without grad, ``prob_sum`` [E]), and
+    ``dropped``, the count of this rank's valid assignments past their
+    expert's capacity (not in the reference; a diagnostic)."""
     b, s, _ = x.shape
     num_experts = router_kernel.shape[1]
     if not 1 <= k <= num_experts:
@@ -1264,17 +1275,85 @@ def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor, wi: torch.Tensor,
         y = _CombineFromExperts.apply(combine, out, g.ffn)
 
     top1_count = r.oh[:, :, 0, :].sum(dim=(0, 1))
+    metrics = _balance_metrics(r.logits, r.probs, top1_count, valid)
+    metrics["dropped"] = torch.sum(r.oh_prio.sum(-1) * (1.0 - r.keep))
+    return y, metrics
+
+
+def _balance_metrics(logits: torch.Tensor, probs: torch.Tensor,
+                     density_count: torch.Tensor,
+                     valid: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The router's metrics both MoE layers give: ``load_balance`` of the
+    per-expert ``density_count`` [E] (counted over valid positions) and
+    the probabilities' sum over the valid positions, ``router_z``, and the
+    parts the loss sums over ranks (``density_count``, ``prob_sum``,
+    ``tokens``)."""
+    b, s, _ = logits.shape
     if valid is not None:
         vmask = valid.float()
         tokens = torch.clamp(vmask.sum(), min=1.0)
-        prob_sum = (r.probs * vmask[..., None]).sum(dim=(0, 1))
+        prob_sum = (probs * vmask[..., None]).sum(dim=(0, 1))
     else:
-        tokens = torch.full((), float(b * s), device=x.device)
-        prob_sum = r.probs.sum(dim=(0, 1))
-    metrics = {
-        "load_balance": load_balance(top1_count, prob_sum, tokens),
-        "router_z": torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2),
-        "top1_count": top1_count, "prob_sum": prob_sum, "tokens": tokens,
-        "dropped": torch.sum(r.oh_prio.sum(-1) * (1.0 - r.keep)),
+        tokens = torch.full((), float(b * s), device=logits.device)
+        prob_sum = probs.sum(dim=(0, 1))
+    return {
+        "load_balance": load_balance(density_count, prob_sum, tokens),
+        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "density_count": density_count, "prob_sum": prob_sum,
+        "tokens": tokens,
     }
-    return y, metrics
+
+
+def moe_dropless(x: torch.Tensor, router_kernel: torch.Tensor,
+                 wi: torch.Tensor, wo: torch.Tensor, *, k: int,
+                 valid: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Dropless sparse MoE feed-forward with SwiGLU experts, on one device:
+    every one of the ``b * s * k`` assignments is computed, none dropped.
+
+    ``x``: [batch, seq, d_model]; ``router_kernel``: [d_model, E];
+    ``wi``: [E, d_model, 2 d_ff], each expert's gate (first d_ff columns)
+    and up projections side by side; ``wo``: [E, d_ff, d_model]; the
+    experts' weights in fp32, cast to x's dtype inside the grouped
+    product.  Routing is ``route_gates``' (an fp32 softmax over the
+    experts, top-k, the gates renormalised), without ``moe_route``'s
+    capacity slots.  The assignments are sorted by expert (a stable sort,
+    so within an expert in token order) into a buffer of exactly ``b * s
+    * k`` rows, the per-expert row counts and offsets kept on the card
+    (``moe_gemm.Groups``); then ``moe_gemm``'s
+    grouped products, ``silu(gate) * up``, the second grouped product, and
+    each token's ``k`` outputs weighed by their gates and summed in fp32.
+    Every shape is static and nothing goes to the host, so the step that
+    runs it captures.
+
+    ``valid`` (0/1 [batch, seq]) leaves positions out of the metrics only:
+    with no capacity, an invalid position cannot take another's slot.
+    ``metrics``: ``_balance_metrics`` with the density of every top-k
+    assignment (its count over k, so a balanced router reads 1)."""
+    from tpujob_torch.workloads import moe_gemm
+
+    b, s, d = x.shape
+    num_experts = router_kernel.shape[1]
+    if not 1 <= k <= num_experts:
+        raise ValueError(
+            f"top-k k={k} must be in [1, num_experts={num_experts}]")
+    logits, probs, gate, expert_idx = route_gates(x, router_kernel, k)
+    flat = expert_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    counts = torch.zeros(num_experts, dtype=torch.long, device=x.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
+    groups = moe_gemm.groups(counts)
+    rows = moe_gemm.dispatch(x.reshape(b * s, d), order, inverse, k)
+    h = moe_gemm.grouped_matmul(rows, wi, groups)
+    f = wo.shape[1]
+    h = F.silu(h[:, :f]) * h[:, f:]
+    out = moe_gemm.undispatch(moe_gemm.grouped_matmul(h, wo, groups), order,
+                              inverse).view(b * s, k, d)
+    y = (out.float() * gate.reshape(b * s, k, 1)).sum(1)
+    y = y.to(x.dtype).view(b, s, d)
+    density = counts.float() if valid is None else torch.zeros(
+        num_experts, device=x.device).index_add_(
+        0, flat, valid.float().reshape(-1).repeat_interleave(k))
+    return y, _balance_metrics(logits, probs, density / k, valid)

@@ -61,7 +61,7 @@ from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
 from tpujob_torch.workloads import distributed as dist
-from tpujob_torch.workloads import flash, optim
+from tpujob_torch.workloads import flash, moe_gemm, optim
 
 
 class SummaryWriter:
@@ -290,10 +290,13 @@ class PhaseMarks:
     graph's pool.  A step marks ``begin``, then ``forward`` after the loss,
     ``backward`` after its backward, ``fold`` after a ``GradAccum`` folded
     the grads in, and ``update`` after the optimizer's step: the kernels
-    that start between two marks belong to the phase the second names.  On
-    the CPU a no-op."""
+    that start between two marks belong to the phase the second names.
+    Inside a phase a dropless expert layer (``bert.DroplessMoE``) marks
+    ``moe_in`` where its work starts and ``moe_out`` where it ends, in each
+    pass.  On the CPU a no-op."""
 
-    PHASES = ("begin", "forward", "backward", "fold", "update")
+    PHASES = ("begin", "forward", "backward", "fold", "update", "moe_in",
+              "moe_out")
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -692,8 +695,8 @@ def check_baked_lr(optimizer: torch.optim.Optimizer, values) -> None:
 
 
 # what the card ran, counted on the host: flash kernel launches, parameter
-# tensors updated by each AdamW route
-_COUNTS = (flash.LAUNCHES, optim.UPDATES)
+# tensors updated by each AdamW route and the grouped-GEMM launches
+_COUNTS = (flash.LAUNCHES, optim.UPDATES, moe_gemm.LAUNCHES)
 
 
 class _Graphs:
@@ -714,9 +717,10 @@ class _Graphs:
     Inputs are static buffers: each call copies its batch into them.  A
     replay overwrites its outputs, so each call returns a copy.  An lr
     that is a float is baked into a graph: a schedule that moves it
-    raises.  ``flash.LAUNCHES`` and ``optim.UPDATES`` keep counting what
-    the card ran: what a capture records is taken back out (the card ran
-    none of it) and added again at each replay."""
+    raises.  ``flash.LAUNCHES``, ``optim.UPDATES`` and
+    ``moe_gemm.LAUNCHES`` keep counting what the card ran: what a capture
+    records is taken back out (the card ran none of it) and added again at
+    each replay."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
