@@ -99,7 +99,8 @@ Phases, one JSON line each on stdout:
    same seed at ``--attention dense`` in fp32; tokens/s and ms a step over
    the last 6 steps, peak memory.  Then a 2-layer GPT at hidden 1024 and 8
    heads (head dim 128, bf16, flash), 4 steps through the ``_any``
-   kernels (16 / 8 / 8 launches), losses falling; and a 2-layer GPT at
+   kernels (16 / 8 / 8 launches, all on their bf16 head-dim-128 kernels),
+   losses falling; and a 2-layer GPT at
    hidden 2048, 8 heads of 256, intermediate 8192 in fp32 (flash, batch
    8, seq 1024, captured; Gemma-2B's head width as multi-head attention)
    for 2 + 4 steps: 4 / 2 / 2 ``_any`` launches a step, losses finite and
@@ -751,6 +752,29 @@ def ptxas_report(build) -> list:
     return out
 
 
+def by_heads(fn, xs, kw: dict, head_chunk: int = 0):
+    """``fn(*xs, **kw)`` on all heads, or ``head_chunk`` at a time (each
+    head's attention is its own, so that [b, h, s, s] scores fit on the
+    card at a long ``s``): [b, s, h, d] tensors cut and joined on dim 2,
+    [b, h, s] ones on dim 1."""
+    if not head_chunk:
+        return fn(*xs, **kw)
+    h = xs[0].shape[2]
+    parts = [fn(*(x[:, :, h0:h0 + head_chunk] if x.dim() == 4
+                  else x[:, h0:h0 + head_chunk] for x in xs), **kw)
+             for h0 in range(0, h, head_chunk)]
+    return tuple(torch.cat(p, dim=2 if p[0].dim() == 4 else 1)
+                 for p in zip(*parts)) if isinstance(parts[0], tuple) \
+        else torch.cat(parts, dim=2)
+
+
+def head_chunk_for(b: int, s: int, h: int) -> int:
+    """Heads a slice of the plain versions at this shape: their [b, heads,
+    s, s] fp32 scores under 2 GiB (0: all heads at once)."""
+    chunk = max(1, (2 << 30) // (b * s * s * 4))
+    return 0 if chunk >= h else chunk
+
+
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                   case: str = "", b: int = MAIN["b"], h: int = MAIN["h"],
                   d: int = MAIN["d"], dtype=torch.bfloat16,
@@ -781,16 +805,7 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
     case = case or f"s{s}" + (f"_w{window}" if window else "")
 
     def plain(fn, *xs):
-        """``fn`` on all heads, or ``head_chunk`` at a time: [b, s, h, d]
-        tensors cut and joined on dim 2, [b, h, s] ones on dim 1."""
-        if not head_chunk:
-            return fn(*xs, **kw)
-        parts = [fn(*(x[:, :, h0:h0 + head_chunk] if x.dim() == 4
-                      else x[:, h0:h0 + head_chunk] for x in xs), **kw)
-                 for h0 in range(0, h, head_chunk)]
-        return tuple(torch.cat(p, dim=2 if p[0].dim() == 4 else 1)
-                     for p in zip(*parts)) if isinstance(parts[0], tuple) \
-            else torch.cat(parts, dim=2)
+        return by_heads(fn, xs, kw, head_chunk)
 
     o_k, lse_k = fwd_k(q, k, v, **kw)
     o_r, lse_r = plain(flash.flash_forward_ref, q, k, v)
@@ -823,17 +838,20 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
             time_ms(lambda: fwd_k(q, k, v, **kw)),
             time_ms(lambda: dq_k_fn(q, k, v, do, lse_r, delta, **kw)),
             time_ms(lambda: dkv_k_fn(q, k, v, do, lse_r, delta, **kw))]))
+        # the plain versions by heads where their scores need it, timed
+        # over fewer calls there (seconds each)
+        its = dict(iters=1, warmup=1) if head_chunk else dict(iters=5)
         plain_ms = dict(zip(names, [
-            time_ms(lambda: flash.flash_forward_ref(q, k, v, **kw), iters=5),
-            time_ms(lambda: flash.flash_dq_ref(
-                q, k, v, do, lse_r, delta, **kw), iters=5),
-            time_ms(lambda: flash.flash_dkv_ref(
-                q, k, v, do, lse_r, delta, **kw), iters=5)]))
+            time_ms(lambda: plain(flash.flash_forward_ref, q, k, v), **its),
+            time_ms(lambda: plain(flash.flash_dq_ref, q, k, v, do, lse_r,
+                                  delta), **its),
+            time_ms(lambda: plain(flash.flash_dkv_ref, q, k, v, do, lse_r,
+                                  delta), **its)]))
         bwd_ms = time_ms(lambda: (
             dq_k_fn(q, k, v, do, lse_r, delta, **kw),
             dkv_k_fn(q, k, v, do, lse_r, delta, **kw)))
         peak = H100_TF32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-        lib = library_ms(q, k, v, do, causal) if not window else {}
+        lib = library_ms(q, k, v, do, causal, window)
         backward = {"kernels": names[1:], "ms": bwd_ms,
                     "library_ms": lib.get("flash_dq"),
                     "library_fn": lib.get("fn_flash_dq")}
@@ -860,23 +878,31 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
     return out
 
 
-def library_ms(q, k, v, do, causal: bool) -> dict:
+def library_ms(q, k, v, do, causal: bool, window: int = 0) -> dict:
     """One PyTorch call computing the same function, as a yardstick only:
     scaled_dot_product_attention and its autograd backward, which computes
-    dQ, dK and dV in one call."""
+    dQ, dK and dV in one call.  A sliding window goes in as a boolean
+    [s, s] mask (SDPA has no window of its own), which takes another of
+    its backends than ``is_causal``."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    kw = dict(is_causal=causal)
+    if window:
+        s = q.shape[1]
+        pos = torch.arange(s, device=q.device)
+        gap = pos[:, None] - pos[None, :]
+        kw = dict(attn_mask=(gap >= 0) & (gap < window))
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
     bwd = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
+    how = (f"is_causal={causal}" if not window else
+           f"attn_mask=the causal band of {window} keys")
     return {"flash_fwd": fwd, "flash_dq": bwd, "flash_dkv": bwd,
-            "fn_flash_fwd": "F.scaled_dot_product_attention("
-                            f"is_causal={causal})",
+            "fn_flash_fwd": f"F.scaled_dot_product_attention({how})",
             "fn_flash_dq": "its backward (dq, dk, dv in one call)",
             "fn_flash_dkv": "its backward (dq, dk, dv in one call)"}
 
@@ -1152,9 +1178,10 @@ def run_mellum_steps() -> dict:
     """Path ``mellum``: ``MELLUM_STEPS`` steps of Mellum2's block through
     ``gpt.run`` (``MELLUM_ARGV``), the launch counts set to 0 just before:
     the captured step, the ``_any`` flash kernels at head dim 128 (2
-    forwards with remat, a dQ and a dK/dV a layer) and the grouped GEMMs (2
-    forwards of each product with remat, a dX and a dW), no tuned flash
-    kernel, AdamW on the kernel.  Returns the launches by kernel."""
+    forwards with remat, a dQ and a dK/dV a layer), every one on their
+    bf16 head-dim-128 kernels (``flash.ROUTE_LAUNCHES``), and the grouped
+    GEMMs (2 forwards of each product with remat, a dX and a dW), no tuned
+    flash kernel, AdamW on the kernel.  Returns the launches by kernel."""
     from tpujob_torch.workloads import flash, gpt, moe_gemm, optim
 
     args = gpt.build_parser().parse_args(MELLUM_ARGV + [
@@ -1165,6 +1192,7 @@ def run_mellum_steps() -> dict:
     result = gpt.run(args)
     seconds = time.perf_counter() - t0
     launches = {**flash.LAUNCHES, **moe_gemm.LAUNCHES}
+    route = dict(flash.ROUTE_LAUNCHES["bf16_128"])
     n, layers = args.steps, args.layers
     want = launched({"flash_fwd_any": 2 * layers * n,
                      "flash_dq_any": layers * n, "flash_dkv_any": layers * n,
@@ -1172,18 +1200,21 @@ def run_mellum_steps() -> dict:
                      "moe_gemm_dx": 2 * layers * n,
                      "moe_gemm_dw": 2 * layers * n})
     ok = (result["step_mode"] == "graph" and launches == want
+          and route == {k: want[k] for k in ANY}
           and optim.UPDATES["torch"] == 0 and optim.UPDATES["kernel"] > 0
           and all(map(math.isfinite, result["losses"])))
     torch.cuda.empty_cache()
     emit({"phase": "mellum", "ok": ok, "argv": MELLUM_ARGV,
           "step_mode": result["step_mode"], "launches": launches,
-          "want": want, "adamw_tensors": dict(optim.UPDATES),
+          "want": want, "bf16_128_launches": route,
+          "adamw_tensors": dict(optim.UPDATES),
           "losses": result["losses"], "moe_metrics": result["moe_metrics"],
           "tokens_per_s": result["tokens_per_sec"], "seconds": seconds})
     if not ok:
         raise AssertionError(f"the Mellum2 steps missed their kernels: "
-                             f"{launches} against {want}, mode "
-                             f"{result['step_mode']}, AdamW {optim.UPDATES}")
+                             f"{launches} (bf16_128 {route}) against "
+                             f"{want}, mode {result['step_mode']}, AdamW "
+                             f"{optim.UPDATES}")
     return launches
 
 
@@ -1561,6 +1592,7 @@ def run_fp32() -> dict:
         d128 = gpt.run(gpt.build_parser().parse_args(
             FP32_D128_ARGV + ["--device", DEVICE, "--dir", logdir]))
         d128_launches = dict(flash.LAUNCHES)
+        d128_route = dict(flash.ROUTE_LAUNCHES["bf16_128"])
         d128_head_dim = d128["state"]["model"].layer_0.attn.d
         del d128["state"]
         gc.collect()
@@ -1595,6 +1627,8 @@ def run_fp32() -> dict:
             "flash_fwd_any": 4 * FP32_D128_STEPS,
             "flash_dq_any": 2 * FP32_D128_STEPS,
             "flash_dkv_any": 2 * FP32_D128_STEPS}),
+        # every one of them on the bf16 head-dim-128 kernels
+        "d128_route": d128_route == {k: d128_launches[k] for k in ANY},
         **{"d256_" + k: v for k, v in d256.pop("checks").items()},
     }
     ok = all(checks.values())
@@ -3501,7 +3535,7 @@ def main(argv=None) -> int:
         return 1
     try:
         from tpujob_torch.kernels import build
-        from tpujob_torch.workloads import optim
+        from tpujob_torch.workloads import flash, optim
     except ImportError as e:
         print(f"chip_smoke: the tpujob_torch package is not importable: {e}",
               file=sys.stderr)
@@ -3573,21 +3607,28 @@ def main(argv=None) -> int:
                       d=256, timed=False, **anyk)
         # Mellum2's attention as its cell runs it: batch 2, seq 8192, 32
         # query heads (the 4 K/V heads repeated up to them), head dim 128,
-        # its sliding layers' window and its full layers
+        # its sliding layers' window and its full layers (the bf16_128
+        # route's kernels), timed
         for w in (1024, 0):
-            check_kernels(case="mellum_s8192" + (f"_w{w}" if w else ""),
-                          dtype=bf16, b=2, s=8192, h=32, d=128,
-                          suffix="_any", window=w, timed=False, head_chunk=4)
+            case = "mellum_s8192" + (f"_w{w}" if w else "")
+            any_timed[case] = check_kernels(
+                case=case, dtype=bf16, b=2, s=8192, h=32, d=128,
+                suffix="_any", window=w, timed=True,
+                head_chunk=head_chunk_for(2, 8192, 32))
         adamw = run_adamw()
         moe_gemm_cases = run_moe_gemm()
         check_model()
         check_model_bert()
         updates = {}  # path -> parameter tensors each AdamW route updated
+        routes = {}  # path -> launches of the _any kernels' bf16_128 route
 
         def counted(path, run, *a):
             optim.UPDATES.update(kernel=0, torch=0)
+            for counts in flash.ROUTE_LAUNCHES.values():
+                counts.update(dict.fromkeys(counts, 0))
             out = run(*a)
             updates[path] = dict(optim.UPDATES)
+            routes[path] = dict(flash.ROUTE_LAUNCHES["bf16_128"])
             return out
 
         dp, dn = args.decode_prompt, args.decode_new
@@ -3632,7 +3673,10 @@ def main(argv=None) -> int:
                          "paths": [path for path, n in by_path.items()
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n
-                                              in by_path.items()}})
+                                              in by_path.items()},
+                         **({"bf16_128_launches_by_path": {
+                             path: n[name] for path, n in routes.items()}}
+                            if name in ANY else {})})
         rows += moe_gemm_rows(moe_gemm_cases, by_path)
         rows.append(adamw_row(adamw, updates))
         emit({"kernels": rows})

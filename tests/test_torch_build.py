@@ -17,7 +17,9 @@ dQ and dK/dV (``flash_dq_any.cu``, ``flash_dkv_any.cu`` on
 three passes, bf16 with P or dS as a high and a low part) and copy tiles by
 TMA or a producer warpgroup's plain copies.  fp32 at padded head dim 256
 (129-256) runs a wgmma kernel of its own in each (``*_kernel_f32_256``),
-chosen before the launch; no FFMA body is left.
+and so does bf16 at head dim 128 (``*_kernel_bf16``, in
+``flash_bf16_128.cuh``), each chosen before the launch; no FFMA body is
+left.
 """
 import ctypes
 import re
@@ -242,6 +244,56 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
     assert "atomicAdd" not in code + header
 
 
+# the second products of the bf16 head-dim-128 kernels (whitespace
+# squeezed): P or dS as a low then a high bf16 part, against an operand
+# read MN-major (transposed) from shared memory
+BF16_128_SECOND = {
+    "fwd": ("wgmma_m64n128_rs_t(o, lo[kk], desc_v + mn_step(kk))",
+            "wgmma_m64n128_rs_t(o, hi[kk], desc_v + mn_step(kk))"),
+    "dq": ("wgmma_m64n128_rs_t(dq, lo[kk], mn_k + mn_step(kk))",
+           "wgmma_m64n128_rs_t(dq, hi[kk], mn_k + mn_step(kk))"),
+    "dkv": ("wgmma_m64n128_rs_t(dv, plo[kk], mn_do + mn_step(kk))",
+            "wgmma_m64n128_rs_t(dv, phi[kk], mn_do + mn_step(kk))",
+            "wgmma_m64n128_rs_t(dk, dlo[kk], mn_q + mn_step(kk))",
+            "wgmma_m64n128_rs_t(dk, dhi[kk], mn_q + mn_step(kk))")}
+
+
+@pytest.mark.parametrize("stem", ANY_STEMS)
+def test_bf16_128_route_has_a_kernel_of_its_own(stem):
+    """bf16 at head dim 128 takes a kernel of its own in each _any source
+    (``flash_bf16_128.cuh``), chosen by the C entry point before the
+    launch on ``is_bf16`` and ``D == 128`` alone: S and dP as one bf16
+    wgmma pass, P and dS in two parts, tiles by TMA on mbarriers, the
+    warpgroups' registers set by setmaxnreg; no atomics and no mma.sync
+    pieces."""
+    kind = stem.split("_")[1]
+    code = squeeze(re.sub(r"//[^\n]*", "", (CSRC / f"{stem}.cu").read_text()))
+    text = (CSRC / "flash_bf16_128.cuh").read_text()
+    header = squeeze(re.sub(r"//[^\n]*", "", text))
+    kernel = f"flash_{kind}_any_kernel_bf16"
+    assert '#include "flash_bf16_128.cuh"' in code
+    assert (f"if (is_bf16 && D == 128) return launch_{kind}_bf16_128(a, B, "
+            "stream);" in code)
+    assert f"{kernel}<kD><<<grid, kBlockThreads, smem," in code
+    assert ("__global__ void __launch_bounds__(kBlockThreads, 1) "
+            f"{kernel}(const __grid_constant__ CUtensorMap tmQ," in header)
+    body = header.split(f"{kernel}(", 1)[1].split("__global__", 1)[0]
+    for piece in ("tma_rows<", "mbar_arrive_expect_tx(", "mbar_wait(",
+                  "mbar_arrive(", "setmaxnreg_dec<kProducerRegs>()",
+                  "setmaxnreg_inc<kConsumerRegs>()", "split_frag(",
+                  "wgmma_wait<0>()") + BF16_128_SECOND[kind]:
+        assert piece in body, f"{kernel} lacks {piece}"
+    first = "wgmma_m64n128_ss(sc," if kind == "fwd" else "wgmma_m64n64_ss("
+    assert first in body, f"{kernel}: S is not one bf16 pass"
+    # the wgmma of the second products: bf16, B transposed (the last
+    # immediate); a panel tile read MN-major takes its panels' stride as LBO
+    assert ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in header
+            and "%68, p, 1, 1, 1;" in header)
+    assert "((uint64_t)(R * kPanel / 16) << 16)" in header
+    assert "atomic" not in header
+    assert not mma_sync_pieces(text), mma_sync_pieces(text)
+
+
 def test_no_ffma_body_is_left():
     """The general kernels' FFMA body (fp32 arithmetic on the CUDA cores)
     and the pieces only it used are gone from every source and header."""
@@ -255,7 +307,7 @@ def test_no_ffma_body_is_left():
 
 @pytest.mark.parametrize("name", ["flash_common.cuh", "hopper.cuh",
                                   "flash_any.cuh", "flash_tc.cuh",
-                                  "flash_fwd_tc.cuh"])
+                                  "flash_fwd_tc.cuh", "flash_bf16_128.cuh"])
 def test_headers_hold_no_mma_sync_pieces(name):
     src = (CSRC / name).read_text()
     assert not mma_sync_pieces(src), f"{name} holds {mma_sync_pieces(src)}"

@@ -209,6 +209,38 @@ def test_check_supported_owns_the_kernel_limits(dtype, head_dim, supported,
             flash.check_supported(dtype, head_dim)
 
 
+@pytest.mark.parametrize("dtype,head_dim,takes", [
+    (torch.bfloat16, 128, True), (torch.float32, 128, False),
+    (torch.bfloat16, 80, False), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 256, False)])
+def test_bf16_128_route_is_bf16_at_head_dim_128(dtype, head_dim, takes):
+    """bf16 at head dim exactly 128 takes the _any kernels' own route, and
+    a launch there counts in ``ROUTE_LAUNCHES`` by the same predicate; fp32
+    at 128, bf16 at 80 or 256 (the general kernels) and at 64 (the tuned
+    ones) do not."""
+    flash.reset_launches()
+    assert flash.bf16_128(dtype, head_dim) == takes
+    assert not (takes and flash.tuned(dtype, head_dim))
+    flash._count_any("flash_dq_any", torch.zeros(1, 8, 2, head_dim,
+                                                 dtype=dtype))
+    assert flash.LAUNCHES["flash_dq_any"] == 1
+    assert flash.ROUTE_LAUNCHES["bf16_128"] == dict(
+        flash_fwd_any=0, flash_dq_any=int(takes), flash_dkv_any=0)
+    flash.reset_launches()
+
+
+def test_reset_launches_clears_the_route_counter():
+    """``reset_launches`` sets every kernel's launches and every route's to
+    0."""
+    flash.LAUNCHES["flash_fwd_any"] = 4
+    flash.ROUTE_LAUNCHES["bf16_128"]["flash_fwd_any"] = 4
+    flash.ROUTE_LAUNCHES["bf16_128"]["flash_dkv_any"] = 2
+    flash.reset_launches()
+    assert flash.LAUNCHES == dict.fromkeys(KERNELS, 0)
+    assert flash.ROUTE_LAUNCHES == {"bf16_128": dict.fromkeys(
+        ("flash_fwd_any", "flash_dq_any", "flash_dkv_any"), 0)}
+
+
 # the head dims the _any kernels add: the dryrun's width (16), two that
 # are not powers of two or not the tuned ones (80, 128) and the largest
 # (256); fp32 causal, and one non-causal

@@ -195,7 +195,12 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     # tile of dQ takes dP on the CUDA cores on the diagonal tile
     (torch.float32, 256, 1024, True, 256), (torch.float32, 200, 300, True, 0),
     (torch.float32, 129, 257, False, 0), (torch.float32, 202, 130, True, 0),
-    (torch.float32, 256, 64, True, 0)])
+    (torch.float32, 256, 64, True, 0),
+    # bf16 at head dim 128 (its own kernels): Mellum2's sliding window at
+    # two windows' length, full causal at a ragged length, non-causal, a
+    # window narrower than one tile
+    (torch.bfloat16, 128, 2048, True, 1024), (torch.bfloat16, 128, 1100, True, 0),
+    (torch.bfloat16, 128, 512, False, 0), (torch.bfloat16, 128, 300, True, 17)])
 def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                                           window):
     """The _any forward, dQ and dK/dV kernels against flash_forward_ref /
@@ -236,7 +241,7 @@ def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
 @pytest.mark.parametrize("dtype,d,seq", [
     (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
     (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
-    (torch.float32, 256, 1024)])
+    (torch.float32, 256, 1024), (torch.bfloat16, 128, 1100)])
 def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
     """Two launches of the _any dQ and dK/dV kernels on the same inputs
     give the same bits (no atomics: the captured step's bit-equality with
@@ -258,7 +263,7 @@ def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
 @pytest.mark.parametrize("dtype,d,seq", [
     (torch.float32, 64, 1024), (torch.bfloat16, 128, 300),
     (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
-    (torch.float32, 256, 1024)])
+    (torch.float32, 256, 1024), (torch.bfloat16, 128, 1100)])
 def test_any_forward_launches_give_equal_bits(cuda, dtype, d, seq):
     """Two launches of the _any forward on the same inputs give the same o
     and lse bits (each consumer owns its rows of O: no atomics), by TMA

@@ -46,6 +46,7 @@
 // layout (flash_tc.cuh, trouble 4): the C entry point sends that bucket to
 // flash_dkv_any_kernel_f32_256, the same products on 16 fixed keys with
 // the Q and dO tiles released one at a time.
+#include "flash_bf16_128.cuh"
 #include "flash_tc.cuh"
 
 namespace tpujob_flash_any {
@@ -423,6 +424,39 @@ static int launch_dkv_f32_256(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 at head dim 128: the route's own kernel (flash_bf16_128.cuh), by
+// TMA alone (16-byte aligned bases; the wrapper checks them)
+static int launch_dkv_bf16_128(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_bf16;
+  constexpr int smem = (int)sizeof(DkvSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumerThreads <=
+                    65536 / kBlockThreads / 8 * 8 * kBlockThreads,
+                "setmaxnreg budgets over the block's registers");
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  if (!tpujob_flash_tc::tma_takes<bf16>(kD, ptrs, 4))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = tpujob_flash_tc::encode_panels<bf16>(&mq, a.q, B, a.Sq, a.H, kD,
+                                                 kDkvQT)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mk, a.k, B, a.Sk, a.H, kD,
+                                                 kDkvBN)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mv, a.v, B, a.Sk, a.H, kD,
+                                                 kDkvBN)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mdo, a.dout, B, a.Sq, a.H,
+                                                 kD, kDkvQT)))
+    return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_any_kernel_bf16<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * a.H, (a.Sk + kDkvBN - 1) / kDkvBN);
+  flash_dkv_any_kernel_bf16<kD><<<grid, kBlockThreads, smem,
+                                  (cudaStream_t)stream>>>(mq, mk, mv, mdo, a);
+  return (int)cudaGetLastError();
+}
+
 // The padded head dim's instantiation, chosen before the launch: fp32 at
 // 256 takes its own tensor-core kernel (its tiles), every other bucket the
 // template.
@@ -451,6 +485,8 @@ extern "C" int tpujob_flash_dkv_any(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv,
             nullptr, H, D, Sq, Sk, scale, causal, window};
+  // bf16 at head dim 128 takes its own kernel (flash.bf16_128)
+  if (is_bf16 && D == 128) return launch_dkv_bf16_128(a, B, stream);
   return is_bf16 ? dispatch_dkv_any<bf16>(a, B, stream)
                  : dispatch_dkv_any<float>(a, B, stream);
 }

@@ -43,6 +43,7 @@
 // the d=256 GPT's attention in fp32 (b=8, s=1024, h=8, causal): 5 x 67.1
 // MB + 0.5 MB = 336 MB, 100 us; 51.6 GFLOP, 104 us in one tf32 pass: bound
 // by operations; the split's reach 313 us (fp32 FFMA's 67 TFLOP/s: 771 us).
+#include "flash_bf16_128.cuh"
 #include "flash_tc.cuh"
 
 namespace tpujob_flash_any {
@@ -456,6 +457,39 @@ static int launch_dq_f32_256(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 at head dim 128: the route's own kernel (flash_bf16_128.cuh), by
+// TMA alone (16-byte aligned bases; the wrapper checks them)
+static int launch_dq_bf16_128(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_bf16;
+  constexpr int smem = (int)sizeof(DqSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumerThreads <=
+                    65536 / kBlockThreads / 8 * 8 * kBlockThreads,
+                "setmaxnreg budgets over the block's registers");
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  if (!tpujob_flash_tc::tma_takes<bf16>(kD, ptrs, 4))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc;
+  if ((rc = tpujob_flash_tc::encode_panels<bf16>(&mq, a.q, B, a.Sq, a.H, kD,
+                                                 kDqBM)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mk, a.k, B, a.Sk, a.H, kD,
+                                                 kDqKT)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mv, a.v, B, a.Sk, a.H, kD,
+                                                 kDqKT)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mdo, a.dout, B, a.Sq, a.H,
+                                                 kD, kDqBM)))
+    return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_any_kernel_bf16<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * a.H, (a.Sq + kDqBM - 1) / kDqBM);
+  flash_dq_any_kernel_bf16<kD><<<grid, kBlockThreads, smem,
+                                  (cudaStream_t)stream>>>(mq, mk, mv, mdo, a);
+  return (int)cudaGetLastError();
+}
+
 // The padded head dim's instantiation, chosen before the launch: fp32 at
 // 256 takes its own tensor-core kernel (its tiles), every other bucket the
 // template.
@@ -484,6 +518,8 @@ extern "C" int tpujob_flash_dq_any(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, dout, (const float*)lse, (const float*)delta, dq,
             nullptr, nullptr, H, D, Sq, Sk, scale, causal, window};
+  // bf16 at head dim 128 takes its own kernel (flash.bf16_128)
+  if (is_bf16 && D == 128) return launch_dq_bf16_128(a, B, stream);
   return is_bf16 ? dispatch_dq_any<bf16>(a, B, stream)
                  : dispatch_dq_any<float>(a, B, stream);
 }

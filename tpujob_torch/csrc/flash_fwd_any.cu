@@ -44,6 +44,7 @@
 // to flash_fwd_any_kernel_f32_256, the same products with Q split in
 // registers and K and V^T released one at a time (32-key tiles), two
 // consumers splitting S's k-steps and O's columns.
+#include "flash_bf16_128.cuh"
 #include "flash_fwd_tc.cuh"
 
 namespace tpujob_flash_any {
@@ -451,6 +452,37 @@ static int launch_fwd_f32_256(const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 at head dim 128: the route's own kernel (flash_bf16_128.cuh), by
+// TMA alone (16-byte aligned bases; the wrapper checks them)
+static int launch_fwd_bf16_128(const Args& a, int B, void* stream) {
+  using namespace tpujob_flash_bf16;
+  constexpr int smem = (int)sizeof(FwdSmem) + kAlignBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumerThreads <=
+                    65536 / kBlockThreads / 8 * 8 * kBlockThreads,
+                "setmaxnreg budgets over the block's registers");
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  if (!tpujob_flash_tc::tma_takes<bf16>(kD, ptrs, 3))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap mq, mk, mv;
+  int rc;
+  if ((rc = tpujob_flash_tc::encode_panels<bf16>(&mq, a.q, B, a.Sq, a.H, kD,
+                                                 kFwdBM)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mk, a.k, B, a.Sk, a.H, kD,
+                                                 kFwdKT)) ||
+      (rc = tpujob_flash_tc::encode_panels<bf16>(&mv, a.v, B, a.Sk, a.H, kD,
+                                                 kFwdKT)))
+    return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_any_kernel_bf16<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * a.H, (a.Sq + kFwdBM - 1) / kFwdBM);
+  flash_fwd_any_kernel_bf16<kD><<<grid, kBlockThreads, smem,
+                                  (cudaStream_t)stream>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
 // The padded head dim's instantiation, chosen before the launch: fp32 at
 // 256 takes its own tensor-core kernel (its tiles), every other bucket the
 // template.
@@ -478,6 +510,8 @@ extern "C" int tpujob_flash_fwd_any(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
             H, D, Sq, Sk, scale, causal, window};
+  // bf16 at head dim 128 takes its own kernel (flash.bf16_128)
+  if (is_bf16 && D == 128) return launch_fwd_bf16_128(a, B, stream);
   return is_bf16 ? dispatch_fwd_any<bf16>(a, B, stream)
                  : dispatch_fwd_any<float>(a, B, stream);
 }

@@ -17,9 +17,12 @@ each ``--case dtype:b,s,h,d`` (default: the GPT-2-medium shape in bf16,
 element by element against the plain version with ``chip_smoke.py``'s
 tolerance (``ANY_TOL`` for the general kernels) and timed in turns: every
 version in order, then in reverse, twice (four readings of 50 launches
-each, CUDA events).  Prints one JSON line per case and version (its
-readings, their median, the worst ratio to the tolerance) and the card's
-name and power limit.  ``--sdpa`` adds, for each case, one line with
+each, CUDA events).  ``--window w`` (repeatable) runs each case causal
+under a sliding window of w keys as well (0: none).  The plain versions
+run a few heads at a time where a case's scores would not fit the card
+(``chip_smoke.head_chunk_for``).  Prints one JSON line per case and
+version (its readings, their median, the worst ratio to the tolerance)
+and the card's name and power limit.  ``--sdpa`` adds, for each case, one line with
 PyTorch's ``scaled_dot_product_attention`` forward and backward times on
 the same inputs and the backend that served them (a yardstick only: no
 kernel of the port calls it).  Compare versions only within one run: two
@@ -61,7 +64,8 @@ def parse_case(text: str) -> tuple:
     return getattr(torch, dtype), (b, s, h, d)
 
 
-def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool):
+def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool,
+              window: int):
     """A no-argument launch of the version's kernel on `args`, and the
     outputs it writes."""
     fn = getattr(lib, f"tpujob_{stem}")
@@ -72,7 +76,8 @@ def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool):
     stream = torch.cuda.current_stream().cuda_stream
     dtype_arg = ((int(q.dtype == torch.bfloat16),) if stem.endswith("_any")
                  else ())
-    tail = (b, h, d, s, s, d ** -0.5, int(causal), 0, *dtype_arg, stream)
+    tail = (b, h, d, s, s, d ** -0.5, int(causal), window, *dtype_arg,
+            stream)
     if stem.startswith("flash_fwd"):
         outs = (torch.empty_like(q), torch.empty_like(lse))
         ptrs = (q, k, v, *outs)
@@ -89,7 +94,7 @@ def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool):
 
 
 def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
-             causal: bool) -> bool:
+             causal: bool, window: int = 0) -> bool:
     """Check and time every version on one case; True if all agree."""
     b, s, h, d = shape
     general = stem.endswith("_any")
@@ -98,15 +103,20 @@ def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
                                dtype=dtype) for _ in range(4))
-    kw = dict(causal=causal, scale=d ** -0.5)
-    o, lse = flash.flash_forward_ref(q, k, v, **kw)
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    chunk = cs.head_chunk_for(b, s, h)
+    o, lse = cs.by_heads(flash.flash_forward_ref, (q, k, v), kw, chunk)
     delta = flash.attention_delta(o, do)
     args = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     base = stem.replace("_any", "")
-    refs = {"flash_fwd": (o, lse),
-            "flash_dq": (flash.flash_dq_ref(q, k, v, do, lse, delta, **kw),),
-            "flash_dkv": flash.flash_dkv_ref(q, k, v, do, lse, delta, **kw)}
-    runs = {n: _launcher(lib, stem, args, shape, causal)
+    xs = (q, k, v, do, lse, delta)
+    ref_of = {"flash_fwd": lambda: (o, lse),
+              "flash_dq": lambda: (cs.by_heads(flash.flash_dq_ref, xs, kw,
+                                               chunk),),
+              "flash_dkv": lambda: cs.by_heads(flash.flash_dkv_ref, xs, kw,
+                                               chunk)}
+    refs = {base: ref_of[base]()}
+    runs = {n: _launcher(lib, stem, args, shape, causal, window)
             for n, lib in libs.items()}
     worst = {}
     for n, (launch, outs) in runs.items():
@@ -123,7 +133,8 @@ def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
     for n in runs:
         cs.emit({"version": n, "source": versions[n], "kernel": stem,
                  "dtype": str(dtype).replace("torch.", ""),
-                 "shape": list(shape), "causal": causal, "ms": ms[n],
+                 "shape": list(shape), "causal": causal, "window": window,
+                 "ms": ms[n],
                  "median_ms": statistics.median(ms[n]),
                  "worst_ratio_to_tolerance": worst[n]})
     return all(r <= 1 for r in worst.values())
@@ -140,17 +151,20 @@ def sdpa_backend(q, causal: bool) -> str:
                  if int(getattr(SDPBackend, n)) == code), str(code))
 
 
-def run_sdpa(cs, dtype, shape: tuple, causal: bool) -> None:
+def run_sdpa(cs, dtype, shape: tuple, causal: bool, window: int = 0) -> None:
     """SDPA's forward and backward (dQ, dK, dV in one call) on one case,
-    with the same seed as ``run_case``."""
+    with the same seed as ``run_case`` (a window as a boolean mask, as
+    ``chip_smoke.library_ms`` gives it)."""
     b, s, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen,
                                dtype=dtype) for _ in range(4))
-    lib = cs.library_ms(q, k, v, do, causal)
+    lib = cs.library_ms(q, k, v, do, causal, window)
     cs.emit({"version": "sdpa", "dtype": str(dtype).replace("torch.", ""),
-             "shape": list(shape), "causal": causal,
-             "backend": sdpa_backend(q.transpose(1, 2), causal),
+             "shape": list(shape), "causal": causal, "window": window,
+             "fn": lib["fn_flash_fwd"],
+             "backend": (sdpa_backend(q.transpose(1, 2), causal)
+                         if not window else None),
              "forward_ms": lib["flash_fwd"], "backward_ms": lib["flash_dq"]})
 
 
@@ -162,6 +176,9 @@ def main(argv) -> int:
                    help="dtype:b,s,h,d (repeatable; default "
                         f"{GPT_CASE})")
     p.add_argument("--noncausal", action="store_true")
+    p.add_argument("--window", action="append", type=int,
+                   help="causal sliding window in keys, per case "
+                        "(repeatable; default 0: none)")
     p.add_argument("--sdpa", action="store_true",
                    help="also time SDPA's forward and backward per case")
     p.add_argument("versions", nargs="+", help="name=path of each version")
@@ -178,11 +195,13 @@ def main(argv) -> int:
     libs = {n: _build(f"{stem}_{n}", Path(path), out)
             for n, path in versions.items()}
     ok = all([run_case(cs, stem, libs, versions, dtype, shape,
-                       not args.noncausal)
-              for dtype, shape in args.case or [parse_case(GPT_CASE)]])
+                       not args.noncausal or bool(w), w)
+              for dtype, shape in args.case or [parse_case(GPT_CASE)]
+              for w in args.window or [0]])
     if args.sdpa:
         for dtype, shape in args.case or [parse_case(GPT_CASE)]:
-            run_sdpa(cs, dtype, shape, not args.noncausal)
+            for w in args.window or [0]:
+                run_sdpa(cs, dtype, shape, not args.noncausal or bool(w), w)
     print(cs.smi_line(), flush=True)
     return 0 if ok else 1
 

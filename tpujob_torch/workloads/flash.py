@@ -19,9 +19,12 @@ dim 64 or 32 (``KERNEL_HEAD_DIMS``).  The ``_any`` three take fp32 or
 bf16 at any head dim from 1 to ``MAX_HEAD_DIM`` (256), on the tensor
 cores (wgmma; fp32 inputs as three tf32 passes, bf16 with P and dS in two
 bf16 parts); fp32 at head dims over 128 takes a wgmma kernel of its own
-in each.  ``flash_forward`` and ``flash_backward`` choose by dtype and
-head dim before the launch (``tuned``): bf16 at 64 or 32 takes the tuned
-kernels, anything else the ``_any`` ones.  No wrapper gives way to another kernel, or to the plain
+in each, and bf16 at head dim exactly 128 one of its own in each
+(``csrc/flash_bf16_128.cuh``, chosen by each ``_any`` C entry point;
+``bf16_128`` is the predicate, ``ROUTE_LAUNCHES`` counts its launches).
+``flash_forward`` and ``flash_backward`` choose by dtype and head dim
+before the launch (``tuned``): bf16 at 64 or 32 takes the tuned kernels,
+anything else the ``_any`` ones.  No wrapper gives way to another kernel, or to the plain
 version, when a build or a launch fails: it raises.
 
 Beside the kernels sits their plain PyTorch version with the same math
@@ -53,6 +56,10 @@ NEG_INF = -1e30  # finite, as in the reference kernels
 # kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_any": 0, "flash_dq_any": 0, "flash_dkv_any": 0}
+# of those, the _any launches that took the kernels of their bf16 head-dim
+# 128 route (bf16_128), by kernel
+ROUTE_LAUNCHES = {"bf16_128": {"flash_fwd_any": 0, "flash_dq_any": 0,
+                               "flash_dkv_any": 0}}
 
 # the head dims the tuned bf16 kernels are instantiated for (each source's
 # template on D, launched by its C entry point's switch)
@@ -79,9 +86,17 @@ def tuned(dtype: torch.dtype, head_dim: int) -> bool:
     return dtype == torch.bfloat16 and head_dim in KERNEL_HEAD_DIMS
 
 
+def bf16_128(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether an ``_any`` kernel's C entry point sends this input to its
+    own bf16 head-dim-128 kernel (``csrc/flash_bf16_128.cuh``): bf16 at head
+    dim exactly 128, as the entry points' ``is_bf16 && D == 128``.  The
+    wrappers count ``ROUTE_LAUNCHES`` and check TMA's alignment by it."""
+    return dtype == torch.bfloat16 and head_dim == 128
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, *ROUTE_LAUNCHES.values()):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -174,17 +189,19 @@ def flash_backward_ref(q, k, v, o, lse, do, *, causal: bool, scale: float,
 
 def _check_kernel_args(name: str, *tensors, any_kernel: bool = False) -> None:
     """Raise unless ``name``'s kernel takes these tensors: on the card,
-    contiguous (16-byte aligned for the tuned kernels' TMA), q/k/v/dO of
-    one dtype the kernel takes at this head dim, lse and delta fp32."""
+    contiguous (16-byte aligned for the TMA of the tuned kernels and of the
+    ``bf16_128`` route), q/k/v/dO of one dtype the kernel takes at this head
+    dim, lse and delta fp32."""
+    q = tensors[0]
+    aligned = not any_kernel or bf16_128(q.dtype, q.shape[-1])
     for x in tensors:
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                              f"{x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if not any_kernel and x.data_ptr() % 16:
+        if aligned and x.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    q = tensors[0]
     check_supported(q.dtype, q.shape[-1])
     if not any_kernel and not tuned(q.dtype, q.shape[-1]):
         raise NotImplementedError(
@@ -200,6 +217,13 @@ def _check_kernel_args(name: str, *tensors, any_kernel: bool = False) -> None:
 
 def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _count_any(name: str, q) -> None:
+    """One launch of the ``_any`` kernel ``name`` on inputs like ``q``."""
+    LAUNCHES[name] += 1
+    if bf16_128(q.dtype, q.shape[-1]):
+        ROUTE_LAUNCHES["bf16_128"][name] += 1
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
@@ -282,7 +306,7 @@ def flash_fwd_any_cuda(q, k, v, *, causal: bool, scale: float,
             lse.data_ptr(), b, h, d, sq, sk, float(scale), int(causal),
             int(window), int(q.dtype == torch.bfloat16), _stream(q))
     build.check(rc, "flash_fwd_any")
-    LAUNCHES["flash_fwd_any"] += 1
+    _count_any("flash_fwd_any", q)
     return o, lse
 
 
@@ -304,7 +328,7 @@ def flash_dq_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
             float(scale), int(causal), int(window),
             int(q.dtype == torch.bfloat16), _stream(q))
     build.check(rc, "flash_dq_any")
-    LAUNCHES["flash_dq_any"] += 1
+    _count_any("flash_dq_any", q)
     return dq
 
 
@@ -328,7 +352,7 @@ def flash_dkv_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
             b, h, d, sq, sk, float(scale), int(causal), int(window),
             int(q.dtype == torch.bfloat16), _stream(q))
     build.check(rc, "flash_dkv_any")
-    LAUNCHES["flash_dkv_any"] += 1
+    _count_any("flash_dkv_any", q)
     return dk, dv
 
 

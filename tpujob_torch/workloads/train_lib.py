@@ -694,9 +694,11 @@ def check_baked_lr(optimizer: torch.optim.Optimizer, values) -> None:
             f"{sorted(set(values))}")
 
 
-# what the card ran, counted on the host: flash kernel launches, parameter
-# tensors updated by each AdamW route and the grouped-GEMM launches
-_COUNTS = (flash.LAUNCHES, optim.UPDATES, moe_gemm.LAUNCHES)
+# what the card ran, counted on the host: flash kernel launches (and those
+# of the bf16_128 route), parameter tensors updated by each AdamW route and
+# the grouped-GEMM launches
+_COUNTS = (flash.LAUNCHES, flash.ROUTE_LAUNCHES["bf16_128"], optim.UPDATES,
+           moe_gemm.LAUNCHES)
 
 
 class _Graphs:
@@ -717,8 +719,8 @@ class _Graphs:
     Inputs are static buffers: each call copies its batch into them.  A
     replay overwrites its outputs, so each call returns a copy.  An lr
     that is a float is baked into a graph: a schedule that moves it
-    raises.  ``flash.LAUNCHES``, ``optim.UPDATES`` and
-    ``moe_gemm.LAUNCHES`` keep counting what the card ran: what a capture
+    raises.  ``flash.LAUNCHES`` and ``ROUTE_LAUNCHES``, ``optim.UPDATES``
+    and ``moe_gemm.LAUNCHES`` keep counting what the card ran: what a capture
     records is taken back out (the card ran none of it) and added again at
     each replay."""
 
