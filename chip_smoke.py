@@ -35,7 +35,8 @@ Phases, one JSON line each on stdout:
    to back, timed together, beside SDPA's backward (one call for dQ, dK
    and dV).  Then the general kernels B1a-B3a (``flash_*_any``, fp32 or
    bf16 at any head dim; wgmma with split precision; fp32 at padded head
-   dim 256 on a wgmma kernel of its own in each):
+   dim 256 on a wgmma kernel of its own in each; bf16 at head dim 128
+   on the ``bf16_128`` route's kernels, ``flash_*_bf16_128``):
    fp32 at GPT's shape (``any_gpt_f32``, timed), fp32 at the dryrun's
    head dim 16 without the mask, bf16 at head dim 128 (timed; and with a
    256 window) and 80 (timed), fp32 at head dim 256 (``any_d256_f32``,
@@ -98,8 +99,8 @@ Phases, one JSON line each on stdout:
    and falling; its step-1 loss within FP32_LOSS_RTOL of one step of the
    same seed at ``--attention dense`` in fp32; tokens/s and ms a step over
    the last 6 steps, peak memory.  Then a 2-layer GPT at hidden 1024 and 8
-   heads (head dim 128, bf16, flash), 4 steps through the ``_any``
-   kernels (16 / 8 / 8 launches, all on their bf16 head-dim-128 kernels),
+   heads (head dim 128, bf16, flash), 4 steps through the bf16_128
+   route's kernels (16 / 8 / 8 launches, none of the ``_any`` ones),
    losses falling; and a 2-layer GPT at
    hidden 2048, 8 heads of 256, intermediate 8192 in fp32 (flash, batch
    8, seq 1024, captured; Gemma-2B's head width as multi-head attention)
@@ -148,7 +149,7 @@ Phases, one JSON line each on stdout:
    alone, device ms forward and forward + backward.
    ``mellum``: Mellum2-12B-A2.5B's block (one period at published widths,
    batch 2 x seq 8192) through ``gpt.run`` for 6 captured steps, the
-   launches set to 0 just before: the ``_any`` flash kernels and the
+   launches set to 0 just before: the bf16_128 flash kernels and the
    grouped GEMMs exactly as often as its layers and remat say, no tuned
    flash kernel, AdamW on the kernel (``run_mellum_steps``).
 12. ``mnist``: ``mnist.run`` with its default flags (synthetic, 60,000 /
@@ -275,9 +276,10 @@ Phases, one JSON line each on stdout:
     ``platform`` gpu, 8 ranks a card over gloo, and the 8 ranks' first
     loss within SCALING_LOSS_RTOL of one process's.
 
-Then the ``kernels`` summary line, ten kernels (each flash kernel's
-``main_path``: ``train`` for the tuned three, ``fp32`` for the ``_any``
-three, whose run gives ``launches``; its ``paths``: the phases that
+Then the ``kernels`` summary line, thirteen kernels (each flash kernel's
+``main_path``: ``train`` for the tuned three, ``mellum`` for the
+bf16_128 three, ``fp32`` for the ``_any`` three, whose run gives
+``launches``; its ``paths``: the phases that
 launched it; its ``cases``: every timed shape's numbers, the head-dim-32
 and Ulysses-local ones included; then the three grouped GEMMs',
 ``moe_gemm_rows``: ``run_moe_gemm``'s times, ``torch._grouped_mm`` as
@@ -309,8 +311,6 @@ from pathlib import Path
 
 import torch
 
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
-H100_BYTES_S = 3.35e12    # HBM3 bandwidth, H100 SXM
 
 DEVICE = "cuda"
 # AdamW's kernel against torch's foreach route after run_adamw's updates:
@@ -616,11 +616,10 @@ H100_FP32_FLOPS = 66.9e12   # fp32 FFMA peak (the CUDA cores): a yardstick
                             # beside the tensor cores' bound, no kernel's
 # B1a-B3a's split precision: tensor-core passes over the one-pass FLOPs
 # (fp32: 3xTF32; bf16: S and dP once, the products with P and dS twice)
-SPLIT_PASSES = {torch.float32: {"flash_fwd_any": 3, "flash_dq_any": 3,
-                                "flash_dkv_any": 3},
-                torch.bfloat16: {"flash_fwd_any": 3 / 2,
-                                 "flash_dq_any": 8 / 6,
-                                 "flash_dkv_any": 12 / 8}}
+SPLIT_PASSES = {torch.float32: {"flash_fwd": 3, "flash_dq": 3,
+                                "flash_dkv": 3},
+                torch.bfloat16: {"flash_fwd": 3 / 2, "flash_dq": 8 / 6,
+                                 "flash_dkv": 12 / 8}}
 
 
 def emit(obj) -> None:
@@ -628,19 +627,36 @@ def emit(obj) -> None:
 
 
 TUNED = ("flash_fwd", "flash_dq", "flash_dkv")
+B128 = ("flash_fwd_bf16_128", "flash_dq_bf16_128", "flash_dkv_bf16_128")
 ANY = ("flash_fwd_any", "flash_dq_any", "flash_dkv_any")
+MOE_GEMM = ("moe_gemm_fwd", "moe_gemm_dx", "moe_gemm_dw")
+# the kernels whose launches each path counts (``build.LAUNCHES``)
+COUNTED = TUNED + B128 + ANY + MOE_GEMM
+
+
+def reset_launches() -> None:
+    from tpujob_torch.kernels import build
+
+    build.reset_launches()
+
+
+def kernel_launches() -> dict:
+    """Each of ``COUNTED``'s launches since the last ``reset_launches()``."""
+    from tpujob_torch.kernels import build
+
+    return {k: build.LAUNCHES[k] for k in COUNTED}
 
 
 def launched(want: dict) -> dict:
     """Every kernel's launches: ``want``'s, 0 for the others."""
-    return {**dict.fromkeys(TUNED + ANY, 0), **want}
+    return {**dict.fromkeys(COUNTED, 0), **want}
 
 
 def on_tuned(launches: dict) -> bool:
     """A bf16 path at head dim 64 or 32: each tuned kernel launched, no
-    _any one."""
+    other flash kernel."""
     return (all(launches.get(k, 0) > 0 for k in TUNED)
-            and not any(launches.get(k, 0) for k in ANY))
+            and not any(launches.get(k, 0) for k in B128 + ANY))
 
 
 def smi_line() -> str:
@@ -678,24 +694,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
-
-
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the attention must compute for one head."""
-    if not causal:
-        return sq * sk
-    total = 0
-    for q in range(sq):
-        lo = max(0, q - window + 1) if window else 0
-        hi = min(q, sk - 1)
-        total += max(0, hi - lo + 1)
-    return total
-
-
-def bound(nbytes: int, flops: int, peak: float = H100_BF16_FLOPS):
-    t_mem = nbytes / H100_BYTES_S
-    t_ops = flops / peak
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
 def compare(got, ref, tol=(RTOL, ATOL, FLOOR)) -> dict:
@@ -778,22 +776,26 @@ def head_chunk_for(b: int, s: int, h: int) -> int:
 def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                   case: str = "", b: int = MAIN["b"], h: int = MAIN["h"],
                   d: int = MAIN["d"], dtype=torch.bfloat16,
-                  suffix: str = "", head_chunk: int = 0) -> dict:
-    """B1-B3 (``suffix`` "") or B1a-B3a (``suffix`` "_any", with
-    ``ANY_TOL``, the FFMA-peak bound and the split's reach beside) against
-    their plain versions on one shape; timed, each kernel's ms beside its plain
+                  head_chunk: int = 0) -> dict:
+    """The flash kernels of the shape's route (``flash.route``): B1-B3, or
+    the bf16_128 or ``_any`` ones with ``ANY_TOL``, the FFMA-peak bound
+    and the split's reach beside, against their plain versions on one
+    shape; timed, each kernel's ms beside its plain
     version's, SDPA's in the same dtype and its bound: bytes over the
     card's rate or FLOPs over the bf16 peak, or the TF32 peak for fp32 (a
     redesign's reach).  ``head_chunk`` runs the plain versions on that
     many heads at a time (each head's attention is its own), so that their
     [b, h, s, s] scores fit on the card at a long ``s``; untimed only."""
+    from portbench.roofline import H100_BF16_FLOPS, bound, visible_pairs
     from tpujob_torch.workloads import flash
 
-    fwd_k, dq_k_fn, dkv_k_fn = (getattr(flash, f"flash_{k}{suffix}_cuda")
-                                for k in ("fwd", "dq", "dkv"))
-    names = [n + suffix for n in TUNED]
-    tol = ANY_TOL[dtype] if suffix else (RTOL, ATOL, FLOOR)
-    lse_tol = ANY_LSE_TOL if suffix else LSE_TOL
+    fwd_k, dq_k_fn, dkv_k_fn = flash.launch_fwd, flash.launch_dq, \
+        flash.launch_dkv
+    route = flash.route(dtype, d)
+    names = [flash.kernel_name(k, route) for k in flash.KINDS]
+    tuned = route == "tuned"
+    tol = (RTOL, ATOL, FLOOR) if tuned else ANY_TOL[dtype]
+    lse_tol = LSE_TOL if tuned else ANY_LSE_TOL
     gen = torch.Generator(device=DEVICE).manual_seed(1234 + s + window)
 
     def rnd():
@@ -864,11 +866,10 @@ def check_kernels(*, s: int, window: int, timed: bool, causal: bool = True,
                              bound_share=bms / ms[name],
                              library_ms=lib.get(base),
                              library_fn=lib.get("fn_" + base))
-            if suffix:
+            if not tuned:
                 out[name]["ffma_bound_ms"] = flops / H100_FP32_FLOPS * 1e3
-            if name in SPLIT_PASSES[dtype]:
                 out[name]["split_reach_ms"] = bound(
-                    nbytes, flops * SPLIT_PASSES[dtype][name], peak)[0]
+                    nbytes, flops * SPLIT_PASSES[dtype][base], peak)[0]
     emit({"phase": "kernel", "case": case, "shape": [b, s, h, d],
           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
           "window": window, "tol": list(tol), "ok": ok, "kernels": out,
@@ -980,6 +981,7 @@ def run_adamw() -> dict:
     op that launched them, and its peak memory above the state's."""
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.roofline import bound
     from tpujob_torch.workloads import bert as tbert
     from tpujob_torch.workloads import gpt as tgpt
     from tpujob_torch.workloads import optim, train_lib
@@ -1094,6 +1096,7 @@ def run_moe_gemm() -> dict:
     where this torch has it (a yardstick only: the port never calls it);
     each kernel's normwise error against fp32 products of the same bf16
     inputs."""
+    from portbench.roofline import bound
     from tpujob_torch.workloads import moe_gemm
 
     dev = torch.device(DEVICE)
@@ -1177,43 +1180,39 @@ def run_moe_gemm() -> dict:
 def run_mellum_steps() -> dict:
     """Path ``mellum``: ``MELLUM_STEPS`` steps of Mellum2's block through
     ``gpt.run`` (``MELLUM_ARGV``), the launch counts set to 0 just before:
-    the captured step, the ``_any`` flash kernels at head dim 128 (2
-    forwards with remat, a dQ and a dK/dV a layer), every one on their
-    bf16 head-dim-128 kernels (``flash.ROUTE_LAUNCHES``), and the grouped
-    GEMMs (2 forwards of each product with remat, a dX and a dW), no tuned
+    the captured step, the bf16_128 route's flash kernels at head dim 128
+    (2 forwards with remat, a dQ and a dK/dV a layer) and the grouped
+    GEMMs (2 forwards of each product with remat, a dX and a dW), no other
     flash kernel, AdamW on the kernel.  Returns the launches by kernel."""
-    from tpujob_torch.workloads import flash, gpt, moe_gemm, optim
+    from tpujob_torch.workloads import gpt, optim
 
     args = gpt.build_parser().parse_args(MELLUM_ARGV + [
         "--dir", tempfile.mkdtemp(prefix="mellum_"), "--device", DEVICE])
-    flash.reset_launches()
-    moe_gemm.LAUNCHES.update(dict.fromkeys(moe_gemm.LAUNCHES, 0))
+    reset_launches()
     t0 = time.perf_counter()
     result = gpt.run(args)
     seconds = time.perf_counter() - t0
-    launches = {**flash.LAUNCHES, **moe_gemm.LAUNCHES}
-    route = dict(flash.ROUTE_LAUNCHES["bf16_128"])
+    launches = kernel_launches()
     n, layers = args.steps, args.layers
-    want = launched({"flash_fwd_any": 2 * layers * n,
-                     "flash_dq_any": layers * n, "flash_dkv_any": layers * n,
+    want = launched({"flash_fwd_bf16_128": 2 * layers * n,
+                     "flash_dq_bf16_128": layers * n,
+                     "flash_dkv_bf16_128": layers * n,
                      "moe_gemm_fwd": 4 * layers * n,
                      "moe_gemm_dx": 2 * layers * n,
                      "moe_gemm_dw": 2 * layers * n})
     ok = (result["step_mode"] == "graph" and launches == want
-          and route == {k: want[k] for k in ANY}
           and optim.UPDATES["torch"] == 0 and optim.UPDATES["kernel"] > 0
           and all(map(math.isfinite, result["losses"])))
     torch.cuda.empty_cache()
     emit({"phase": "mellum", "ok": ok, "argv": MELLUM_ARGV,
           "step_mode": result["step_mode"], "launches": launches,
-          "want": want, "bf16_128_launches": route,
-          "adamw_tensors": dict(optim.UPDATES),
+          "want": want, "adamw_tensors": dict(optim.UPDATES),
           "losses": result["losses"], "moe_metrics": result["moe_metrics"],
           "tokens_per_s": result["tokens_per_sec"], "seconds": seconds})
     if not ok:
         raise AssertionError(f"the Mellum2 steps missed their kernels: "
-                             f"{launches} (bf16_128 {route}) against "
-                             f"{want}, mode {result['step_mode']}, AdamW "
+                             f"{launches} against {want}, mode "
+                             f"{result['step_mode']}, AdamW "
                              f"{optim.UPDATES}")
     return launches
 
@@ -1293,24 +1292,11 @@ def check_model_bert() -> None:
                     "--device", DEVICE], (2, 512, 30522))
 
 
-def kernel_class(name: str) -> str:
-    """The hand-written flash kernels by name, convolutions, matrix
-    products, the rest."""
-    low = name.lower()
-    for kernel in ("flash_fwd_any", "flash_dq_any", "flash_dkv_any",
-                   "flash_fwd", "flash_dq", "flash_dkv"):
-        if kernel + "_kernel" in low:
-            return kernel
-    if any(m in low for m in ("conv", "fprop", "dgrad", "wgrad")):
-        return "conv"
-    if any(m in low for m in ("gemm", "cutlass", "nvjet", "xmma", "matmul")):
-        return "matmul"
-    return "other"
-
-
 def device_ms_by_class(prof, steps: int) -> tuple:
     """Kernel time per step from a profile, by class, and the twelve
     kernels with the most time (ms per step, launches per step)."""
+    from portbench.kernels import kernel_class
+
     by_class, by_name = {}, {}
     for evt in prof.key_averages():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
@@ -1331,6 +1317,8 @@ def trace_kernels(path: str, steps: int) -> dict:
     ``--profile-dir`` output): kernel ms by class, the busiest kernels, and
     the share of the kernels' span (first start to last end) in which the
     device ran one."""
+    from portbench.kernels import kernel_class
+
     with open(path) as f:
         kernels = [e for e in json.load(f)["traceEvents"]
                    if e.get("cat") == "kernel"]
@@ -1362,8 +1350,6 @@ def profiled_run(module, argv: list, warmup: int, timed: int,
     over all the window's time); the last ``profiled`` steps run under
     torch.profiler (CUDA activity) and give device time by kernel class
     and the device's busy share of those same steps."""
-    from tpujob_torch.workloads import flash
-
     steps = warmup + timed + profiled
     args = module.build_parser().parse_args(argv + ["--steps", str(steps)])
     prof = torch.profiler.profile(
@@ -1378,7 +1364,7 @@ def profiled_run(module, argv: list, warmup: int, timed: int,
             prof_t0.append(time.perf_counter())
 
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         res = module.run(args, on_step=on_step)  # ends with the card synced
@@ -1386,7 +1372,7 @@ def profiled_run(module, argv: list, warmup: int, timed: int,
         if prof_t0:
             prof.stop()
     wall = time.perf_counter() - t0
-    launches = dict(flash.LAUNCHES)
+    launches = kernel_launches()
     tokens = args.batch_size * args.seq_len
     a0, a1 = stamps[warmup - 1], stamps[warmup + timed - 1]
     step_ms = [(y - x) * 1e3 for x, y in zip(stamps[warmup - 1:],
@@ -1479,28 +1465,29 @@ def causal_flags():
     from tpujob_torch.workloads import flash
 
     seen = {}
-    originals = {name: getattr(flash, name + "_cuda")
-                 for name in flash.LAUNCHES}
+    originals = {kind: getattr(flash, f"launch_{kind}")
+                 for kind in flash.KINDS}
 
-    def recording(name):
-        def wrapper(*args, **kw):
+    def recording(kind):
+        def wrapper(q, *args, **kw):
+            name = flash.kernel_name(kind, flash.route(q.dtype, q.shape[-1]))
             seen.setdefault(name, set()).add(kw["causal"])
-            return originals[name](*args, **kw)
+            return originals[kind](q, *args, **kw)
         return wrapper
 
-    for name in originals:
-        setattr(flash, name + "_cuda", recording(name))
+    for kind in originals:
+        setattr(flash, f"launch_{kind}", recording(kind))
     try:
         yield seen
     finally:
-        for name, fn in originals.items():
-            setattr(flash, name + "_cuda", fn)
+        for kind, fn in originals.items():
+            setattr(flash, f"launch_{kind}", fn)
 
 
 def run_mlm() -> dict:
     """The second path: BERT-large masked LM through bert.run, launches
     counted and each launch's mask recorded."""
-    from tpujob_torch.workloads import bert, flash
+    from tpujob_torch.workloads import bert
 
     logdir = os.path.join("build", "chip_smoke", "mlm")
     shutil.rmtree(logdir, ignore_errors=True)
@@ -1515,10 +1502,10 @@ def run_mlm() -> dict:
         stamps.append(time.perf_counter())
 
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     with causal_flags() as seen:
         res = bert.run(args, on_step=on_step)
-    launches = dict(flash.LAUNCHES)
+    launches = kernel_launches()
     losses = res["losses"]
     ok = (len(losses) == MLM_STEPS and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0] and on_tuned(launches)
@@ -1550,7 +1537,7 @@ def run_fp32() -> dict:
     over the timed steps, peak memory."""
     import gc
 
-    from tpujob_torch.workloads import flash, gpt
+    from tpujob_torch.workloads import gpt
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1573,26 +1560,25 @@ def run_fp32() -> dict:
 
     try:
         torch.cuda.reset_peak_memory_stats()
-        flash.reset_launches()
+        reset_launches()
         res = gpt.run(parse(FP32_ARGV, steps), on_step=on_step)
-        launches = dict(flash.LAUNCHES)
+        launches = kernel_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         n_params = sum(p.numel() for p in res["state"]["model"].parameters())
         del res["state"]
         gc.collect()
         torch.cuda.empty_cache()
         dense_argv = [("dense" if a == "flash" else a) for a in FP32_ARGV]
-        flash.reset_launches()
+        reset_launches()
         dense = gpt.run(parse(dense_argv, 1))
-        dense_launches = dict(flash.LAUNCHES)
+        dense_launches = kernel_launches()
         del dense["state"]
         gc.collect()
         torch.cuda.empty_cache()
-        flash.reset_launches()
+        reset_launches()
         d128 = gpt.run(gpt.build_parser().parse_args(
             FP32_D128_ARGV + ["--device", DEVICE, "--dir", logdir]))
-        d128_launches = dict(flash.LAUNCHES)
-        d128_route = dict(flash.ROUTE_LAUNCHES["bf16_128"])
+        d128_launches = kernel_launches()
         d128_head_dim = d128["state"]["model"].layer_0.attn.d
         del d128["state"]
         gc.collect()
@@ -1624,11 +1610,12 @@ def run_fp32() -> dict:
         "d128_losses": finite_falling(d128["losses"], FP32_D128_STEPS),
         "d128_head_dim": d128_head_dim == 128,
         "d128_launches": d128_launches == launched({
-            "flash_fwd_any": 4 * FP32_D128_STEPS,
-            "flash_dq_any": 2 * FP32_D128_STEPS,
-            "flash_dkv_any": 2 * FP32_D128_STEPS}),
+            "flash_fwd_bf16_128": 4 * FP32_D128_STEPS,
+            "flash_dq_bf16_128": 2 * FP32_D128_STEPS,
+            "flash_dkv_bf16_128": 2 * FP32_D128_STEPS}),
         # every one of them on the bf16 head-dim-128 kernels
-        "d128_route": d128_route == {k: d128_launches[k] for k in ANY},
+        "d128_route": (all(d128_launches[k] for k in B128)
+                       and not any(d128_launches[k] for k in ANY)),
         **{"d256_" + k: v for k, v in d256.pop("checks").items()},
     }
     ok = all(checks.values())
@@ -1654,7 +1641,7 @@ def fp32_d256(parse) -> dict:
     has turned TF32 off."""
     import gc
 
-    from tpujob_torch.workloads import flash, gpt
+    from tpujob_torch.workloads import gpt
 
     steps = FP32_D256_WARMUP + FP32_D256_TIMED
     stamps = []
@@ -1664,9 +1651,9 @@ def fp32_d256(parse) -> dict:
         stamps.append(time.perf_counter())
 
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     res = gpt.run(parse(FP32_D256_ARGV, steps), on_step=on_step)
-    launches = dict(flash.LAUNCHES)
+    launches = kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     model = res.pop("state")["model"]
     head_dim = model.layer_0.attn.d
@@ -1674,10 +1661,10 @@ def fp32_d256(parse) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    flash.reset_launches()
+    reset_launches()
     dense = gpt.run(parse([("dense" if a == "flash" else a)
                            for a in FP32_D256_ARGV], 1))
-    dense_launches = dict(flash.LAUNCHES)
+    dense_launches = kernel_launches()
     del dense["state"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -1723,7 +1710,7 @@ def run_decode(p: int, new: int) -> dict:
     both decode routes on the trained model from a prompt of ``p`` tokens,
     ``new`` tokens each, launches counted per route."""
     from tpujob_torch.workloads import bert as bertlib
-    from tpujob_torch.workloads import distributed, flash, gpt
+    from tpujob_torch.workloads import distributed, gpt
 
     logdir = os.path.join("build", "chip_smoke", "decode")
     shutil.rmtree(logdir, ignore_errors=True)
@@ -1732,9 +1719,9 @@ def run_decode(p: int, new: int) -> dict:
             "--steps", "1", "--generate", "32", "--seed", "0", "--dir",
             logdir, "--device", DEVICE]
     args = gpt.build_parser().parse_args(argv)
-    flash.reset_launches()
+    reset_launches()
     res = gpt.run(args)
-    entry = dict(flash.LAUNCHES)  # one training step; the decode adds none
+    entry = kernel_launches()  # one training step; the decode adds none
     gen = res["generated"]
     layers = args.layers
     entry_ok = (tuple(gen.shape) == (1, 8 + 32)
@@ -1752,12 +1739,12 @@ def run_decode(p: int, new: int) -> dict:
         # cached route's prefill is one forward a prompt token
         fn(model, prompt[:, :16], 2)
         torch.cuda.synchronize()
-        flash.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         out = fn(model, prompt, new)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches[name] = dict(flash.LAUNCHES)
+        launches[name] = kernel_launches()
         routes[name] = {"out": out, "tokens_per_sec": b * new / sec,
                         "ms_per_new_token": sec * 1e3 / new}
 
@@ -1867,7 +1854,7 @@ def run_moe(p: int, new: int) -> dict:
     import gc
 
     from tpujob_torch.workloads import bert as bertlib
-    from tpujob_torch.workloads import distributed, flash, gpt
+    from tpujob_torch.workloads import distributed, gpt
 
     logdir = os.path.join("build", "chip_smoke", "moe")
     shutil.rmtree(logdir, ignore_errors=True)
@@ -1923,12 +1910,12 @@ def run_moe(p: int, new: int) -> dict:
     torch.cuda.synchronize()
     routes, route_launches = {}, {}
     for name, fn in (("full", gpt.generate), ("cached", gpt.generate_cached)):
-        flash.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         routes[name] = fn(model, prompt, new)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        route_launches[name] = dict(flash.LAUNCHES)
+        route_launches[name] = kernel_launches()
         route_launches[name]["ms_per_new_token"] = sec * 1e3 / new
     tight_args = argparse.Namespace(**{
         **vars(args), "moe_capacity_factor": MOE_DECODE_CF})
@@ -2004,11 +1991,11 @@ def run_moe(p: int, new: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     with causal_flags() as seen:
         mres = bertlib.run(bertlib.build_parser().parse_args(margv),
                            on_step=on_step)
-    mlaunches = dict(flash.LAUNCHES)
+    mlaunches = kernel_launches()
     mlosses, maux = mres["losses"], mres["moe_metrics"]
     mlayers = flag(MOE_MLM_ARGV, "--layers")
     mchecks = {
@@ -2079,8 +2066,6 @@ def corpus_run(name: str, module, argv: list, expected_batch) -> dict:
     """One trainer on the corpus through its entry point: launches counted
     from zero, each launch's mask recorded, every step's copied batch
     held against ``expected_batch(args, step)``."""
-    from tpujob_torch.workloads import flash
-
     logdir = os.path.join("build", "chip_smoke", "corpus_" + name)
     shutil.rmtree(logdir, ignore_errors=True)
     argv = argv + ["--steps", str(CORPUS_STEPS), "--log-interval", "1",
@@ -2093,10 +2078,10 @@ def corpus_run(name: str, module, argv: list, expected_batch) -> dict:
         stamps.append(time.perf_counter())
 
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     with causal_flags() as seen, copied_batches() as copied:
         res = module.run(args, on_step=on_step)
-    launches = dict(flash.LAUNCHES)
+    launches = kernel_launches()
     steps = copied[-CORPUS_STEPS:]
     stream_ok = len(steps) == CORPUS_STEPS and all(
         len(got) == len(want) and all(
@@ -2382,7 +2367,7 @@ def ddp_rank(rank: int, out_dir: str, plan: dict) -> dict:
     import torch.distributed as tdist
 
     from tpujob_torch.workloads import distributed as dist
-    from tpujob_torch.workloads import flash, mnist, optim, resnet, smoke_dist
+    from tpujob_torch.workloads import mnist, optim, resnet, smoke_dist
 
     device = plan["device"]
     pe = dist.initialize(device=torch.device(device), backend="gloo",
@@ -2394,10 +2379,10 @@ def ddp_rank(rank: int, out_dir: str, plan: dict) -> dict:
     out["smoke_results"] = smoke_results(messages)
     logdir = os.path.join(out_dir, f"rank{rank}")
 
-    flash.reset_launches()
+    reset_launches()
     losses, ms, digest = gpt_step_ms(plan["gpt"], device, logdir + "/gpt")
     out["gpt"] = {"losses": losses, "step_ms": ms,
-                  "launches": dict(flash.LAUNCHES), "digest": digest}
+                  "launches": kernel_launches(), "digest": digest}
 
     res = entry(resnet, plan["resnet"], device, logdir + "/resnet")
     out["resnet"] = {"losses": res["losses"],
@@ -2637,7 +2622,7 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
     holds whole that a tensor or expert group would split none of, as it
     holds them, and a MoE run's aux terms and dropped assignments a
     step."""
-    from tpujob_torch.workloads import bert, flash, parallel, train_lib
+    from tpujob_torch.workloads import bert, parallel, train_lib
 
     build, built, leaves = bert.build_model, [], {}
 
@@ -2657,7 +2642,7 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
             parallel.reset_exchanges()
 
     bert.build_model = keep
-    flash.reset_launches()
+    reset_launches()
     torch.zeros(1, device=device)  # the allocator's statistics exist now
     torch.cuda.reset_peak_memory_stats()
     parallel.EXCHANGE_TIMING = True
@@ -2674,7 +2659,7 @@ def mesh_run(module, argv: list, device: str, logdir: str) -> dict:
              if "--pipeline-parallel" in argv
              and n.startswith(gpt_leaves(model))}
     return {"losses": res["losses"], "step_ms": ms, "grads": grads,
-            "launches": dict(flash.LAUNCHES), "leaves": leaves,
+            "launches": kernel_launches(), "leaves": leaves,
             "exchanges": dict(parallel.EXCHANGES),
             "exchange_share": (parallel.EXCHANGES["seconds"] * 1e3 / sum(ms)
                                if ms else None),
@@ -2736,8 +2721,6 @@ def run_sp() -> dict:
     gloo ranks on the card running every part; one line a part."""
     import gc
     import importlib
-
-    from tpujob_torch.workloads import flash
 
     # Ulysses's local attention: [b, S, h / 2, d] after the all-to-all
     local = check_kernels(s=MAIN["s"], window=0, timed=True,
@@ -2817,7 +2800,7 @@ def run_sp() -> dict:
     if failed:
         raise AssertionError(f"sp path failed: {failed}")
     return ({k: launches["ulysses"][k] + launches["mlm"][k]
-             for k in flash.LAUNCHES}, local)
+             for k in COUNTED}, local)
 
 
 def run_shard() -> dict:
@@ -2825,8 +2808,6 @@ def run_shard() -> dict:
     running every part; one line a part."""
     import gc
     import importlib
-
-    from tpujob_torch.workloads import flash
 
     out_dir = os.path.join("build", "chip_smoke", "shard")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2915,7 +2896,7 @@ def run_shard() -> dict:
             failed.append((part, checks))
     if failed:
         raise AssertionError(f"shard path failed: {failed}")
-    return {k: launches["fsdp"][k] + launches["tp"][k] for k in flash.LAUNCHES}
+    return {k: launches["fsdp"][k] + launches["tp"][k] for k in COUNTED}
 
 
 def run_ep() -> dict:
@@ -2924,8 +2905,6 @@ def run_ep() -> dict:
     ranks on the card running every part; one line a part."""
     import gc
     import importlib
-
-    from tpujob_torch.workloads import flash
 
     out_dir = os.path.join("build", "chip_smoke", "ep")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3036,7 +3015,7 @@ def run_ep() -> dict:
     if failed:
         raise AssertionError(f"ep path failed: {failed}")
     return {k: launches["ep"][k] + launches["moe_sp"][k]
-            for k in flash.LAUNCHES}
+            for k in COUNTED}
 
 def rank_params(name: str, argv: list) -> int:
     """The parameters a pipeline stage of ``<name>.run``'s model holds
@@ -3061,8 +3040,6 @@ def run_pipe() -> dict:
     import gc
     import importlib
 
-    from tpujob_torch.workloads import flash
-
     b_mb = (flag(PIPE_BASE_ARGV, "--batch-size")
             // flag(PIPE_PARTS["gpipe"][1], "--pipeline-microbatches"))
     check_kernels(s=MAIN["s"], window=0, timed=False, b=b_mb,
@@ -3085,7 +3062,7 @@ def run_pipe() -> dict:
     ranks = spawn_counted(mesh_rank, PIPE_WORLD, out_dir, plan,
                           timeout_s=DDP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
-    launches = {k: 0 for k in flash.LAUNCHES}
+    launches = dict.fromkeys(COUNTED, 0)
     peaks, failed = {}, []
     for part, (name, flags, one_flags) in PIPE_PARTS.items():
         argv = PIPE_BASE_ARGV + flags
@@ -3207,8 +3184,6 @@ def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
     hook)."""
     import gc
 
-    from tpujob_torch.workloads import flash
-
     logdir = os.path.join("build", "chip_smoke", "graph",
                           f"{key}_{'graph' if capture else 'eager'}")
     shutil.rmtree(logdir, ignore_errors=True)
@@ -3225,14 +3200,14 @@ def graph_run(key: str, module, argv: list, capture: bool, whole) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    reset_launches()
     res = module.run(args, capture=capture, **hook)
     torch.cuda.synchronize()
     model = res["state"]["model"]
     out = {"step_mode": res["step_mode"], "losses": res.get("losses"),
            "moe_metrics": res.get("moe_metrics"),
            "final_loss": res["final_loss"], "accuracy": res.get("accuracy"),
-           "launches": dict(flash.LAUNCHES), "wall_s": res["wall_s"],
+           "launches": kernel_launches(), "wall_s": res["wall_s"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
            "digest": param_digest(model, whole(model)),
            "stats": running_stats(model)}
@@ -3471,20 +3446,16 @@ def run_bench() -> dict:
     return gpt_row["kernel_launches"], quick_row["kernel_launches"]
 
 
+# each flash kernel's source, the Pallas kernel it replaces and its main
+# path: GPT-2-medium in bf16 for the tuned kernels, Mellum2 for the
+# bf16_128 ones, GPT-2-medium in fp32 for the _any ones
 KERNELS = {
-    "flash_fwd": ("tpujob_torch/csrc/flash_fwd.cu",
-                  "tpujob/workloads/flash.py:74"),
-    "flash_dq": ("tpujob_torch/csrc/flash_dq.cu",
-                 "tpujob/workloads/flash.py:163"),
-    "flash_dkv": ("tpujob_torch/csrc/flash_dkv.cu",
-                  "tpujob/workloads/flash.py:197"),
-    "flash_fwd_any": ("tpujob_torch/csrc/flash_fwd_any.cu",
-                      "tpujob/workloads/flash.py:74"),
-    "flash_dq_any": ("tpujob_torch/csrc/flash_dq_any.cu",
-                     "tpujob/workloads/flash.py:163"),
-    "flash_dkv_any": ("tpujob_torch/csrc/flash_dkv_any.cu",
-                      "tpujob/workloads/flash.py:197"),
-}
+    f"flash_{kind}{suffix}": (
+        f"tpujob_torch/csrc/flash_{kind}{'_any' if suffix else ''}.cu",
+        f"tpujob/workloads/flash.py:{line}", path)
+    for suffix, path in (("", "train"), ("_bf16_128", "mellum"),
+                         ("_any", "fp32"))
+    for kind, line in (("fwd", 74), ("dq", 163), ("dkv", 197))}
 
 
 def adamw_row(adamw: dict, updates: dict) -> dict:
@@ -3535,7 +3506,7 @@ def main(argv=None) -> int:
         return 1
     try:
         from tpujob_torch.kernels import build
-        from tpujob_torch.workloads import flash, optim
+        from tpujob_torch.workloads import optim
     except ImportError as e:
         print(f"chip_smoke: the tpujob_torch package is not importable: {e}",
               file=sys.stderr)
@@ -3582,29 +3553,29 @@ def main(argv=None) -> int:
             timed[case] = check_kernels(s=MAIN["s"], window=0, timed=True,
                                         causal=causal, d=32, case=case)
         # the _any kernels: GPT-2-medium's shape in fp32 (the fp32 path),
-        # the dryrun's width, head dims 128 (the window too) and 80 in
-        # bf16, and the largest head dim at a ragged length
+        # the dryrun's width, head dim 80 in bf16, and the largest head dim
+        # at a ragged length; the bf16_128 ones at head dim 128 (the window
+        # too)
         f32, bf16 = torch.float32, torch.bfloat16
-        anyk = dict(suffix="_any", window=0)
         any_timed = {"any_gpt_f32": check_kernels(
-            case="any_gpt_f32", dtype=f32, timed=True, **anyk, **MAIN)}
+            case="any_gpt_f32", dtype=f32, timed=True, window=0, **MAIN)}
         check_kernels(case="any_dryrun_d16", dtype=f32, b=4, s=64, h=4, d=16,
-                      causal=False, timed=False, **anyk)
+                      causal=False, timed=False, window=0)
         any_timed["any_d128_bf16"] = check_kernels(
             case="any_d128_bf16", dtype=bf16, b=8, s=1024, h=8, d=128,
-            timed=True, **anyk)
+            timed=True, window=0)
         check_kernels(case="any_d128_bf16_w256", dtype=bf16, b=8, s=1024, h=8,
-                      d=128, suffix="_any", window=256, timed=False)
+                      d=128, window=256, timed=False)
         any_timed["any_d80_bf16"] = check_kernels(
             case="any_d80_bf16", dtype=bf16, b=8, s=1024, h=16, d=80,
-            timed=True, **anyk)
+            timed=True, window=0)
         # fp32 at head dim 256: the d=256 GPT's attention (b 8, s 1024,
         # 8 heads), timed, then a ragged length
         any_timed["any_d256_f32"] = check_kernels(
             case="any_d256_f32", dtype=f32, b=8, s=1024, h=8, d=256,
-            timed=True, **anyk)
+            timed=True, window=0)
         check_kernels(case="any_d256_f32_s1000", dtype=f32, b=2, s=1000, h=4,
-                      d=256, timed=False, **anyk)
+                      d=256, timed=False, window=0)
         # Mellum2's attention as its cell runs it: batch 2, seq 8192, 32
         # query heads (the 4 K/V heads repeated up to them), head dim 128,
         # its sliding layers' window and its full layers (the bf16_128
@@ -3612,23 +3583,18 @@ def main(argv=None) -> int:
         for w in (1024, 0):
             case = "mellum_s8192" + (f"_w{w}" if w else "")
             any_timed[case] = check_kernels(
-                case=case, dtype=bf16, b=2, s=8192, h=32, d=128,
-                suffix="_any", window=w, timed=True,
-                head_chunk=head_chunk_for(2, 8192, 32))
+                case=case, dtype=bf16, b=2, s=8192, h=32, d=128, window=w,
+                timed=True, head_chunk=head_chunk_for(2, 8192, 32))
         adamw = run_adamw()
         moe_gemm_cases = run_moe_gemm()
         check_model()
         check_model_bert()
         updates = {}  # path -> parameter tensors each AdamW route updated
-        routes = {}  # path -> launches of the _any kernels' bf16_128 route
 
         def counted(path, run, *a):
             optim.UPDATES.update(kernel=0, torch=0)
-            for counts in flash.ROUTE_LAUNCHES.values():
-                counts.update(dict.fromkeys(counts, 0))
             out = run(*a)
             updates[path] = dict(optim.UPDATES)
-            routes[path] = dict(flash.ROUTE_LAUNCHES["bf16_128"])
             return out
 
         dp, dn = args.decode_prompt, args.decode_new
@@ -3649,11 +3615,10 @@ def main(argv=None) -> int:
                                                                run_bench)
 
         rows = []
-        for name, (source, replaces) in KERNELS.items():
-            # each kernel's main path: GPT-2-medium in bf16 for the tuned
-            # kernels, in fp32 for the _any ones
-            main_path, cases = (("fp32", any_timed) if name in ANY
-                                else ("train", timed))
+        for name, (source, replaces, main_path) in KERNELS.items():
+            # each kernel's timed cases, the first its row's main one
+            cases = {case: c for case, c in {**timed, **any_timed}.items()
+                     if name in c}
             m = cases[next(iter(cases))][name]
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "main_path": main_path,
@@ -3673,10 +3638,7 @@ def main(argv=None) -> int:
                          "paths": [path for path, n in by_path.items()
                                    if n[name] > 0],
                          "launches_by_path": {path: n[name] for path, n
-                                              in by_path.items()},
-                         **({"bf16_128_launches_by_path": {
-                             path: n[name] for path, n in routes.items()}}
-                            if name in ANY else {})})
+                                              in by_path.items()}})
         rows += moe_gemm_rows(moe_gemm_cases, by_path)
         rows.append(adamw_row(adamw, updates))
         emit({"kernels": rows})

@@ -107,7 +107,8 @@ def test_bench_models_rows_at_a_tiny_size_carry_the_jax_keys(two_threads):
         json.dumps(row)
     assert row["attention"] == "flash"
     assert row["kernel_launches"] == {  # plain versions
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_any": 0,
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16_128": 0,
+        "flash_dq_bf16_128": 0, "flash_dkv_bf16_128": 0, "flash_fwd_any": 0,
         "flash_dq_any": 0, "flash_dkv_any": 0}
     # torch's AdamW on the CPU, the port's kernel on the card
     assert row["adamw_updates"]["kernel"] == 0

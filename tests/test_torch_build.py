@@ -18,9 +18,13 @@ three passes, bf16 with P or dS as a high and a low part) and copy tiles by
 TMA or a producer warpgroup's plain copies.  fp32 at padded head dim 256
 (129-256) runs a wgmma kernel of its own in each (``*_kernel_f32_256``),
 and so does bf16 at head dim 128 (``*_kernel_bf16``, in
-``flash_bf16_128.cuh``), each chosen before the launch; no FFMA body is
-left.
+``flash_bf16_128.cuh``, each behind an entry point of its own,
+``tpujob_flash_*_bf16_128``, which ``flash.route`` picks), each chosen
+before the launch; no FFMA body is left.  Every launch in the port goes
+through ``build.launch``, the one place that calls an entry point and
+counts it.
 """
+import ast
 import ctypes
 import re
 from pathlib import Path
@@ -153,7 +157,8 @@ def test_general_kernels_run_on_wgmma_with_the_split(stem):
     code = re.sub(r"//[^\n]*", "", src)
     assert "is_bf16" in code
     assert not mma_sync_pieces(src), f"{stem}.cu uses {mma_sync_pieces(src)}"
-    assert [sym for s, sym, _ in ENTRIES if s == stem] == [f"tpujob_{stem}"]
+    assert [sym for s, sym, _ in ENTRIES if s == stem] == [
+        f"tpujob_{stem}", f"tpujob_{stem.replace('_any', '_bf16_128')}"]
     header = re.sub(r"//[^\n]*", "", (CSRC / "flash_tc.cuh").read_text())
     hopper = re.sub(r"//[^\n]*", "", (CSRC / "hopper.cuh").read_text())
     for piece in ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
@@ -258,22 +263,34 @@ BF16_128_SECOND = {
             "wgmma_m64n128_rs_t(dk, dhi[kk], mn_q + mn_step(kk))")}
 
 
+def entry_body(code: str, symbol: str) -> str:
+    """The body of the C entry point ``symbol`` (comments stripped,
+    whitespace squeezed), up to the closing brace of the function."""
+    rest = code.split(f"int {symbol}(", 1)[1].split(") {", 1)[1]
+    return (rest + " ").split(" } ", 1)[0]
+
+
 @pytest.mark.parametrize("stem", ANY_STEMS)
 def test_bf16_128_route_has_a_kernel_of_its_own(stem):
     """bf16 at head dim 128 takes a kernel of its own in each _any source
-    (``flash_bf16_128.cuh``), chosen by the C entry point before the
-    launch on ``is_bf16`` and ``D == 128`` alone: S and dP as one bf16
-    wgmma pass, P and dS in two parts, tiles by TMA on mbarriers, the
-    warpgroups' registers set by setmaxnreg; no atomics and no mma.sync
-    pieces."""
+    (``flash_bf16_128.cuh``), behind an entry point of its own that takes
+    D 128 alone, while the ``_any`` entry point refuses bf16 at D 128: S
+    and dP as one bf16 wgmma pass, P and dS in two parts, tiles by TMA on
+    mbarriers, the warpgroups' registers set by setmaxnreg; no atomics and
+    no mma.sync pieces."""
     kind = stem.split("_")[1]
     code = squeeze(re.sub(r"//[^\n]*", "", (CSRC / f"{stem}.cu").read_text()))
     text = (CSRC / "flash_bf16_128.cuh").read_text()
     header = squeeze(re.sub(r"//[^\n]*", "", text))
     kernel = f"flash_{kind}_any_kernel_bf16"
     assert '#include "flash_bf16_128.cuh"' in code
-    assert (f"if (is_bf16 && D == 128) return launch_{kind}_bf16_128(a, B, "
-            "stream);" in code)
+    own = entry_body(code, f"tpujob_flash_{kind}_bf16_128")
+    assert "|| D != 128) return (int)cudaErrorInvalidValue;" in own
+    assert own.endswith(f"return launch_{kind}_bf16_128(a, B, stream);")
+    general = entry_body(code, f"tpujob_{stem}")
+    assert ("|| (D == 128 && is_bf16)) return (int)cudaErrorInvalidValue;"
+            in general)
+    assert "bf16_128" not in general
     assert f"{kernel}<kD><<<grid, kBlockThreads, smem," in code
     assert ("__global__ void __launch_bounds__(kBlockThreads, 1) "
             f"{kernel}(const __grid_constant__ CUtensorMap tmQ," in header)
@@ -320,3 +337,66 @@ def test_mma_sync_pieces_are_found():
     assert mma_sync_pieces('asm("mma.sync.aligned.m16n8k16 ...");') == {
         "mma.sync"}
     assert not mma_sync_pieces("// visible pairs; EncodeTiledFn fn;")
+
+
+PORT = CSRC.parent
+
+
+def test_no_module_but_build_calls_an_entry_point():
+    """Every launch goes through ``build.launch``, which counts it in
+    ``build.LAUNCHES``: no module of the port but ``kernels/build.py`` (and
+    ``kernels/ab.py``, which times copies of a source outside the package)
+    calls a ``tpujob_*`` entry point itself."""
+    callers = {}
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr.startswith("tpujob_")):
+                callers.setdefault(path.relative_to(PORT).as_posix(),
+                                   []).append(node.func.attr)
+    assert set(callers) <= {"kernels/build.py", "kernels/ab.py"}, callers
+
+
+def test_train_lib_imports_no_kernel_module():
+    """The compiled step (``train_lib._Graphs``) re-adds what a capture
+    counted from ``build.LAUNCHES`` and ``optim.UPDATES`` alone: it
+    imports no kernel module (``flash``, ``moe_gemm``), at module level or
+    in a function."""
+    tree = ast.parse((PORT / "workloads" / "train_lib.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {alias.name for alias in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names |= {node.module or ""} | {f"{node.module}.{alias.name}"
+                                            for alias in node.names}
+    assert not names & {"tpujob_torch.workloads.flash",
+                        "tpujob_torch.workloads.moe_gemm"}, names
+    assert "tpujob_torch.kernels.build" in names
+
+
+def test_launch_calls_the_entry_point_and_counts_it(monkeypatch):
+    """``build.launch`` calls the entry point from its source's library,
+    counts one launch of its name, and raises on a failed launch without
+    counting it."""
+    calls = []
+
+    class Lib:
+        def tpujob_moe_gemm_rows(self, *args):
+            calls.append(args)
+            return args[0]
+
+    loaded = []
+    monkeypatch.setattr(build, "load", lambda stem: loaded.append(stem)
+                        or Lib())
+    build.reset_launches()
+    build.launch("moe_gemm_dx", "tpujob_moe_gemm_rows", 0, 7)
+    assert calls == [(0, 7)] and loaded == ["moe_gemm"]
+    assert build.LAUNCHES == {"moe_gemm_dx": 1}
+    with pytest.raises(RuntimeError, match="moe_gemm_fwd: CUDA launch failed "
+                       "with cudaError 1"):
+        build.launch("moe_gemm_fwd", "tpujob_moe_gemm_rows", 1)
+    assert build.LAUNCHES == {"moe_gemm_dx": 1}
+    build.reset_launches()
+    assert build.LAUNCHES == {}

@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpujob.workloads import flash as jflash
+from tpujob_torch.kernels import build
 from tpujob_torch.workloads import flash, parallel
 
 CASES = {
@@ -160,85 +161,80 @@ def test_validation_matches_reference():
         flash.flash_attention(q, torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4))
 
 
-KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_any",
-           "flash_dq_any", "flash_dkv_any")
-
-
 def test_cpu_path_launches_no_kernel():
     """Every kernel is counted under its own name, and the CPU path (the
-    plain versions) launches none of them, in bf16 or fp32."""
-    flash.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn(1, 64, 2, 64, dtype=dtype, requires_grad=True)
+    plain versions) launches none of them, in bf16 or fp32, on any
+    route's head dim."""
+    build.reset_launches()
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 64),
+                     (torch.bfloat16, 128)):
+        q = torch.randn(1, 64, 2, d, dtype=dtype, requires_grad=True)
         flash.flash_attention(q, q, q, causal=True).sum().backward()
-    assert flash.LAUNCHES == dict.fromkeys(KERNELS, 0)
+    assert build.LAUNCHES == {}
+    assert flash.KERNELS == (
+        "flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_bf16_128",
+        "flash_dq_bf16_128", "flash_dkv_bf16_128", "flash_fwd_any",
+        "flash_dq_any", "flash_dkv_any")
 
 
-@pytest.mark.parametrize("wrapper", [k + "_cuda" for k in KERNELS])
-def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+# an input of each route: (dtype, head dim)
+ROUTE_INPUTS = {"tuned": (torch.bfloat16, 64),
+                "bf16_128": (torch.bfloat16, 128),
+                "any": (torch.float32, 64)}
+
+
+@pytest.mark.parametrize("kind", flash.KINDS)
+@pytest.mark.parametrize("route", flash.ROUTES)
+def test_kernel_wrappers_refuse_cpu_tensors(kind, route):
     """A wrapper never runs the plain version for a tensor it was handed
-    directly: CPU tensors are refused before any build or launch (bf16
-    for the tuned kernels, fp32 for the _any ones)."""
-    dtype = torch.float32 if "_any" in wrapper else torch.bfloat16
-    x = torch.zeros(1, 64, 2, 64, dtype=dtype)
+    directly: CPU tensors are refused before any build or launch, on every
+    route."""
+    dtype, d = ROUTE_INPUTS[route]
+    assert flash.route(dtype, d) == route
+    x = torch.zeros(1, 64, 2, d, dtype=dtype)
     r = torch.zeros(1, 2, 64)
-    fwd = wrapper.startswith("flash_fwd")
-    args = (x, x, x) if fwd else (x, x, x, x, r, r)
+    args = (x, x, x) if kind == "fwd" else (x, x, x, x, r, r)
+    build.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        getattr(flash, wrapper)(*args, causal=True, scale=0.125)
+        getattr(flash, f"launch_{kind}")(*args, causal=True, scale=0.125)
+    assert build.LAUNCHES == {}
 
 
-@pytest.mark.parametrize("dtype,head_dim,supported,tuned", [
-    (torch.bfloat16, 64, True, True), (torch.bfloat16, 32, True, True),
-    (torch.float32, 64, True, False), (torch.float32, 32, True, False),
-    (torch.bfloat16, 128, True, False), (torch.bfloat16, 80, True, False),
-    (torch.float32, 1, True, False), (torch.float32, 256, True, False),
-    (torch.bfloat16, 16, True, False), (torch.float32, 257, False, False),
-    (torch.bfloat16, 257, False, False), (torch.float32, 0, False, False),
-    (torch.float16, 64, False, False), (torch.float64, 64, False, False)])
-def test_check_supported_owns_the_kernel_limits(dtype, head_dim, supported,
-                                                tuned):
-    """The kernels take fp32 or bf16 at head dim 1 to 256 (the tuned ones
-    bf16 at 64 or 32, the ``_any`` ones the rest); anything else raises
-    from the one check that model constructors and launches share."""
-    assert flash.tuned(dtype, head_dim) == tuned
-    if supported:
-        flash.check_supported(dtype, head_dim)
-    else:
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tuned"), (torch.bfloat16, 32, "tuned"),
+    (torch.float32, 64, "any"), (torch.float32, 32, "any"),
+    (torch.bfloat16, 128, "bf16_128"), (torch.bfloat16, 80, "any"),
+    (torch.float32, 1, "any"), (torch.float32, 256, "any"),
+    (torch.bfloat16, 16, "any"), (torch.float32, 257, None),
+    (torch.bfloat16, 257, None), (torch.float32, 0, None),
+    (torch.float16, 64, None), (torch.float64, 64, None),
+    (torch.float32, 128, "any"), (torch.bfloat16, 127, "any"),
+    (torch.bfloat16, 129, "any"), (torch.bfloat16, 256, "any"),
+    (torch.float16, 128, None)])
+def test_check_supported_owns_the_kernel_limits(dtype, head_dim, route):
+    """The kernels take fp32 or bf16 at head dim 1 to 256: the tuned ones
+    bf16 at 64 or 32, the bf16_128 ones bf16 at exactly 128, the ``_any``
+    ones the rest; anything else raises from the one check that model
+    constructors and launches share, and ``route`` raises with it."""
+    if route is None:
         with pytest.raises(NotImplementedError, match="head dim 1 to 256"):
             flash.check_supported(dtype, head_dim)
-
-
-@pytest.mark.parametrize("dtype,head_dim,takes", [
-    (torch.bfloat16, 128, True), (torch.float32, 128, False),
-    (torch.bfloat16, 80, False), (torch.bfloat16, 64, False),
-    (torch.bfloat16, 256, False)])
-def test_bf16_128_route_is_bf16_at_head_dim_128(dtype, head_dim, takes):
-    """bf16 at head dim exactly 128 takes the _any kernels' own route, and
-    a launch there counts in ``ROUTE_LAUNCHES`` by the same predicate; fp32
-    at 128, bf16 at 80 or 256 (the general kernels) and at 64 (the tuned
-    ones) do not."""
-    flash.reset_launches()
-    assert flash.bf16_128(dtype, head_dim) == takes
-    assert not (takes and flash.tuned(dtype, head_dim))
-    flash._count_any("flash_dq_any", torch.zeros(1, 8, 2, head_dim,
-                                                 dtype=dtype))
-    assert flash.LAUNCHES["flash_dq_any"] == 1
-    assert flash.ROUTE_LAUNCHES["bf16_128"] == dict(
-        flash_fwd_any=0, flash_dq_any=int(takes), flash_dkv_any=0)
-    flash.reset_launches()
+        with pytest.raises(NotImplementedError, match="head dim 1 to 256"):
+            flash.route(dtype, head_dim)
+    else:
+        flash.check_supported(dtype, head_dim)
+        assert flash.route(dtype, head_dim) == route
 
 
 def test_reset_launches_clears_the_route_counter():
-    """``reset_launches`` sets every kernel's launches and every route's to
-    0."""
-    flash.LAUNCHES["flash_fwd_any"] = 4
-    flash.ROUTE_LAUNCHES["bf16_128"]["flash_fwd_any"] = 4
-    flash.ROUTE_LAUNCHES["bf16_128"]["flash_dkv_any"] = 2
-    flash.reset_launches()
-    assert flash.LAUNCHES == dict.fromkeys(KERNELS, 0)
-    assert flash.ROUTE_LAUNCHES == {"bf16_128": dict.fromkeys(
-        ("flash_fwd_any", "flash_dq_any", "flash_dkv_any"), 0)}
+    """``build.reset_launches`` sets every kernel's launches to 0, every
+    route's and the grouped GEMMs' alike."""
+    build.LAUNCHES["flash_fwd_any"] += 4
+    build.LAUNCHES["flash_dkv_bf16_128"] += 2
+    build.LAUNCHES["moe_gemm_dw"] += 1
+    build.reset_launches()
+    assert build.LAUNCHES == {}
+    assert all(build.LAUNCHES[k] == 0 for k in flash.KERNELS)
 
 
 # the head dims the _any kernels add: the dryrun's width (16), two that

@@ -5,12 +5,16 @@ skipped without one) the captured step against the eager one, bit for
 bit.  This file imports no JAX, so it runs beside the card too:
 ``python -m pytest -m gpu tests/test_torch_graph.py -q``.
 """
+import contextlib
+
 import pytest
 import torch
 
+from tpujob_torch.kernels import build
 from tpujob_torch.workloads import bert as tbert
 from tpujob_torch.workloads import gpt as tgpt
 from tpujob_torch.workloads import mnist as tmnist
+from tpujob_torch.workloads import optim
 from tpujob_torch.workloads import resnet as tresnet
 from tpujob_torch.workloads import train_lib
 
@@ -88,6 +92,50 @@ def test_no_capture_before_the_first_update_and_one_batch_shape():
         graphs.feed((x[:2], y[:2]))
     with pytest.raises(ValueError, match="one batch shape"):
         graphs.feed((x.double(), y))
+
+
+class _Graph:
+    """A stand-in for ``torch.cuda.CUDAGraph`` on the CPU: records
+    nothing, counts its replays."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+    def pool(self):
+        return "pool"
+
+
+def test_replays_add_what_a_capture_counted(monkeypatch):
+    """What a capture counts in ``build.LAUNCHES`` and ``optim.UPDATES``
+    is taken back out (the card ran none of it) and added again at each
+    replay, a kernel first counted inside the capture included."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **kw: contextlib.nullcontext())
+    _, opt = _mnist()
+    graphs = train_lib._Graphs(opt)
+    graphs.feed((torch.zeros(2),))
+    graphs.updated = True
+    build.reset_launches()
+    build.LAUNCHES["flash_fwd"] += 1  # an eager call's
+    kernel = optim.UPDATES["kernel"]
+
+    def capture():
+        build.LAUNCHES["flash_fwd"] += 2
+        build.LAUNCHES["mark_update"] += 1
+        optim.UPDATES["kernel"] += 3
+        return torch.ones(1)
+
+    for replays in (1, 2, 3):
+        assert torch.equal(graphs.replay("step", capture), torch.ones(1))
+        assert build.LAUNCHES == {"flash_fwd": 1 + 2 * replays,
+                                  "mark_update": replays}
+        assert optim.UPDATES["kernel"] == kernel + 3 * replays
+    assert graphs.graphs["step"][0].replays == 3
+    build.reset_launches()
 
 
 def test_grad_accum_fold_then_advance_is_add():

@@ -20,6 +20,7 @@ of the rounded output, at most 2^-7 relative); lse 1e-5.
 import pytest
 import torch
 
+from tpujob_torch.kernels import build
 from tpujob_torch.workloads import flash
 
 
@@ -35,6 +36,16 @@ def assert_close(got, ref, rtol=2e-2, atol_of_row_rms=2e-2,
         f"{name}: worst ratio {ratio[worst].item()} at flat index {worst} "
         f"of {tuple(got.shape)}, got {got.flatten()[worst].item()}, "
         f"ref {ref.flatten()[worst].item()}")
+
+
+def launched(**want) -> dict:
+    """Each flash kernel's launches: ``want``'s, 0 for the others."""
+    return {**dict.fromkeys(flash.KERNELS, 0), **want}
+
+
+def flash_launches() -> dict:
+    """Each flash kernel's launches since ``build.reset_launches()``."""
+    return {k: build.LAUNCHES[k] for k in flash.KERNELS}
 
 
 @pytest.fixture
@@ -83,17 +94,17 @@ def check_kernels(cuda, seq, causal, window, head_dim):
                    for _ in range(4))
     kw = dict(causal=causal, scale=head_dim ** -0.5, window=window)
 
-    o, lse = flash.flash_fwd_cuda(q, k, v, **kw)
+    o, lse = flash.launch_fwd(q, k, v, **kw)
     o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
     assert_close(o, o_r, name="o")
     assert (lse - lse_r).abs().max().item() <= 1e-3
     delta = flash.attention_delta(o_r, do)
-    assert_close(flash.flash_dq_cuda(q, k, v, do, lse_r, delta, **kw),
+    assert_close(flash.launch_dq(q, k, v, do, lse_r, delta, **kw),
                  flash.flash_dq_ref(q, k, v, do, lse_r, delta, **kw),
                  name="dq")
     for name, got, ref in zip(
             ("dk", "dv"),
-            flash.flash_dkv_cuda(q, k, v, do, lse_r, delta, **kw),
+            flash.launch_dkv(q, k, v, do, lse_r, delta, **kw),
             flash.flash_dkv_ref(q, k, v, do, lse_r, delta, **kw)):
         assert_close(got, ref, name=name)
 
@@ -134,11 +145,9 @@ def test_train_step_launches_each_kernel(cuda, tmp_path):
         "--intermediate", "256", "--vocab", "211", "--seq-len", "128",
         "--batch-size", "2", "--steps", "1", "--attention", "flash",
         "--dir", str(tmp_path)])
-    flash.reset_launches()
+    build.reset_launches()
     res = gpt.run(args)
-    assert flash.LAUNCHES == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2,
-                              "flash_fwd_any": 0, "flash_dq_any": 0,
-                              "flash_dkv_any": 0}
+    assert flash_launches() == launched(flash_fwd=4, flash_dq=2, flash_dkv=2)
     assert all(torch.isfinite(torch.tensor(res["losses"])))
 
 
@@ -156,13 +165,12 @@ def test_generate_launches_the_forward_kernel_only(cuda):
     model = gpt.build_model(args, cuda)
     prompt = torch.randint(0, 211, (2, 8), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(0))
-    flash.reset_launches()
+    build.reset_launches()
     out = gpt.generate(model, prompt, 6)
-    assert flash.LAUNCHES == dict(dict.fromkeys(flash.LAUNCHES, 0),
-                                  flash_fwd=12)
-    flash.reset_launches()
+    assert flash_launches() == launched(flash_fwd=12)
+    build.reset_launches()
     cached = gpt.generate_cached(model, prompt, 6)
-    assert flash.LAUNCHES == dict.fromkeys(flash.LAUNCHES, 0)
+    assert flash_launches() == launched()
     assert out.shape == cached.shape == (2, 14)
     assert torch.equal(out[:, :8], prompt)
 
@@ -184,7 +192,7 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     # the tiles' edges: one head-dim column, a head dim past a bucket by
     # one, one row past a 64-row tile, a window narrower than a tile
     (torch.float32, 1, 130, True, 0), (torch.float32, 33, 65, False, 0),
-    (torch.bfloat16, 64, 200, True, 17), (torch.float32, 32, 96, True, 0),
+    (torch.bfloat16, 48, 200, True, 17), (torch.float32, 32, 96, True, 0),
     (torch.bfloat16, 256, 40, False, 0),
     # bf16 at a head dim whose rows (72 bytes) TMA cannot take: the
     # producer's plain copies
@@ -203,8 +211,9 @@ ANY_TOL = {torch.float32: dict(rtol=1e-5, atol_of_row_rms=1e-5,
     (torch.bfloat16, 128, 512, False, 0), (torch.bfloat16, 128, 300, True, 17)])
 def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
                                           window):
-    """The _any forward, dQ and dK/dV kernels against flash_forward_ref /
-    flash_dq_ref / flash_dkv_ref on the same inputs, element by element.
+    """The _any forward, dQ and dK/dV kernels (bf16 at head dim 128: the
+    bf16_128 route's) against flash_forward_ref / flash_dq_ref /
+    flash_dkv_ref on the same inputs, element by element.
     In fp32 they can agree bit for bit, so each kernel's outputs are
     allocated where blocks of their sizes filled with NaN were just freed
     (the caching allocator hands them back): an element a kernel skipped
@@ -217,12 +226,12 @@ def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
     o_r, lse_r = flash.flash_forward_ref(q, k, v, **kw)
     delta = flash.attention_delta(o_r, do)
     runs = {
-        ("o", "lse"): (lambda: flash.flash_fwd_any_cuda(q, k, v, **kw),
+        ("o", "lse"): (lambda: flash.launch_fwd(q, k, v, **kw),
                        (o_r, lse_r)),
-        ("dq",): (lambda: (flash.flash_dq_any_cuda(q, k, v, do, lse_r,
+        ("dq",): (lambda: (flash.launch_dq(q, k, v, do, lse_r,
                                                    delta, **kw),),
                   (flash.flash_dq_ref(q, k, v, do, lse_r, delta, **kw),)),
-        ("dk", "dv"): (lambda: flash.flash_dkv_any_cuda(
+        ("dk", "dv"): (lambda: flash.launch_dkv(
             q, k, v, do, lse_r, delta, **kw),
             flash.flash_dkv_ref(q, k, v, do, lse_r, delta, **kw)),
     }
@@ -243,17 +252,18 @@ def test_any_kernels_match_plain_versions(cuda, dtype, d, seq, causal,
     (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
     (torch.float32, 256, 1024), (torch.bfloat16, 128, 1100)])
 def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
-    """Two launches of the _any dQ and dK/dV kernels on the same inputs
-    give the same bits (no atomics: the captured step's bit-equality with
-    the eager one rests on it), by TMA and by the producer's copies."""
+    """Two launches of the _any (and bf16_128) dQ and dK/dV kernels on the
+    same inputs give the same bits (no atomics: the captured step's
+    bit-equality with the eager one rests on it), by TMA and by the
+    producer's copies."""
     gen = torch.Generator(device=cuda).manual_seed(seq + d)
     q, k, v, do = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
                                dtype=dtype) for _ in range(4))
     kw = dict(causal=True, scale=d ** -0.5)
     o, lse = flash.flash_forward_ref(q, k, v, **kw)
     delta = flash.attention_delta(o, do)
-    runs = [(flash.flash_dq_any_cuda(q, k, v, do, lse, delta, **kw),
-             *flash.flash_dkv_any_cuda(q, k, v, do, lse, delta, **kw))
+    runs = [(flash.launch_dq(q, k, v, do, lse, delta, **kw),
+             *flash.launch_dkv(q, k, v, do, lse, delta, **kw))
             for _ in range(2)]
     for name, a, b in zip(("dq", "dk", "dv"), *runs):
         assert torch.equal(a, b), name
@@ -265,15 +275,16 @@ def test_any_backward_launches_give_equal_bits(cuda, dtype, d, seq):
     (torch.float32, 33, 200), (torch.bfloat16, 36, 130),
     (torch.float32, 256, 1024), (torch.bfloat16, 128, 1100)])
 def test_any_forward_launches_give_equal_bits(cuda, dtype, d, seq):
-    """Two launches of the _any forward on the same inputs give the same o
-    and lse bits (each consumer owns its rows of O: no atomics), by TMA
+    """Two launches of the _any (and bf16_128) forward on the same inputs
+    give the same o and lse bits (each consumer owns its rows of O: no
+    atomics), by TMA
     (fp32 at 64 and 256, bf16 at 128) and by the producer's plain copies
     (33, 36)."""
     gen = torch.Generator(device=cuda).manual_seed(seq + d)
     q, k, v = (torch.randn(2, seq, 2, d, device=cuda, generator=gen,
                            dtype=dtype) for _ in range(3))
     kw = dict(causal=True, scale=d ** -0.5)
-    runs = [flash.flash_fwd_any_cuda(q, k, v, **kw) for _ in range(2)]
+    runs = [flash.launch_fwd(q, k, v, **kw) for _ in range(2)]
     for name, a, b in zip(("o", "lse"), *runs):
         assert torch.equal(a, b), name
 
@@ -283,7 +294,8 @@ def test_any_forward_launches_give_equal_bits(cuda, dtype, d, seq):
                                          (torch.bfloat16, 1)])
 def test_train_step_takes_the_any_kernels(cuda, tmp_path, dtype, heads):
     """One remat step of a 2-layer GPT in fp32 (head dim 64) or in bf16 at
-    head dim 128 launches the _any kernels only, 4 / 2 / 2."""
+    head dim 128 launches the _any kernels only, 4 / 2 / 2: in bf16 at 128
+    those of their own route, bf16_128."""
     from tpujob_torch.workloads import gpt
 
     args = gpt.build_parser().parse_args([
@@ -292,9 +304,10 @@ def test_train_step_takes_the_any_kernels(cuda, tmp_path, dtype, heads):
         "--batch-size", "2", "--steps", "1", "--attention", "flash",
         "--dir", str(tmp_path)] + (["--no-bf16"] if dtype == torch.float32
                                    else []))
-    flash.reset_launches()
+    build.reset_launches()
     res = gpt.run(args)
-    assert flash.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                              "flash_fwd_any": 4, "flash_dq_any": 2,
-                              "flash_dkv_any": 2}
+    route = "any" if dtype == torch.float32 else "bf16_128"
+    assert flash_launches() == launched(**{
+        flash.kernel_name(kind, route): n
+        for kind, n in (("fwd", 4), ("dq", 2), ("dkv", 2))})
     assert all(torch.isfinite(torch.tensor(res["losses"])))

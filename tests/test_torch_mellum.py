@@ -21,6 +21,7 @@ from portbench import weights
 from portbench.models import mellum as arch
 from portbench.models import trunk
 from portbench.references import mellum as ref
+from tpujob_torch.kernels import build
 from tpujob_torch.workloads import bert, gpt, moe_gemm, parallel
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -234,12 +235,12 @@ def test_grouped_gemm_kernels_match_fp32_per_expert_matmuls(k_dim, n_dim):
     a = torch.randn(rows, k_dim, device=dev, generator=gen).bfloat16()
     w = torch.randn(8, k_dim, n_dim, device=dev, generator=gen).bfloat16()
     grad = torch.randn(rows, n_dim, device=dev, generator=gen).bfloat16()
-    before = dict(moe_gemm.LAUNCHES)
+    build.reset_launches()
     out = moe_gemm.gemm(a, w, g)
     da = moe_gemm.gemm_t(grad, w, g)
     dw = moe_gemm.gemm_dw(a, grad, g, 8)
     torch.cuda.synchronize()
-    assert {k: moe_gemm.LAUNCHES[k] - before[k] for k in before} == {
+    assert build.LAUNCHES == {
         "moe_gemm_fwd": 1, "moe_gemm_dx": 1, "moe_gemm_dw": 1}
     lo = 0
     for e, n in enumerate(counts.tolist()):

@@ -165,6 +165,7 @@ def _bench_transformer(args, dev, model, loss_fn, batch, seconds, *, metric,
                        extra_fields=None) -> dict:
     """The transformer rows' shared body: AdamW at the flags' lr, k steps
     a call, windowed timing, tokens/s and MFU."""
+    from tpujob_torch.kernels import build
     from tpujob_torch.workloads import flash, optim, train_lib
     from tpujob_torch.workloads.benchlib import platform_name
 
@@ -174,11 +175,12 @@ def _bench_transformer(args, dev, model, loss_fn, batch, seconds, *, metric,
     state = train_lib.init_state(model, optimizer)
     step = train_lib.make_multi_step(loss_fn, optimizer, STEPS_PER_DISPATCH)
     n_params = sum(p.numel() for p in model.parameters())
-    flash.reset_launches()
+    build.reset_launches()
     optim.UPDATES.update(kernel=0, torch=0)
     sec_per_step, steps, std, mode = time_steps(
         step, state, batch, seconds, steps_per_call=STEPS_PER_DISPATCH)
-    launches = dict(flash.LAUNCHES)  # every step the row ran, untimed ones too
+    # each flash kernel's launches: every step the row ran, untimed ones too
+    launches = {k: build.LAUNCHES[k] for k in flash.KERNELS}
     updates = dict(optim.UPDATES)  # parameter tensors each AdamW route updated
     sps = args.batch_size / sec_per_step
     tps = sps * args.seq_len

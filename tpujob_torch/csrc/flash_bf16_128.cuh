@@ -1,8 +1,9 @@
 // The general flash kernels' own route for bf16 at head dim exactly 128
 // (B1a-B3a's bf16 d=128 kernels): flash_fwd_any_kernel_bf16,
 // flash_dq_any_kernel_bf16 and flash_dkv_any_kernel_bf16, each launched
-// by its source's C entry point (flash_fwd_any.cu, flash_dq_any.cu,
-// flash_dkv_any.cu) before the launch, on dtype bf16 and d == 128 alone.
+// by a C entry point of its own in its source (tpujob_flash_*_bf16_128 in
+// flash_fwd_any.cu, flash_dq_any.cu, flash_dkv_any.cu), which flash.route
+// picks on dtype bf16 and d == 128 alone.
 // Every other input keeps the general kernels (flash_fwd_tc.cuh,
 // flash_tc.cuh).  Each kernel is a template on the head dim, instantiated
 // at 128 only, so that a source compiles its own kernel and not the other

@@ -400,7 +400,7 @@ __global__ void __launch_bounds__(128 * (1 + DqWideSmem::kNC), 1)
 
 }  // namespace tpujob_flash_any
 
-// Host side: the launches and the C entry point.
+// Host side: the launches and the C entry points.
 
 using namespace tpujob_flash_any;
 
@@ -514,12 +514,27 @@ extern "C" int tpujob_flash_dq_any(const void* q, const void* k,
                                    void* dq, int B, int H, int D, int Sq,
                                    int Sk, float scale, int causal,
                                    int window, int is_bf16, void* stream) {
-  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535)
+  // bf16 at head dim 128 has an entry point of its own (below)
+  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535 ||
+      (D == 128 && is_bf16))
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, dout, (const float*)lse, (const float*)delta, dq,
             nullptr, nullptr, H, D, Sq, Sk, scale, causal, window};
-  // bf16 at head dim 128 takes its own kernel (flash.bf16_128)
-  if (is_bf16 && D == 128) return launch_dq_bf16_128(a, B, stream);
   return is_bf16 ? dispatch_dq_any<bf16>(a, B, stream)
                  : dispatch_dq_any<float>(a, B, stream);
+}
+
+// bf16 at head dim 128 (flash.route "bf16_128"): tpujob_flash_dq's
+// arguments, D 128 only.
+extern "C" int tpujob_flash_dq_bf16_128(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dq, int B, int H, int D, int Sq,
+                                        int Sk, float scale, int causal,
+                                        int window, void* stream) {
+  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535 || D != 128)
+    return (int)cudaErrorInvalidValue;
+  Args a = {q, k, v, dout, (const float*)lse, (const float*)delta, dq,
+            nullptr, nullptr, H, D, Sq, Sk, scale, causal, window};
+  return launch_dq_bf16_128(a, B, stream);
 }

@@ -394,7 +394,7 @@ __global__ void __launch_bounds__(tpujob_flash_fwd_tc::FwdWideGeom::
 
 }  // namespace tpujob_flash_any
 
-// Host side: the launches and the C entry point.
+// Host side: the launches and the C entry points.
 
 using namespace tpujob_flash_any;
 
@@ -506,12 +506,26 @@ extern "C" int tpujob_flash_fwd_any(const void* q, const void* k,
                                     int H, int D, int Sq, int Sk, float scale,
                                     int causal, int window, int is_bf16,
                                     void* stream) {
-  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535)
+  // bf16 at head dim 128 has an entry point of its own (below)
+  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535 ||
+      (D == 128 && is_bf16))
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
             H, D, Sq, Sk, scale, causal, window};
-  // bf16 at head dim 128 takes its own kernel (flash.bf16_128)
-  if (is_bf16 && D == 128) return launch_fwd_bf16_128(a, B, stream);
   return is_bf16 ? dispatch_fwd_any<bf16>(a, B, stream)
                  : dispatch_fwd_any<float>(a, B, stream);
+}
+
+// bf16 at head dim 128 (flash.route "bf16_128"): tpujob_flash_fwd's
+// arguments, D 128 only.
+extern "C" int tpujob_flash_fwd_bf16_128(const void* q, const void* k,
+                                         const void* v, void* o, void* lse,
+                                         int B, int H, int D, int Sq, int Sk,
+                                         float scale, int causal, int window,
+                                         void* stream) {
+  if (Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 || B * H > 65535 || D != 128)
+    return (int)cudaErrorInvalidValue;
+  Args a = {q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
+            H, D, Sq, Sk, scale, causal, window};
+  return launch_fwd_bf16_128(a, B, stream);
 }

@@ -10,7 +10,10 @@ Each ``name=path`` is one version of a source with one of the C entry
 points ``tpujob_flash_fwd`` (B1), ``tpujob_flash_dq`` (B2),
 ``tpujob_flash_dkv`` (B3) or the general kernels' ``tpujob_flash_fwd_any``,
 ``tpujob_flash_dq_any``, ``tpujob_flash_dkv_any`` (B1a-B3a); all versions
-must have the same one.  Each is compiled by ``nvcc`` with ``build.py``'s
+must have the same one.  A general source's case that ``flash.route``
+sends to the bf16 head-dim-128 kernels launches the source's
+``tpujob_flash_*_bf16_128`` entry point instead (``entry``).  Each is
+compiled by ``nvcc`` with ``build.py``'s
 flags and ``csrc/`` on the include path, into its own library.  Then, for
 each ``--case dtype:b,s,h,d`` (default: the GPT-2-medium shape in bf16,
 8,1024,16,64; causal unless ``--noncausal``), every version is checked
@@ -64,17 +67,27 @@ def parse_case(text: str) -> tuple:
     return getattr(torch, dtype), (b, s, h, d)
 
 
+def entry(stem: str, dtype, d: int) -> str:
+    """The kernel of ``stem``'s source that takes a case, by its entry
+    point's name after ``tpujob_``: a general source's bf16_128 route has
+    one of its own."""
+    if stem.endswith("_any") and flash.route(dtype, d) == "bf16_128":
+        return stem.replace("_any", "_bf16_128")
+    return stem
+
+
 def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool,
               window: int):
     """A no-argument launch of the version's kernel on `args`, and the
     outputs it writes."""
-    fn = getattr(lib, f"tpujob_{stem}")
-    fn.argtypes = build.SIGNATURES[stem][f"tpujob_{stem}"]
     q, k, v, do, lse, delta = (args[n] for n in
                                ("q", "k", "v", "do", "lse", "delta"))
     b, s, h, d = shape
+    name = entry(stem, q.dtype, d)
+    fn = getattr(lib, f"tpujob_{name}")
+    fn.argtypes = build.SIGNATURES[stem][f"tpujob_{name}"]
     stream = torch.cuda.current_stream().cuda_stream
-    dtype_arg = ((int(q.dtype == torch.bfloat16),) if stem.endswith("_any")
+    dtype_arg = ((int(q.dtype == torch.bfloat16),) if name.endswith("_any")
                  else ())
     tail = (b, h, d, s, s, d ** -0.5, int(causal), window, *dtype_arg,
             stream)
@@ -89,7 +102,7 @@ def _launcher(lib, stem: str, args: dict, shape: tuple, causal: bool,
         ptrs = (q, k, v, do, lse, delta, *outs)
 
     def launch():
-        build.check(fn(*(x.data_ptr() for x in ptrs), *tail), stem)
+        build.check(fn(*(x.data_ptr() for x in ptrs), *tail), name)
     return launch, outs
 
 
@@ -131,7 +144,8 @@ def run_case(cs, stem: str, libs: dict, versions: dict, dtype, shape: tuple,
     for n in order + order:
         ms[n].append(cs.time_ms(runs[n][0], iters=50, warmup=5))
     for n in runs:
-        cs.emit({"version": n, "source": versions[n], "kernel": stem,
+        cs.emit({"version": n, "source": versions[n],
+                 "kernel": entry(stem, dtype, d),
                  "dtype": str(dtype).replace("torch.", ""),
                  "shape": list(shape), "causal": causal, "window": window,
                  "ms": ms[n],

@@ -23,17 +23,23 @@ and an unchanged one is reused.  Nine sources, one library each:
   by TMA; ``workloads/moe_gemm.py``), the row kernels' entry point taking
   ``transposed`` for dX.
 
-``workloads/flash.py`` chooses between the two sets by dtype and head
-dim before the launch.  The hash of the sources covers the
-instantiations too.  All sources compile at once, one ``nvcc`` process
-each.
+Each ``_any`` source also exports the bf16 head-dim-128 kernels' own
+entry point (``tpujob_flash_*_bf16_128``); ``workloads/flash.py``'s
+``route`` chooses among the three sets by dtype and head dim before the
+launch.  The hash of the sources covers the instantiations too.  All
+sources compile at once, one ``nvcc`` process each.
+
+Every wrapper launches through ``launch``, which counts each launch in
+``LAUNCHES`` under the wrapper's name for its kernel; a captured step's
+replays add what its capture recorded (``train_lib._Graphs``).
 
     from tpujob_torch.kernels import build
-    lib = build.load("flash_fwd")      # ctypes.CDLL, argtypes set
+    build.launch("mark_begin", "tpujob_mark", 0, word, stream)
     build.load_all()                   # every library, built in parallel
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -78,18 +84,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream
         "tpujob_flash_fwd_any": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
                                  _i, _i, _i, _p],
+        # as tpujob_flash_fwd
+        "tpujob_flash_fwd_bf16_128": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                      _f, _i, _i, _p],
     },
     "flash_dq_any": {
         # q, k, v, dO, lse, delta, dq, B, H, D, Sq, Sk, scale, causal,
         # window, is_bf16, stream
         "tpujob_flash_dq_any": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                 _i, _f, _i, _i, _i, _p],
+        # as tpujob_flash_dq
+        "tpujob_flash_dq_bf16_128": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                                     _i, _i, _f, _i, _i, _p],
     },
     "flash_dkv_any": {
         # q, k, v, dO, lse, delta, dk, dv, B, H, D, Sq, Sk, scale, causal,
         # window, is_bf16, stream
         "tpujob_flash_dkv_any": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                                  _i, _i, _f, _i, _i, _i, _p],
+        # as tpujob_flash_dkv
+        "tpujob_flash_dkv_bf16_128": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+                                      _i, _i, _i, _f, _i, _i, _p],
     },
     "mark": {
         # which, word, stream
@@ -106,6 +121,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tpujob_moe_gemm_weights": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
 }
+
+# the source stem of each entry point
+_STEM = {sym: stem for stem, syms in SIGNATURES.items() for sym in syms}
+
+# kernel launches since the last reset_launches(), by the name each
+# wrapper gives its kernel
+LAUNCHES: collections.Counter[str] = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -196,3 +218,14 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def launch(name: str, symbol: str, *args) -> None:
+    """Call the entry point ``symbol`` with ``args`` (its library built at
+    first use), raise if it fails, and count one launch of ``name``."""
+    check(getattr(load(_STEM[symbol]), symbol)(*args), name)
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

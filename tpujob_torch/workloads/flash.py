@@ -1,38 +1,34 @@
 """Flash attention: the port of ``tpujob/workloads/flash.py``.
 
-Six hand-written CUDA kernels for Hopper replace the three Pallas ones,
-two for each:
+Hand-written CUDA kernels for Hopper replace the three Pallas ones: a
+forward, a dQ and a dK/dV kernel (``_flash_kernel``, ``_dq_kernel``,
+``_dkv_kernel``) on each of three routes.  ``route`` picks one by dtype
+and head dim before the launch; it is the only place that choice is made:
 
-=========================  ===========================  =================
-kernel (wrapper)           source                       replaces
-=========================  ===========================  =================
-``flash_fwd_cuda``         ``csrc/flash_fwd.cu``        ``_flash_kernel``
-``flash_dq_cuda``          ``csrc/flash_dq.cu``         ``_dq_kernel``
-``flash_dkv_cuda``         ``csrc/flash_dkv.cu``        ``_dkv_kernel``
-``flash_fwd_any_cuda``     ``csrc/flash_fwd_any.cu``    ``_flash_kernel``
-``flash_dq_any_cuda``      ``csrc/flash_dq_any.cu``     ``_dq_kernel``
-``flash_dkv_any_cuda``     ``csrc/flash_dkv_any.cu``    ``_dkv_kernel``
-=========================  ===========================  =================
+================  ======================================  ===================
+route             kernels (source)                        takes
+================  ======================================  ===================
+``tuned``         ``flash_{fwd,dq,dkv}``                  bf16 at head dim
+                  (``csrc/flash_{fwd,dq,dkv}.cu``)        64 or 32
+``bf16_128``      ``flash_{fwd,dq,dkv}_bf16_128``         bf16 at head dim
+                  (``csrc/flash_*_any.cu`` on             128
+                  ``csrc/flash_bf16_128.cuh``)
+``any``           ``flash_{fwd,dq,dkv}_any``              fp32 or bf16, the
+                  (``csrc/flash_{fwd,dq,dkv}_any.cu``)    rest of 1 to 256
+================  ======================================  ===================
 
-The first three are the tuned wgmma/TMA kernels and take bf16 at head
-dim 64 or 32 (``KERNEL_HEAD_DIMS``).  The ``_any`` three take fp32 or
-bf16 at any head dim from 1 to ``MAX_HEAD_DIM`` (256), on the tensor
-cores (wgmma; fp32 inputs as three tf32 passes, bf16 with P and dS in two
-bf16 parts); fp32 at head dims over 128 takes a wgmma kernel of its own
-in each, and bf16 at head dim exactly 128 one of its own in each
-(``csrc/flash_bf16_128.cuh``, chosen by each ``_any`` C entry point;
-``bf16_128`` is the predicate, ``ROUTE_LAUNCHES`` counts its launches).
-``flash_forward`` and ``flash_backward`` choose by dtype and head dim
-before the launch (``tuned``): bf16 at 64 or 32 takes the tuned kernels,
-anything else the ``_any`` ones.  No wrapper gives way to another kernel, or to the plain
-version, when a build or a launch fails: it raises.
+The tuned kernels are wgmma/TMA kernels; the ``_any`` ones run on the
+tensor cores too (fp32 inputs as three tf32 passes, bf16 with P and dS in
+two bf16 parts), fp32 at head dims over 128 on a kernel of its own in
+each.  A kernel's name is its C entry point (``tpujob_<name>``) and its
+count in ``build.LAUNCHES``.  No wrapper gives way to another kernel, or
+to the plain version, when a build or a launch fails: it raises.
 
 Beside the kernels sits their plain PyTorch version with the same math
 (``flash_forward_ref``, ``flash_dq_ref``, ``flash_dkv_ref``).  The
-dispatch takes it only for tensors on the CPU; a kernel wrapper on a
-tensor off the card raises.  ``LAUNCHES`` counts kernel launches under
-each kernel's own name, one per launch, so a run can show which kernels
-it went through.
+dispatch takes it only for tensors on the CPU; a kernel wrapper
+(``launch_fwd``, ``launch_dq``, ``launch_dkv``) on a tensor off the card
+raises.
 
 Unlike the Pallas path, a sequence that does not tile is not sent to dense
 attention: the kernels mask the ragged edge themselves, so a CUDA tensor
@@ -53,50 +49,47 @@ from tpujob_torch.workloads.parallel import _gqa_repeat
 
 NEG_INF = -1e30  # finite, as in the reference kernels
 
-# kernel launches since the last reset_launches(), by kernel
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "flash_fwd_any": 0, "flash_dq_any": 0, "flash_dkv_any": 0}
-# of those, the _any launches that took the kernels of their bf16 head-dim
-# 128 route (bf16_128), by kernel
-ROUTE_LAUNCHES = {"bf16_128": {"flash_fwd_any": 0, "flash_dq_any": 0,
-                               "flash_dkv_any": 0}}
-
 # the head dims the tuned bf16 kernels are instantiated for (each source's
 # template on D, launched by its C entry point's switch)
 KERNEL_HEAD_DIMS = (64, 32)
 # the largest head dim the _any kernels take (their shared-memory tiles)
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+KINDS = ("fwd", "dq", "dkv")
+ROUTES = ("tuned", "bf16_128", "any")
 
 
 def check_supported(dtype: torch.dtype, head_dim: int) -> None:
     """Raise unless a CUDA kernel takes this dtype and head dim: fp32 or
     bf16 at head dim 1 to ``MAX_HEAD_DIM``.  The one owner of that limit:
     model constructors call it before touching the card, and every kernel
-    launch calls it again."""
+    launch calls it again (``route``)."""
     if dtype not in DTYPES or not 1 <= head_dim <= MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the flash kernels take fp32 or bf16 at head dim 1 to "
             f"{MAX_HEAD_DIM}, got {dtype} at head dim {head_dim}")
 
 
-def tuned(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the tuned wgmma kernels take this input (bf16 at head dim 64
-    or 32); every other supported input takes the ``_any`` kernels."""
-    return dtype == torch.bfloat16 and head_dim in KERNEL_HEAD_DIMS
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels that take this input: ``"tuned"`` for bf16 at head dim
+    64 or 32, ``"bf16_128"`` for bf16 at exactly 128, ``"any"`` for every
+    other input ``check_supported`` takes (it raises for the rest)."""
+    check_supported(dtype, head_dim)
+    if dtype == torch.bfloat16 and head_dim in KERNEL_HEAD_DIMS:
+        return "tuned"
+    if dtype == torch.bfloat16 and head_dim == 128:
+        return "bf16_128"
+    return "any"
 
 
-def bf16_128(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether an ``_any`` kernel's C entry point sends this input to its
-    own bf16 head-dim-128 kernel (``csrc/flash_bf16_128.cuh``): bf16 at head
-    dim exactly 128, as the entry points' ``is_bf16 && D == 128``.  The
-    wrappers count ``ROUTE_LAUNCHES`` and check TMA's alignment by it."""
-    return dtype == torch.bfloat16 and head_dim == 128
+def kernel_name(kind: str, route_: str) -> str:
+    """``kind``'s kernel (fwd, dq, dkv) on a route: ``flash_fwd``,
+    ``flash_fwd_bf16_128``, ``flash_fwd_any``, ..."""
+    return f"flash_{kind}" + ("" if route_ == "tuned" else f"_{route_}")
 
 
-def reset_launches() -> None:
-    for counts in (LAUNCHES, *ROUTE_LAUNCHES.values()):
-        counts.update(dict.fromkeys(counts, 0))
+# every flash kernel, by route then kind
+KERNELS = tuple(kernel_name(k, r) for r in ROUTES for k in KINDS)
 
 
 # ---------------------------------------------------------------------------
@@ -187,172 +180,67 @@ def flash_backward_ref(q, k, v, o, lse, do, *, causal: bool, scale: float,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(name: str, *tensors, any_kernel: bool = False) -> None:
-    """Raise unless ``name``'s kernel takes these tensors: on the card,
-    contiguous (16-byte aligned for the TMA of the tuned kernels and of the
-    ``bf16_128`` route), q/k/v/dO of one dtype the kernel takes at this head
-    dim, lse and delta fp32."""
-    q = tensors[0]
-    aligned = not any_kernel or bf16_128(q.dtype, q.shape[-1])
-    for x in tensors:
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
-                             f"{x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if aligned and x.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    check_supported(q.dtype, q.shape[-1])
-    if not any_kernel and not tuned(q.dtype, q.shape[-1]):
-        raise NotImplementedError(
-            f"{name}: the tuned kernel takes bf16 at head dim "
-            f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {q.dtype} at "
-            f"head dim {q.shape[-1]} (the _any kernels take it)")
-    if any(x.dtype != q.dtype for x in tensors[1:4]):
-        raise TypeError(f"{name}: q/k/v/dO must share one dtype, got "
-                        f"{[x.dtype for x in tensors[:4]]}")
-    if any(x.dtype != torch.float32 for x in tensors[4:]):
-        raise TypeError(f"{name}: lse and delta must be fp32")
-
-
 def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _count_any(name: str, q) -> None:
-    """One launch of the ``_any`` kernel ``name`` on inputs like ``q``."""
-    LAUNCHES[name] += 1
-    if bf16_128(q.dtype, q.shape[-1]):
-        ROUTE_LAUNCHES["bf16_128"][name] += 1
-
-
-def flash_fwd_cuda(q, k, v, *, causal: bool, scale: float, window: int = 0):
-    """Launch the tuned forward kernel: (o [b, sq, h, d] bf16, lse [b, h, sq] fp32)."""
+def _launch(kind: str, ins: tuple, outs: tuple, causal: bool, scale: float,
+            window: int) -> None:
+    """Launch ``kind``'s kernel on the route of ``ins`` (q, k, v, then dO,
+    lse and delta for the backward kernels), writing ``outs``.  Raises
+    unless the kernel takes the inputs: on the card, contiguous, 16-byte
+    aligned where the route reads by TMA (not ``any``), q/k/v/dO of one
+    dtype ``route`` takes at this head dim, lse and delta fp32."""
     from tpujob_torch.kernels import build
 
-    _check_kernel_args("flash_fwd", q, k, v)
+    q = ins[0]
+    for x in ins:
+        if x.device.type != "cuda":
+            raise ValueError(f"flash_{kind}: the kernel takes CUDA tensors, "
+                             f"got {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"flash_{kind}: inputs must be contiguous")
+    route_ = route(q.dtype, q.shape[-1])
+    name = kernel_name(kind, route_)
+    if route_ != "any" and any(x.data_ptr() % 16 for x in ins):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if any(x.dtype != q.dtype for x in ins[1:4]):
+        raise TypeError(f"{name}: q/k/v/dO must share one dtype, got "
+                        f"{[x.dtype for x in ins[:4]]}")
+    if any(x.dtype != torch.float32 for x in ins[4:]):
+        raise TypeError(f"{name}: lse and delta must be fp32")
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_fwd")
+    is_bf16 = (int(q.dtype == torch.bfloat16),) if route_ == "any" else ()
     with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, d, sq, sk, float(scale), int(causal),
-            int(window), _stream(q))
-    build.check(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        build.launch(name, f"tpujob_{name}",
+                     *(x.data_ptr() for x in ins + outs), b, h, d, sq,
+                     ins[1].shape[1], float(scale), int(causal), int(window),
+                     *is_bf16, _stream(q))
+
+
+def launch_fwd(q, k, v, *, causal: bool, scale: float, window: int = 0):
+    """The forward kernel: (o [b, sq, h, d] in q's dtype, lse [b, h, sq]
+    fp32)."""
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    _launch("fwd", (q, k, v), (o, lse), causal, scale, window)
     return o, lse
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
-                  window: int = 0):
-    """Launch the tuned dQ kernel: dq [b, sq, h, d] bf16."""
-    from tpujob_torch.kernels import build
-
-    _check_kernel_args("flash_dq", q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
+def launch_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+              window: int = 0):
+    """The dQ kernel: dq [b, sq, h, d] in q's dtype."""
     dq = torch.empty_like(q)
-    lib = build.load("flash_dq")
-    with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, d, sq, sk,
-            float(scale), int(causal), int(window), _stream(q))
-    build.check(rc, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _launch("dq", (q, k, v, do, lse, delta), (dq,), causal, scale, window)
     return dq
 
 
-def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
-                   window: int = 0):
-    """Launch the tuned dK/dV kernel: (dk, dv) [b, sk, h, d] bf16."""
-    from tpujob_torch.kernels import build
-
-    _check_kernel_args("flash_dkv", q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = build.load("flash_dkv")
-    with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, d, sq, sk, float(scale), int(causal), int(window),
-            _stream(q))
-    build.check(rc, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
-    return dk, dv
-
-
-def flash_fwd_any_cuda(q, k, v, *, causal: bool, scale: float,
-                       window: int = 0):
-    """Launch the general forward kernel (fp32 or bf16, head dim 1-256):
-    (o [b, sq, h, d] in q's dtype, lse [b, h, sq] fp32)."""
-    from tpujob_torch.kernels import build
-
-    _check_kernel_args("flash_fwd_any", q, k, v, any_kernel=True)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_fwd_any")
-    with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_fwd_any(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, d, sq, sk, float(scale), int(causal),
-            int(window), int(q.dtype == torch.bfloat16), _stream(q))
-    build.check(rc, "flash_fwd_any")
-    _count_any("flash_fwd_any", q)
-    return o, lse
-
-
-def flash_dq_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                      scale: float, window: int = 0):
-    """Launch the general dQ kernel: dq [b, sq, h, d] in q's dtype."""
-    from tpujob_torch.kernels import build
-
-    _check_kernel_args("flash_dq_any", q, k, v, do, lse, delta,
-                       any_kernel=True)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    dq = torch.empty_like(q)
-    lib = build.load("flash_dq_any")
-    with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_dq_any(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, d, sq, sk,
-            float(scale), int(causal), int(window),
-            int(q.dtype == torch.bfloat16), _stream(q))
-    build.check(rc, "flash_dq_any")
-    _count_any("flash_dq_any", q)
-    return dq
-
-
-def flash_dkv_any_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                       scale: float, window: int = 0):
-    """Launch the general dK/dV kernel: (dk, dv) [b, sk, h, d] in k's
-    dtype."""
-    from tpujob_torch.kernels import build
-
-    _check_kernel_args("flash_dkv_any", q, k, v, do, lse, delta,
-                       any_kernel=True)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = build.load("flash_dkv_any")
-    with torch.cuda.device(q.device):
-        rc = lib.tpujob_flash_dkv_any(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, d, sq, sk, float(scale), int(causal), int(window),
-            int(q.dtype == torch.bfloat16), _stream(q))
-    build.check(rc, "flash_dkv_any")
-    _count_any("flash_dkv_any", q)
+def launch_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+               window: int = 0):
+    """The dK/dV kernel: (dk, dv) [b, sk, h, d] in k's dtype."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("dkv", (q, k, v, do, lse, delta), (dk, dv), causal, scale, window)
     return dk, dv
 
 
@@ -372,30 +260,25 @@ def _on_cpu(*tensors) -> bool:
 
 
 def flash_forward(q, k, v, *, causal: bool, scale: float, window: int = 0):
-    """(o, lse): the plain version on CPU tensors; on CUDA ones the tuned
-    kernel where it takes the input (``tuned``), else the ``_any`` one."""
+    """(o, lse): the plain version on CPU tensors, on CUDA ones the kernel
+    of the input's route."""
     if _on_cpu(q, k, v):
         return flash_forward_ref(q, k, v, causal=causal, scale=scale,
                                  window=window)
-    fwd = flash_fwd_cuda if tuned(q.dtype, q.shape[-1]) else flash_fwd_any_cuda
-    return fwd(q, k, v, causal=causal, scale=scale, window=window)
+    return launch_fwd(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool, scale: float,
                    window: int = 0):
-    """(dq, dk, dv): plain versions on CPU tensors; on CUDA ones the tuned
-    kernels or the ``_any`` ones, chosen as ``flash_forward`` chooses."""
+    """(dq, dk, dv): plain versions on CPU tensors, on CUDA ones the
+    kernels of the input's route."""
     if _on_cpu(q, k, v, o, lse, do):
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal,
                                   scale=scale, window=window)
     delta = attention_delta(o, do)
     kw = dict(causal=causal, scale=scale, window=window)
-    if tuned(q.dtype, q.shape[-1]):
-        dq_fn, dkv_fn = flash_dq_cuda, flash_dkv_cuda
-    else:
-        dq_fn, dkv_fn = flash_dq_any_cuda, flash_dkv_any_cuda
-    dq = dq_fn(q, k, v, do, lse, delta, **kw)
-    dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+    dq = launch_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = launch_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
 
 

@@ -23,16 +23,12 @@ kernel                     computes
 Their bound and design are in the source's head.  Beside them sits the
 plain version, a loop over the experts with the same arithmetic
 (``gemm_ref``, ``gemm_t_ref``, ``gemm_dw_ref``); the wrappers take it for
-CPU tensors only, and on the card launch the kernel or raise.
-``LAUNCHES`` counts the kernels by name; ``train_lib``'s captured step
-re-adds what a replay ran.
+CPU tensors only, and on the card launch the kernel or raise.  Each
+launch counts in ``build.LAUNCHES`` as ``moe_gemm_{fwd,dx,dw}``.
 """
 from typing import NamedTuple
 
 import torch
-
-# kernel launches by kernel
-LAUNCHES = {"moe_gemm_fwd": 0, "moe_gemm_dx": 0, "moe_gemm_dw": 0}
 
 # rows of a block of the row kernels (csrc/moe_gemm.cu's kBM): the unit of
 # ``Groups.tiles``
@@ -140,12 +136,10 @@ def _rows_launch(kind: str, a, w, g: Groups, transposed: bool):
     if a.shape[1] != k_dim:
         raise ValueError(f"{name}: rows of {a.shape[1]}, experts take {k_dim}")
     out = a.new_empty(a.shape[0], n_dim)
-    rc = build.load("moe_gemm").tpujob_moe_gemm_rows(
-        a.data_ptr(), w.data_ptr(), out.data_ptr(), g.offsets.data_ptr(),
-        g.tiles.data_ptr(), a.shape[0], k_dim, n_dim, experts,
-        int(transposed), _stream(a))
-    build.check(rc, name)
-    LAUNCHES[name] += 1
+    build.launch(name, "tpujob_moe_gemm_rows", a.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), g.offsets.data_ptr(), g.tiles.data_ptr(),
+                 a.shape[0], k_dim, n_dim, experts, int(transposed),
+                 _stream(a))
     return out
 
 
@@ -181,11 +175,9 @@ def gemm_dw(a: torch.Tensor, g_out: torch.Tensor, g: Groups,
     k_dim, n_dim = a.shape[1], g_out.shape[1]
     dw = torch.empty(experts, k_dim, n_dim, dtype=torch.float32,
                      device=a.device)
-    rc = build.load("moe_gemm").tpujob_moe_gemm_weights(
-        a.data_ptr(), g_out.data_ptr(), dw.data_ptr(), g.offsets.data_ptr(),
-        a.shape[0], k_dim, n_dim, experts, _stream(a))
-    build.check(rc, "moe_gemm_dw")
-    LAUNCHES["moe_gemm_dw"] += 1
+    build.launch("moe_gemm_dw", "tpujob_moe_gemm_weights", a.data_ptr(),
+                 g_out.data_ptr(), dw.data_ptr(), g.offsets.data_ptr(),
+                 a.shape[0], k_dim, n_dim, experts, _stream(a))
     return dw
 
 

@@ -13,7 +13,8 @@ either class.
 ``UPDATES`` counts the parameter tensors each route updated: ``"kernel"``
 here, ``"torch"`` by ``count_torch``, the hook ``train_lib.adamw`` puts on
 torch's AdamW; a captured step's replays add what its capture recorded
-(``train_lib._Graphs``)."""
+(``train_lib._Graphs``).  The kernel's launches count in
+``build.LAUNCHES`` as ``adamw``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -83,11 +84,10 @@ def launch(group, params, grads, exp_avgs, exp_avg_sqs, steps) -> None:
     ptrs = np.array([[t.data_ptr() for t in ts] for ts in zip(*tensors)],
                     dtype=np.int64)
     sizes = np.array([t.numel() for t in tensors[0]], dtype=np.int64)
-    rc = build.load("adamw").tpujob_adamw(
-        ptrs.ctypes.data, sizes.ctypes.data, len(sizes), lr.data_ptr(),
-        float(group["weight_decay"]), b1, b2, 1 - b1, 1 - b2,
-        float(group["eps"]), torch.cuda.current_stream(device).cuda_stream)
-    build.check(rc, "adamw")
+    build.launch("adamw", "tpujob_adamw", ptrs.ctypes.data, sizes.ctypes.data,
+                 len(sizes), lr.data_ptr(), float(group["weight_decay"]), b1,
+                 b2, 1 - b1, 1 - b2, float(group["eps"]),
+                 torch.cuda.current_stream(device).cuda_stream)
 
 
 class AdamW(torch.optim.AdamW):

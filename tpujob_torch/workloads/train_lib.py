@@ -60,8 +60,9 @@ import torch.distributed as tdist
 from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
+from tpujob_torch.kernels import build
 from tpujob_torch.workloads import distributed as dist
-from tpujob_torch.workloads import flash, moe_gemm, optim
+from tpujob_torch.workloads import optim
 
 
 class SummaryWriter:
@@ -305,14 +306,11 @@ class PhaseMarks:
     def __call__(self, phase: str) -> None:
         if self.device.type != "cuda":
             return
-        from tpujob_torch.kernels import build
-
         if self._word is None:
             self._word = torch.zeros(1, dtype=torch.int32, device=self.device)
-        rc = build.load("mark").tpujob_mark(
-            self.PHASES.index(phase), self._word.data_ptr(),
-            torch.cuda.current_stream(self.device).cuda_stream)
-        build.check(rc, f"mark {phase}")
+        build.launch(f"mark_{phase}", "tpujob_mark", self.PHASES.index(phase),
+                     self._word.data_ptr(),
+                     torch.cuda.current_stream(self.device).cuda_stream)
 
 
 def add_profile_flags(parser) -> None:
@@ -694,11 +692,9 @@ def check_baked_lr(optimizer: torch.optim.Optimizer, values) -> None:
             f"{sorted(set(values))}")
 
 
-# what the card ran, counted on the host: flash kernel launches (and those
-# of the bf16_128 route), parameter tensors updated by each AdamW route and
-# the grouped-GEMM launches
-_COUNTS = (flash.LAUNCHES, flash.ROUTE_LAUNCHES["bf16_128"], optim.UPDATES,
-           moe_gemm.LAUNCHES)
+# what the card ran, counted on the host: kernel launches by kernel and
+# parameter tensors updated by each AdamW route
+_COUNTS = (build.LAUNCHES, optim.UPDATES)
 
 
 class _Graphs:
@@ -719,10 +715,9 @@ class _Graphs:
     Inputs are static buffers: each call copies its batch into them.  A
     replay overwrites its outputs, so each call returns a copy.  An lr
     that is a float is baked into a graph: a schedule that moves it
-    raises.  ``flash.LAUNCHES`` and ``ROUTE_LAUNCHES``, ``optim.UPDATES``
-    and ``moe_gemm.LAUNCHES`` keep counting what the card ran: what a capture
-    records is taken back out (the card ran none of it) and added again at
-    each replay."""
+    raises.  ``build.LAUNCHES`` and ``optim.UPDATES`` keep counting what
+    the card ran: what a capture records is taken back out (the card ran
+    none of it) and added again at each replay."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -782,7 +777,9 @@ class _Graphs:
             self.pool = self.pool or graph.pool()
             recorded = []
             for counts, was in zip(_COUNTS, before):
-                recorded.append({k: counts[k] - n for k, n in was.items()})
+                recorded.append({k: n - was.get(k, 0)
+                                 for k, n in counts.items()})
+                counts.clear()
                 counts.update(was)
             self.graphs[key] = (graph, out, recorded)
         graph, out, recorded = self.graphs[key]
